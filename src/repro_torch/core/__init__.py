@@ -1,0 +1,52 @@
+# The paper's primary contribution: hybrid offline-online scheduling for
+# LLM inference under PD Competition (binpack + Algorithm 1 + Lagrangian
+# iteration rule). A copy of the reference package's framework-free modules
+# that the paged serving engine uses; the simulator, MIP, heterogeneous
+# fleet and RL policy modules are not part of the port yet (see ROADMAP.md).
+from .types import (
+    Request,
+    ClientState,
+    StageKind,
+    StageRecord,
+    ScheduleTrace,
+    FleetReport,
+    Phase,
+    make_requests,
+)
+from .cost_model import CostModel, PrefillLevel, PAPER_COST_MODEL
+from .offline import (
+    OfflineResult,
+    LowerBound,
+    solve_offline,
+    lpt_assign,
+    local_search,
+    milp_assign,
+    round_robin_assign,
+    evaluate_assignment,
+    split_requests,
+    request_weights,
+    theoretical_lower_bound,
+)
+from .online import (
+    RequestScheduler,
+    StaticBacklogScheduler,
+    SortingPreemptiveScheduler,
+    GlobalQueueScheduler,
+    ArrivalQueueScheduler,
+    build_clients,
+)
+from .iteration import (
+    IterationPolicy,
+    PrefillFirstPolicy,
+    DecodeFirstPolicy,
+    LagrangianPolicy,
+    BalancedLagrangianPolicy,
+    AmortizedPolicy,
+    UtilizationWeightedPolicy,
+    DynamicBatchPolicy,
+    TimedPolicy,
+    SystemSnapshot,
+    CandidateBatch,
+    POLICIES,
+    make_policy,
+)
