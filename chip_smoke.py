@@ -9,24 +9,34 @@ Phases, each printing its seconds on a line of its own:
              name and power limit as nvidia-smi reports them;
 2. build   — compile the hand-written kernels from src/repro_torch/kernels/csrc
              with nvcc for sm_90a (one nvcc per source, all at once);
-3. kernels — hold each kernel against its plain PyTorch version on the card in
-             bf16, at the serving shapes of Qwen3-8B (8 slots, 32 query and 8 KV
-             heads, head_dim 128, pages of 16, up to 640 tokens a slot,
-             shuffled pages and -1 table entries) and at the smoke shapes
-             (head_dim 16); time the kernel, the plain version and one
-             PyTorch library call (scaled_dot_product_attention on the
-             gathered K/V, timed here only) and compute the kernel's bound;
-4. parity  — the smoke model in float32 on the card (kernels) against the
-             same model on the CPU (plain versions): prefill and decode logits;
+3. kernels — hold each kernel against its plain PyTorch version on the card,
+             at the serving shapes of Qwen3-8B (8 slots, 32 query and 8 KV
+             heads, head_dim 128, up to 640 tokens a slot: paged decode and
+             paged chunk flash over shuffled pages and -1 table entries in
+             bf16; dense decode over the strided (B, S, KV, D) cache view with
+             ragged lengths including 0, in bf16 and float32; dense flash at
+             the dense prefill's shape) and at the smoke shapes (head_dim 16);
+             time the kernel, the plain version and one PyTorch library call
+             (scaled_dot_product_attention on the same inputs, timed here
+             only) and compute the kernel's bound;
+4. parity  — float32 smoke models on the card (kernels) against the same
+             models on the CPU (plain versions): the paged path (chunked
+             prefill, decode, fused decode) and the dense path (whole-prompt
+             prefill, fused decode) of the smoke Qwen3, and the dense path of
+             a sliding-window config whose ring wraps; logits within 1e-4,
+             identical greedy tokens;
 5. serve   — full-size Qwen3-8B (36 layers, bf16, random weights from a seed)
-             behind the port's Engine: paged KV, mixed steps, hybrid
-             scheduling, 16 GSM8K-shaped requests (outputs capped at 128);
-             checks the trace, the budgets, the token ids and that both
-             kernels ran exactly as often as the schedule implies.
+             behind the port's Engine, twice on the same weights and the same
+             16 GSM8K-shaped requests (outputs capped at 128) under hybrid
+             scheduling: the paged layout with mixed steps, then the dense
+             layout with whole-prompt prefill stages and fused decode; checks
+             the trace, the budgets, the token ids and that each kernel ran
+             exactly as often as each schedule implies.
 
-Then one JSON line naming every ported kernel with its launches in the serve
-and its times, and, last, {"ok": true, "device": {...}}. Any failed check
-raises, so the script exits non-zero and prints no result.
+Then one JSON line naming every ported kernel (kernel 2 once per entry) with
+its launches in each serve and its times, and, last, {"ok": true, "device":
+{...}}. Any failed check raises, so the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -42,7 +52,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
+KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
+SERVE_LEN = 640                                     # tokens a slot can hold
+DENSE_BUCKETS = (64, 128, 256)                      # covers the workload's prompts
 
 
 class SmokeFailure(RuntimeError):
@@ -139,6 +152,46 @@ def chunk_case(torch, np, h, kv, d, r=8, c=32, bs=16, mb=40, seed=1):
     return q, k, v, t(tables), t(starts), t(valid), chunk_lens
 
 
+def dense_decode_case(torch, np, h, kv, d, dtype, b=8, s=SERVE_LEN, seed=3):
+    """q (B, H, D) and the (B, S, KV, D) layer slice of a dense cache seen as
+    (B, KV, S, D), as the model passes it; ragged lengths, the last 0."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, s + 1, size=b).astype(np.int32)
+    lengths[-1] = 0                                # an idle decode lane
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=g).to(dtype).transpose(1, 2)
+    return q, k, v, torch.from_numpy(lengths).cuda()
+
+
+def dense_prefill_case(torch, h, kv, d, b, s, seed=4):
+    """Bucket-padded prompts as the dense prefill holds them: bshk q/k/v seen
+    as (B, H, S, D) / (B, KV, S, D) views."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda heads: torch.randn(b, s, heads, d, device="cuda", generator=g).bfloat16().transpose(1, 2)
+    return mk(h), mk(kv), mk(kv)
+
+
+def dense_decode_bound(q, k, lengths):
+    b, h, d = q.shape
+    kv = k.shape[1]
+    toks = int(lengths.sum())
+    nbytes = 2 * q.numel() * q.element_size() + lengths.numel() * 4
+    nbytes += 2 * toks * kv * d * k.element_size()          # K and V of live tokens
+    flops = 4 * d * h * toks
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dense_flash_bound(q, k):
+    b, h, s, d = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()   # q, out, k, v
+    flops = 4 * d * h * b * s * (s + 1) // 2                      # causal pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def decode_bound(q, k, tables, lengths):
     b, _, h, d = q.shape
     kv = k.shape[0]
@@ -174,9 +227,10 @@ def sdpa_inputs(q, k_pages, v_pages, tables):
     return q.transpose(1, 2), expand(kc), expand(vc)
 
 
-def run_kernel_checks(torch, np):
+def run_kernel_checks(torch, np, prefill_len):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.models.cache import paged_key_positions
@@ -184,12 +238,50 @@ def run_kernel_checks(torch, np):
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     for label, (h, kv, d) in (("qwen3-8b", (32, 8, 128)), ("smoke", (4, 2, 16))):
+        # kernel 3: dense decode attention, both dtypes; timed in bf16
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt)
+            check(not k.is_contiguous(), "decode case must be the strided cache view")
+            out = da.decode_attention(q, k, v, lengths)
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[1]
+            err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
+            check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
+            print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}", flush=True)
+        g = h // kv
+        qs = q[:, :, None]
+        ks, vs = (x.repeat_interleave(g, dim=1).contiguous() for x in (k, v))
+        mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None]
+        ms = time_ms(torch, lambda: da.decode_attention(q, k, v, lengths), flush)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lengths), flush)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), flush)
+        bound_ms, bound_by = dense_decode_bound(q, k, lengths)
+        results[("decode_attention", label)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
+        # kernel 2, dense entry, at the dense prefill's shape: 8 prompts of
+        # the largest bucket the serve uses, causal
+        q, k, v = dense_prefill_case(torch, h, kv, d, 8, prefill_len)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=True), KERNEL_TOL["bfloat16"])
+        qs = q.contiguous()
+        ks, vs = (x.repeat_interleave(g, dim=1).contiguous() for x in (k, v))
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), flush)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=True), flush)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), flush)
+        bound_ms, bound_by = dense_flash_bound(q, k)
+        results[("flash_attention_dense", label)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+        )
         # kernel 1: paged decode attention
         q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
         out = pda.paged_decode_attention(q, k, v, tables, lengths)
         torch.cuda.synchronize()
         err = max_err(torch, out, pda.paged_decode_attention_plain(q, k, v, tables, lengths),
-                      TOL["bfloat16"])
+                      KERNEL_TOL["bfloat16"])
         mask = (paged_key_positions(tables, lengths, k.shape[2]) >= 0)[:, None, None, :]
         qs, ks, vs = sdpa_inputs(q, k, v, tables)
         ms = time_ms(torch, lambda: pda.paged_decode_attention(q, k, v, tables, lengths), flush)
@@ -206,7 +298,7 @@ def run_kernel_checks(torch, np):
         out = fa.paged_chunk_attention(q, k, v, tables, starts, valid)
         torch.cuda.synchronize()
         ref = fa.paged_chunk_attention_plain(q, k, v, tables, starts, valid)
-        err = max_err(torch, out, ref, TOL["bfloat16"])
+        err = max_err(torch, out, ref, KERNEL_TOL["bfloat16"])
         check(bool((out[-1] == 0).all()), "pad chunk row is not zero")
         kpos = paged_key_positions(tables, valid, k.shape[2])
         qpos = starts.long()[:, None] + torch.arange(q.shape[1], device="cuda")[None, :]
@@ -222,7 +314,8 @@ def run_kernel_checks(torch, np):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
         )
-        # the dense entry of kernel 2, against its plain version
+        # the dense entry of kernel 2 under windows and without the causal
+        # mask, against its plain version
         g = torch.Generator(device="cuda").manual_seed(2)
         dq = torch.randn(2, h, 256, d, device="cuda", generator=g).bfloat16()
         dk = torch.randn(2, kv, 256, d, device="cuda", generator=g).bfloat16()
@@ -231,11 +324,11 @@ def run_kernel_checks(torch, np):
             out = fa.flash_attention(dq, dk, dv, causal=causal, window=window)
             torch.cuda.synchronize()
             derr = max_err(torch, out, fa.flash_attention_plain(
-                dq, dk, dv, causal=causal, window=window), TOL["bfloat16"])
+                dq, dk, dv, causal=causal, window=window), KERNEL_TOL["bfloat16"])
             print(f"  flash_attention dense {label} causal={causal} window={window}: "
                   f"max_abs_err={derr:.3g}")
     for (name, label), r in results.items():
-        print(f"  {name} [{label}] bf16: max_abs_err={r['max_abs_err']:.4g} "
+        print(f"  {name} [{label}] bf16 timed: max_abs_err={r['max_abs_err']:.4g} "
               f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
               f"sdpa={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
@@ -245,24 +338,66 @@ def run_kernel_checks(torch, np):
 # --------------------------------------------------------------------------- #
 # Small-model parity: kernels on the card against plain versions on the CPU   #
 # --------------------------------------------------------------------------- #
+def _card_and_cpu(torch, cfg):
+    """The same float32 model and weights on the CPU and on the card."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import TransformerLM
+
+    cpu = TransformerLM(cfg, device="cpu")
+    params_cpu = cpu.init_params(seed=0)
+    return (cpu, params_cpu), (TransformerLM(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))
+
+
+def _compare(torch, outs, what):
+    """outs: two (prefill logits, decode logits, token block) triples, CPU
+    first; logits within the float32 tolerance, tokens identical."""
+    for a, b, kind in zip(outs[0][:2], outs[1][:2], ("prefill", "decode")):
+        err = float((a - b).abs().max())
+        check(err <= LOGITS_TOL, f"{what} {kind} logits: card vs CPU max err {err:.3g}")
+        print(f"  {what} float32 {kind} logits card vs CPU: max_abs_err={err:.3g}")
+    check(bool(torch.equal(outs[0][2], outs[1][2])), f"{what}: fused decode tokens differ card vs CPU")
+    print(f"  {what} float32 fused decode tokens card == CPU: True", flush=True)
+
+
+def run_dense_parity(torch, np, cfg, what, k_steps=8):
+    """Whole-prompt prefill of ragged prompts into the dense slot cache, one
+    decode step, then a fused horizon of ``k_steps``."""
+    from repro_torch.serving.sampler import greedy
+
+    n, s, max_len = 4, 32, 64
+    lengths = np.array([30, 17, 5, 24], np.int32)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(1, cfg.vocab_size, size=(n, s)).astype(np.int32)
+    tokens[np.arange(s)[None, :] >= lengths[:, None]] = 0
+    outs = []
+    for m, p in _card_and_cpu(torch, cfg):
+        dev = m.device
+        t = lambda x: torch.from_numpy(x).to(dev)
+        cache = m.cache_init(n, max_len)
+        logits, cache = m.prefill(p, t(tokens), cache, lengths=t(lengths))
+        dec, cache = m.decode_step(p, greedy(logits), cache)
+        on = torch.ones(n, dtype=torch.bool, device=dev)
+        block = m.decode_steps(p, greedy(dec), cache, num_steps=k_steps, sampler=greedy, active=on,
+                               budgets=t(np.full(n, k_steps, np.int32)),
+                               rids=t(np.arange(n, dtype=np.int32)), token_idx0=t(np.ones(n, np.int32)))[0]
+        outs.append((logits.cpu(), dec.cpu(), block.cpu()))
+    _compare(torch, outs, what)
+
+
 def run_parity(torch, np):
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.layers import tree_map
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.configs.base import ArchConfig
     from repro_torch.serving.sampler import greedy
 
     cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
-    cpu = TransformerLM(cfg, device="cpu")
-    params_cpu = cpu.init_params(seed=0)
-    gpu = TransformerLM(cfg, device="cuda")
-    params_gpu = tree_map(lambda x: x.cuda(), params_cpu)
+    models = _card_and_cpu(torch, cfg)
     n_slots, page, mb = 4, 16, 8
     rng = np.random.default_rng(0)
     tables = rng.permutation(n_slots * mb).astype(np.int32).reshape(n_slots, mb)
     pools = []
-    for m in (cpu, gpu):
+    for m, _ in models:
         pool = m.paged_cache_init(n_slots * mb, page, n_slots, mb)
         pool["block_tables"].copy_(torch.from_numpy(tables))
         pools.append(pool)
@@ -271,8 +406,8 @@ def run_parity(torch, np):
     starts = np.zeros(4, np.int32)
     lens = np.array([32, 17, 5, 0], np.int32)
     outs = []
-    for m, p, pool, dev in ((cpu, params_cpu, pools[0], "cpu"), (gpu, params_gpu, pools[1], "cuda")):
-        t = lambda x: torch.from_numpy(x).to(dev)
+    for (m, p), pool in zip(models, pools):
+        t = lambda x: torch.from_numpy(x).to(m.device)
         logits, _ = m.prefill_chunk(p, t(tokens), pool, t(slots), t(starts), t(lens))
         dec, _ = m.decode_step(p, t(np.array([5, 6, 7, 8], np.int32)), pool,
                                t(np.array([True, True, True, False])))
@@ -281,44 +416,59 @@ def run_parity(torch, np):
                                budgets=t(np.full(4, 4, np.int32)), rids=t(np.arange(4, dtype=np.int32)),
                                token_idx0=t(np.zeros(4, np.int32)))[0]
         outs.append((logits[:3].cpu(), dec[:3].cpu(), block[:, :3].cpu()))
-    for a, b, what in zip(outs[0][:2], outs[1][:2], ("prefill", "decode")):
-        err = float((a - b).abs().max())
-        check(err <= TOL["float32"], f"{what} logits: card vs CPU max err {err:.3g}")
-        print(f"  smoke float32 {what} logits card vs CPU: max_abs_err={err:.3g}")
-    same = bool(torch.equal(outs[0][2], outs[1][2]))
-    print(f"  smoke float32 fused decode tokens card == CPU: {same}")
+    _compare(torch, outs, "smoke paged")
+    run_dense_parity(torch, np, cfg, "smoke dense")
+    # tests/test_fused_decode.py:126: W = 24, so prompts of 30 and 24 tokens
+    # and the decode steps after them wrap the ring
+    swa = ArchConfig(name="swa", family="dense", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, d_ff=128, vocab_size=256, sliding_window=24,
+                     dtype="float32")
+    run_dense_parity(torch, np, swa, "sliding-window ring")
 
 
 # --------------------------------------------------------------------------- #
 # Serve                                                                       #
 # --------------------------------------------------------------------------- #
-def warm(torch, model, params, eng, device):
-    """One all-pad call of each serving entry (every write dropped, every
-    lane inactive) so cuBLAS and the kernels are initialised before the
-    measured serve."""
+def warm(torch, model, params, eng):
+    """One all-pad call of each serving entry of the engine's layout (every
+    write dropped or thrown away, every lane inactive) so cuBLAS and the
+    kernels are initialised before the measured serve."""
     from repro_torch.serving.sampler import greedy
 
     cfg = eng.cfg
-    j, c = cfg.n_slots, cfg.prefill_chunk
-    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
-    off = lambda n: torch.zeros(n, dtype=torch.bool, device=device)
-    pad = torch.full((8,), j, dtype=torch.int32, device=device)
+    j = cfg.n_slots
+    dev = model.device
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+    off = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
     cache = eng.slots.cache
-    model.prefill_chunk(params, z(8, c), cache, pad, z(8), z(8))
-    model.mixed_step(params, z(j), cache, z(8, c), pad, z(8), z(8), sampler=greedy,
-                     dec_active=off(j), rids=z(j + 8), token_idx=z(j + 8),
-                     sample_rows=off(j + 8))
+    if cfg.kv_layout == "paged":
+        c = cfg.prefill_chunk
+        pad = torch.full((8,), j, dtype=torch.int32, device=dev)
+        model.prefill_chunk(params, z(8, c), cache, pad, z(8), z(8))
+        model.mixed_step(params, z(j), cache, z(8, c), pad, z(8), z(8), sampler=greedy,
+                         dec_active=off(j), rids=z(j + 8), token_idx=z(j + 8),
+                         sample_rows=off(j + 8))
+    else:
+        s = cfg.prefill_seq_buckets[0]
+        model.prefill(params, z(1, s), model.cache_init(1, s), lengths=z(1) + 1)
     model.decode_steps(params, z(j), cache, num_steps=1, sampler=greedy,
                        active=off(j), budgets=z(j), rids=z(j), token_idx0=z(j))
-    if device == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
 
-def run_serve(torch, cfg, device="cuda", n_requests=16, output_max=128, max_len=640):
-    """Serve a GSM8K-shaped closed-loop workload through the port's Engine
-    (paged, mixed steps, hybrid scheduling as launch/serve.py sets it up) and
-    check the result. Returns (launches per kernel, launches the schedule
-    implies)."""
+def serve_workload(n_requests=16, output_max=128):
+    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+
+    return gsm8k_like_workload(WorkloadSpec(n_requests=n_requests, output_max=output_max),
+                               seed=0, known_lengths=True)
+
+
+def run_serve(torch, model, params, layout):
+    """Serve the GSM8K-shaped closed-loop workload through the port's Engine
+    under hybrid scheduling as launch/serve.py sets it up, on the paged
+    layout (mixed steps) or the dense layout (whole-prompt prefill stages),
+    and check the result. Returns (engine, launches per kernel, launches
+    the schedule implies)."""
     from repro_torch.core import (
         CostModel,
         LagrangianPolicy,
@@ -327,67 +477,74 @@ def run_serve(torch, cfg, device="cuda", n_requests=16, output_max=128, max_len=
         build_clients,
         solve_offline,
     )
-    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.models.transformer import TransformerLM
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
-    model = TransformerLM(cfg, device=device)
-    params = model.init_params(seed=0)
-    sync()
-    n_params = sum(x.numel() for x in _leaves(params))
-    print(f"  model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}), init "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    reqs = gsm8k_like_workload(WorkloadSpec(n_requests=n_requests, output_max=output_max),
-                               seed=0, known_lengths=True)
+    cfg = model.cfg
+    reqs = serve_workload()
     cm = CostModel(level_caps=(32, 64, 128, 256))
     asn = solve_offline(reqs, 8, cm).assignment
     clients = build_clients(8, reqs, asn)
-    eng = Engine(model, params, EngineConfig(n_slots=8, max_len=max_len, kv_layout="paged",
-                                             mixed_schedule=True), device=device)
+    if layout == "paged":
+        ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged", mixed_schedule=True)
+    else:
+        ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="dense",
+                            prefill_seq_buckets=DENSE_BUCKETS)
+    eng = Engine(model, params, ecfg, device="cuda")
     eng.profiler.cost_model = cm
-    warm(torch, model, params, eng, device)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    pda.reset_launch_count()
-    fa.reset_launch_count()
+    warm(torch, model, params, eng)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"paged_decode_attention": pda, "flash_attention": fa, "decode_attention": da}
+    for mod in kernels.values():
+        mod.reset_launch_count()
     t0 = time.perf_counter()
     trace = eng.serve(reqs, clients, SortingPreemptiveScheduler(clients), LagrangianPolicy(),
                       policy_name="hybrid")
-    sync()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": pda.launch_count, "flash_attention": fa.launch_count}
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
 
     trace.validate()
     for r in reqs:
         got = eng.generated.get(r.rid, [])
-        check(len(got) == r.n_decode, f"request {r.rid} emitted {len(got)} of {r.n_decode}")
-        check(all(0 <= t < cfg.vocab_size for t in got), f"request {r.rid}: invalid token id")
+        check(len(got) == r.n_decode, f"{layout}: request {r.rid} emitted {len(got)} of {r.n_decode}")
+        check(all(0 <= t < cfg.vocab_size for t in got), f"{layout}: request {r.rid}: invalid token id")
     kinds = [s.kind for s in trace.stages]
     decode_rounds = sum(s.rounds for s in trace.stages if s.kind is StageKind.DECODE)
     mixed = kinds.count(StageKind.MIXED)
-    chunk_rounds = kinds.count(StageKind.PREFILL)
-    expect = {
-        "paged_decode_attention": cfg.n_layers * (decode_rounds + mixed),
-        "flash_attention": cfg.n_layers * (mixed + chunk_rounds),
-    }
+    prefills = kinds.count(StageKind.PREFILL)
+    if layout == "paged":
+        expect = {
+            "paged_decode_attention": cfg.n_layers * (decode_rounds + mixed),
+            "flash_attention": cfg.n_layers * (mixed + prefills),
+            "decode_attention": 0,
+        }
+    else:
+        expect = {
+            "paged_decode_attention": 0,
+            "flash_attention": cfg.n_layers * prefills,
+            "decode_attention": cfg.n_layers * decode_rounds,
+        }
     s = trace.summary()
-    print(f"  serve: {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
+    stall = trace.meta["prefill_stall_time_s"]
+    print(f"  {layout} serve: {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
           f"output tokens, utilization {s['utilization']}, makespan {s['makespan_s']} s, "
           f"{s['generation_speed_tok_s']} tok/s, wall {wall:.4f} s", flush=True)
-    print(f"  stages: {mixed} mixed rounds, {chunk_rounds} chunk rounds, "
-          f"{kinds.count(StageKind.DECODE)} fused decode stages ({decode_rounds} rounds), "
-          f"decode dispatches {trace.meta['decode_dispatches']}, "
-          f"prefill stall {trace.meta['prefill_stall_time_s']} s")
-    if device == "cuda":
-        print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
-    return launches, expect
+    print(f"  {layout} stages: {prefills} prefill stages ({'chunk rounds' if layout == 'paged' else 'whole prompts'}), "
+          f"{mixed} mixed rounds, {kinds.count(StageKind.DECODE)} fused decode stages "
+          f"({decode_rounds} rounds), decode dispatches {trace.meta['decode_dispatches']}, "
+          f"prefill stall {stall} s")
+    print(f"  {layout} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  {layout} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
+    for name, n in launches.items():
+        check(n == expect[name], f"{layout}: {name}: {n} launches, the schedule implies {expect[name]}")
+        if expect[name]:
+            check(n > 0, f"{layout}: {name} was never launched on its path")
+    if layout == "dense":
+        check(stall > 0, "dense: no prefill stage ran while decoders were active")
+    return eng, launches
 
 
 def _leaves(tree):
@@ -396,6 +553,20 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+KERNELS = (
+    # (JSON name, results key, launch-count name, layout whose serve runs it, source, TPU kernel)
+    ("paged_decode_attention", "paged_decode_attention", "paged_decode_attention", "paged",
+     "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+     "src/repro/kernels/paged_decode_attention.py:86"),
+    ("flash_attention", "flash_attention", "flash_attention", "paged",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
+    ("flash_attention_dense", "flash_attention_dense", "flash_attention", "dense",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
+    ("decode_attention", "decode_attention", "decode_attention", "dense",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77"),
+)
 
 
 def main() -> int:
@@ -426,8 +597,11 @@ def main() -> int:
         print(f"  {src}: {len(regs)} kernel variants; e.g. {regs[-1] if regs else log.strip()[:200]}")
     phase("build", t0)
 
+    # the dense prefill's largest bucket in the serve, from its prompts
+    longest = max(r.n_prefill for r in serve_workload())
+    prefill_len = min(b for b in DENSE_BUCKETS if b >= longest)
     t0 = time.perf_counter()
-    kres = run_kernel_checks(torch, np)
+    kres = run_kernel_checks(torch, np, prefill_len)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -436,25 +610,30 @@ def main() -> int:
 
     t0 = time.perf_counter()
     from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
 
-    launches, expect = run_serve(torch, get_config("qwen3_8b"))
-    for kname, n in launches.items():
-        check(n > 0, f"{kname} was never launched on the main path")
-        check(n == expect[kname], f"{kname}: {n} launches, the schedule implies {expect[kname]}")
+    model = TransformerLM(get_config("qwen3_8b"), device="cuda")
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f"  model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    launches = {}
+    for layout in ("paged", "dense"):
+        eng, launches[layout] = run_serve(torch, model, params, layout)
+        del eng                       # free this layout's KV before the next one
+        torch.cuda.empty_cache()
     phase("serve", t0)
 
-    info = {
-        "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-                                   "src/repro/kernels/paged_decode_attention.py:86"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:98"),
-    }
     kernels = []
-    for kname, (source, replaces) in info.items():
-        r = kres[(kname, "qwen3-8b")]
+    for jname, rkey, count, layout, source, replaces in KERNELS:
+        r = kres[(rkey, "qwen3-8b")]
         kernels.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "name": jname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[layout][count],
+            "launches_by_path": {lay: launches[lay][count] for lay in launches},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

@@ -4,7 +4,9 @@ chunked-prefill entry (``csrc/flash_attention.cu``; one device body).
 
 * ``flash_attention(q, k, v, causal, window)`` — dense prefill attention,
   ``(B, H, Sq, D)`` x ``(B, KV, Sk, D)``, the reference kernel's contract
-  (its oracle is ``kernels/ref.py:flash_attention_ref``).
+  (its oracle is ``kernels/ref.py:flash_attention_ref``); what every prefill
+  stage of the dense KV layout runs (``models.attention.attention_any``),
+  on strided views of the model's ``bshk`` tensors.
 * ``paged_chunk_attention(q, k_pages, v_pages, tables, starts, valid_lens)``
   — what the serving path runs for every prefill-chunk row of
   ``prefill_chunk`` / ``mixed_step``: queries ``(R, C, H, D)`` in the model's
@@ -179,7 +181,9 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    # q's own strides where q is a permuted dense tensor (a bshk prefill
+    # passes q.transpose(1, 2)), so the caller's transpose back is free
+    out = torch.empty_like(q)
     err = _fn("flash_attention_dense_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, kv, sq, sk, d, int(causal), int(window),

@@ -1,17 +1,21 @@
 """Where a serving step's time goes on the card.
 
     python -m repro_torch.launch.profile_step --layers 36 --slots 8 \\
-        --context 320 --horizon 8
+        --context 320 --horizon 8 --prefill-len 128
 
 Builds the Qwen3-8B configuration (depth cut by ``--layers``) with random
-bf16 weights, fills ``--slots`` slots of a paged pool with ``--context``
-tokens each, then measures on the CUDA device:
+bf16 weights, fills ``--slots`` slots of a paged pool and of a dense slot
+cache with ``--context`` tokens each, then measures on the CUDA device:
 
-* a fused decode stage (``decode_steps`` with K = ``--horizon``) and a mixed
-  round (``mixed_step``: every slot decoding plus ``--chunk-rows`` prefill
-  chunks of 32 tokens): host wall time per call, each ending in a device
-  synchronise;
-* one ``torch.profiler`` trace of each: device time summed over kernels, the
+* paged layout: a fused decode stage (``decode_steps`` with K =
+  ``--horizon``) and a mixed round (``mixed_step``: every slot decoding plus
+  ``--chunk-rows`` prefill chunks of 32 tokens);
+* dense layout: a prefill stage (``prefill`` of ``--slots`` prompts of
+  ``--prefill-len`` tokens, the bucket width, into a bucket cache, as the
+  engine runs it) and a fused decode stage (``decode_steps`` with K =
+  ``--horizon`` over the slot cache);
+* for each: host wall time per call, each ending in a device synchronise,
+  and one ``torch.profiler`` trace: device time summed over kernels, the
   device's busy share of the wall time, kernels launched per call, and the
   kernels that take the most device time.
 
@@ -89,6 +93,7 @@ def main(argv=None):
     ap.add_argument("--context", type=int, default=320)
     ap.add_argument("--horizon", type=int, default=8)
     ap.add_argument("--chunk-rows", type=int, default=4)
+    ap.add_argument("--prefill-len", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -127,9 +132,35 @@ def main(argv=None):
     head = {
         "device": torch.cuda.get_device_name(0), "layers": args.layers,
         "slots": j, "context": args.context, "horizon": args.horizon,
-        "chunk_rows": r,
+        "chunk_rows": r, "prefill_len": args.prefill_len,
     }
     for name, fn in (("decode_steps", decode), ("mixed_step", mixed)):
+        print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
+    del cache
+    torch.cuda.empty_cache()
+
+    # dense layout: the slot cache holds ``context`` tokens per slot
+    rng = np.random.default_rng(1)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+    slot_cache = model.cache_init(j, 640)
+    model.prefill(params, t(rng.integers(1, cfg.vocab_size, size=(j, args.context))),
+                  slot_cache)
+    prompts = t(rng.integers(1, cfg.vocab_size, size=(j, args.prefill_len)))
+    bucket = model.cache_init(j, args.prefill_len)
+
+    def dense_prefill():
+        logits, _ = model.prefill(params, prompts, bucket, lengths=t(np.full(j, args.prefill_len)))
+        greedy(logits).cpu()
+
+    def dense_decode():
+        model.decode_steps(
+            params, z(j), slot_cache, num_steps=args.horizon, sampler=greedy,
+            active=torch.ones(j, dtype=torch.bool, device=dev),
+            budgets=torch.full((j,), 10**6, dtype=torch.int32, device=dev),
+            rids=z(j), token_idx0=z(j),
+        )
+
+    for name, fn in (("dense_prefill", dense_prefill), ("dense_decode_steps", dense_decode)):
         print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
 
 

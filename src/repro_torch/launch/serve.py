@@ -3,12 +3,13 @@
     python -m repro_torch.launch.serve --arch qwen3_8b --policy hybrid \\
         --requests 32 --slots 8 --device cuda
 
-Runs the paged, mixed-step continuous-batching engine on the smoke-size
-configuration with random weights drawn from ``--seed`` and prints the
-utilization / throughput summary the paper's Figs. 6–9 compare (and an ASCII
-Gantt chart with ``--gantt``). ``--device`` defaults to ``cuda`` and the
-launcher raises if no CUDA device exists; ``--device cpu`` runs the plain
-PyTorch versions of the kernels instead.
+Runs the continuous-batching engine as ``repro.launch.serve`` sets it up —
+the default dense KV layout, whole-prompt prefill stages and fused decode —
+on the smoke-size configuration with random weights drawn from ``--seed``,
+and prints the utilization / throughput summary the paper's Figs. 6–9
+compare (and an ASCII Gantt chart with ``--gantt``). ``--device`` defaults
+to ``cuda`` and the launcher raises if no CUDA device exists; ``--device
+cpu`` runs the plain PyTorch versions of the kernels instead.
 """
 from __future__ import annotations
 
@@ -50,6 +51,20 @@ def build_scheduling(mode, reqs, n_slots, cm):
     raise ValueError(mode)
 
 
+def workload_spec(n_requests: int) -> WorkloadSpec:
+    """The launcher's GSM8K-shaped request mix."""
+    return WorkloadSpec(
+        n_requests=n_requests, input_mean=20, input_std=6,
+        output_mean=24, output_std=10, output_max=48, input_max=30,
+    )
+
+
+def engine_config(n_slots: int) -> EngineConfig:
+    """The engine the launcher serves: the reference launcher's settings,
+    with the default (dense) KV layout."""
+    return EngineConfig(n_slots=n_slots, max_len=128, prefill_seq_buckets=(32,))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_8b")
@@ -65,18 +80,10 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch)
     model = TransformerLM(cfg, device=args.device)
     params = model.init_params(args.seed)
-    spec = WorkloadSpec(
-        n_requests=args.requests, input_mean=20, input_std=6,
-        output_mean=24, output_std=10, output_max=48, input_max=30,
-    )
-    reqs = gsm8k_like_workload(spec, seed=args.seed, known_lengths=True)
+    reqs = gsm8k_like_workload(workload_spec(args.requests), seed=args.seed, known_lengths=True)
     cm = CostModel(level_caps=(32, 64, 128, 256))
     clients, sched, pol = build_scheduling(args.policy, reqs, args.slots, cm)
-    eng = Engine(
-        model, params,
-        EngineConfig(n_slots=args.slots, max_len=128, prefill_seq_buckets=(32,)),
-        device=args.device,
-    )
+    eng = Engine(model, params, engine_config(args.slots), device=args.device)
     eng.profiler.cost_model = cm
     trace = eng.serve(reqs, clients, sched, pol, policy_name=args.policy)
     s = trace.summary()

@@ -1,17 +1,22 @@
-"""Reference attention with GQA and position-based masks (counterpart of
-``attention`` and ``attention_paged`` in ``repro.models.attention``).
+"""Attention with GQA and position-based masks (counterpart of
+``attention``, ``attention_any`` and ``attention_paged`` in
+``repro.models.attention``).
 
-These are the plain versions the tests hold the port against the reference
-with. The serving path itself calls the kernels in ``repro_torch.kernels``
-(whose own plain versions run on CPU tensors); the two differ only on rows
-with no valid key, where these functions return the mean of V (a softmax
-over an all-``NEG_INF`` row, as the reference does) and the kernels return 0.
+``attention`` and ``attention_paged`` are the plain versions the tests hold
+the port against the reference with. The serving path itself calls the
+kernels in ``repro_torch.kernels`` (whose own plain versions run on CPU
+tensors) — ``attention_any`` routes a dense prefill to one; the two differ
+only on rows with no valid key, where these functions return the mean of V
+(a softmax over an all-``NEG_INF`` row, as the reference does) and the
+kernels return 0.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..kernels.flash_attention import flash_attention
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -51,6 +56,29 @@ def attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_any(
+    q: torch.Tensor,                  # (B, S, H, D)
+    k: torch.Tensor,                  # (B, S, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Self-attention of a dense prefill, ``bshk`` in and out. Query i and
+    key i sit at position i and every key is valid (the reference passes
+    ``k_positions = positions``), so ``causal`` and ``window`` are the whole
+    mask. Runs the dense entry of ``kernels.flash_attention`` on
+    ``(B, H, S, D)`` views of the same memory (no copy), whose plain version
+    takes CPU tensors. Query rows past a prompt's length are padding: their
+    output is computed and ignored."""
+    out = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, scale=scale,
+    )
+    return out.transpose(1, 2)
 
 
 def attention_paged(

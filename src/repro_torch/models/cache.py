@@ -1,6 +1,16 @@
-"""Paged KV cache (counterpart of the paged parts of ``repro.models.cache``).
+"""KV caches (counterpart of ``repro.models.cache``).
 
-The pool is a dict of tensors:
+Three layouts, each a dict of tensors stacked over layers:
+
+  * full cache  — ``k``/``v`` (L, B, S_max, KV, D) and ``length`` (B,): one
+                  dense row per slot, written at the slot's ``length``;
+  * ring cache  — ``k``/``v`` (L, B, W, KV, D), ``pos`` (B, W) int32 (the
+                  absolute position each ring slot holds, -1 = empty) and
+                  ``length``: sliding-window configs, position p in slot
+                  p mod W;
+  * paged pool  — below.
+
+The paged pool is a dict of tensors:
 
   * ``k``, ``v``      — (L, KV, P, bs, D): P pages of ``bs`` tokens per layer,
                         KV heads outermost so one page of one head is a
@@ -21,11 +31,185 @@ once (``chunk_write_plan`` / ``token_write_plan``) and every layer reuses it.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 
+# --------------------------------------------------------------------------- #
+# Full and ring caches (the dense layout)                                     #
+# --------------------------------------------------------------------------- #
+def full_cache_shape(
+    n_layers: int, batch: int, max_len: int, kv_heads: int, head_dim: int,
+) -> Dict[str, Tuple[int, ...]]:
+    kv = (n_layers, batch, max_len, kv_heads, head_dim)
+    return {"k": kv, "v": kv, "length": (batch,)}
+
+
+def full_cache_init(
+    n_layers: int, batch: int, max_len: int, kv_heads: int, head_dim: int,
+    dtype=torch.bfloat16, device="cuda",
+) -> Dict[str, torch.Tensor]:
+    shape = full_cache_shape(n_layers, batch, max_len, kv_heads, head_dim)
+    return {
+        "k": torch.zeros(shape["k"], dtype=dtype, device=device),
+        "v": torch.zeros(shape["v"], dtype=dtype, device=device),
+        "length": torch.zeros(shape["length"], dtype=torch.int32, device=device),
+    }
+
+
+def ring_cache_shape(
+    n_layers: int, batch: int, window: int, kv_heads: int, head_dim: int,
+) -> Dict[str, Tuple[int, ...]]:
+    kv = (n_layers, batch, window, kv_heads, head_dim)
+    return {"k": kv, "v": kv, "pos": (batch, window), "length": (batch,)}
+
+
+def ring_cache_init(
+    n_layers: int, batch: int, window: int, kv_heads: int, head_dim: int,
+    dtype=torch.bfloat16, device="cuda",
+) -> Dict[str, torch.Tensor]:
+    shape = ring_cache_shape(n_layers, batch, window, kv_heads, head_dim)
+    return {
+        "k": torch.zeros(shape["k"], dtype=dtype, device=device),
+        "v": torch.zeros(shape["v"], dtype=dtype, device=device),
+        "pos": torch.full(shape["pos"], -1, dtype=torch.int32, device=device),
+        "length": torch.zeros(shape["length"], dtype=torch.int32, device=device),
+    }
+
+
+def full_cache_write(
+    k_layer: torch.Tensor,       # (B, S_max, KV, D) — updated in place
+    v_layer: torch.Tensor,
+    k_new: torch.Tensor,         # (B, S_new, KV, D)
+    v_new: torch.Tensor,
+    start: int,                  # write offset
+) -> None:
+    """Bulk write of ``S_new`` tokens at ``start`` (a prefill)."""
+    s = k_new.shape[1]
+    k_layer[:, start : start + s].copy_(k_new)
+    v_layer[:, start : start + s].copy_(v_new)
+
+
+class TokenWritePlan(NamedTuple):
+    """Where one decode token per slot goes in a full or ring layer slice,
+    shared by every layer of the step: ``index`` (B,) int64 in-range row
+    positions and ``valid`` (B,) whether the row writes (a dropped row
+    writes back what it holds)."""
+
+    index: torch.Tensor
+    valid: torch.Tensor
+
+
+def full_token_plan(
+    positions: torch.Tensor,                # (B,) int32 — per-slot write positions
+    max_len: int,
+    active: Optional[torch.Tensor] = None,  # (B,) bool — rows allowed to write
+) -> TokenWritePlan:
+    """The reference drops an inactive row (and one at or past ``max_len``)
+    by scattering out of range; here it gets position 0 and writes back."""
+    pos = positions.long()
+    valid = (pos >= 0) & (pos < max_len)
+    if active is not None:
+        valid = valid & active
+    return TokenWritePlan(torch.where(valid, pos, 0), valid)
+
+
+def ring_token_plan(
+    positions: torch.Tensor,                # (B,) int32 — absolute token positions
+    window: int,
+    active: Optional[torch.Tensor] = None,
+) -> TokenWritePlan:
+    """Position p lands in ring slot p mod W; inactive rows write back."""
+    valid = torch.ones_like(positions, dtype=torch.bool) if active is None else active
+    return TokenWritePlan(torch.remainder(positions.long(), window), valid)
+
+
+def write_token(
+    k_layer: torch.Tensor,       # (B, S, KV, D) — full or ring slice, in place
+    v_layer: torch.Tensor,
+    k_new: torch.Tensor,         # (B, 1, KV, D)
+    v_new: torch.Tensor,
+    plan: TokenWritePlan,
+) -> None:
+    """``layer[b, index[b]] = new[b, 0]`` for the valid rows. Each row writes
+    only its own slot row, so no two writes alias."""
+    rows = torch.arange(k_layer.shape[0], device=k_layer.device)
+    keep = plan.valid[:, None, None]
+    for layer, new in ((k_layer, k_new), (v_layer, v_new)):
+        old = layer[rows, plan.index]
+        layer[rows, plan.index] = torch.where(keep, new[:, 0].to(layer.dtype), old)
+
+
+def full_cache_write_token(
+    k_layer: torch.Tensor, v_layer: torch.Tensor,
+    k_new: torch.Tensor, v_new: torch.Tensor,
+    positions: torch.Tensor,                # (B,) int32
+    active: Optional[torch.Tensor] = None,  # (B,) bool
+) -> None:
+    write_token(k_layer, v_layer, k_new, v_new,
+                full_token_plan(positions, k_layer.shape[1], active))
+
+
+def ring_cache_write_token(
+    k_layer: torch.Tensor, v_layer: torch.Tensor,
+    k_new: torch.Tensor, v_new: torch.Tensor,
+    positions: torch.Tensor,                # (B,) int32 — absolute positions
+    active: Optional[torch.Tensor] = None,
+) -> None:
+    write_token(k_layer, v_layer, k_new, v_new,
+                ring_token_plan(positions, k_layer.shape[1], active))
+
+
+def ring_positions_write_token(
+    pos: torch.Tensor,                      # (B, W) int32
+    positions: torch.Tensor,                # (B,) int32
+    active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The (B, W) slot→position map after one token per slot (a new tensor;
+    inactive rows keep theirs)."""
+    w = pos.shape[1]
+    hit = torch.remainder(positions.long(), w)[:, None] == torch.arange(w, device=pos.device)
+    if active is not None:
+        hit = hit & active[:, None]
+    return torch.where(hit, positions.to(pos.dtype)[:, None], pos)
+
+
+def ring_positions_prefill(
+    batch: int, window: int, s: Union[int, torch.Tensor], device="cpu",
+) -> torch.Tensor:
+    """Slot→position map after prefills of length ``s`` (an int, uniform, or
+    a (B,) tensor of per-slot lengths): slot z holds the largest p < s with
+    p ≡ z (mod W), or -1 beyond the fill level."""
+    w = window
+    if isinstance(s, int):
+        s = torch.full((batch,), s, dtype=torch.int32, device=device)
+    slots = torch.arange(w, dtype=torch.int32, device=s.device)[None, :]
+    sv = s.to(torch.int32)[:, None]                             # (B, 1)
+    pos = sv - 1 - torch.remainder(sv - 1 - slots, w)          # (B, W)
+    return torch.where((slots >= sv) & (sv <= w), -1, pos).to(torch.int32)
+
+
+def ring_cache_write_prefill(
+    k_layer: torch.Tensor,       # (B, W, KV, D) — updated in place
+    v_layer: torch.Tensor,
+    k_new: torch.Tensor,         # (B, S, KV, D) — token p at row p
+    v_new: torch.Tensor,
+    pos_map: torch.Tensor,       # (B, W) slot→position (-1 = empty)
+) -> None:
+    """Bulk write of a prefill into a ring: each slot takes the token its
+    ``pos_map`` entry names; empty slots are zeroed."""
+    s = k_new.shape[1]
+    rows = torch.arange(k_layer.shape[0], device=k_layer.device)[:, None]
+    idx = pos_map.long().clamp(0, s - 1)
+    valid = (pos_map >= 0)[..., None, None]
+    for layer, new in ((k_layer, k_new), (v_layer, v_new)):
+        layer.copy_(torch.where(valid, new[rows, idx], 0).to(layer.dtype))
+
+
+# --------------------------------------------------------------------------- #
+# Paged pool                                                                  #
+# --------------------------------------------------------------------------- #
 def paged_cache_init(
     n_layers: int, num_pages: int, page_size: int, kv_heads: int,
     head_dim: int, n_slots: int, max_pages_per_slot: int,

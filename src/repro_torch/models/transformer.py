@@ -1,16 +1,23 @@
-"""Decoder-only transformer LM, paged serving path (counterpart of the dense
+"""Decoder-only transformer LM, serving paths (counterpart of the dense
 family's serving methods in ``repro.models.transformer``).
 
 * Parameters keep the reference's tree and stacked ``(L, ...)`` layout; the
   reference's ``lax.scan`` over layers becomes a loop over layer slices.
-* The KV pool is updated in place (the reference donates it to its jitted
-  steps and gets a new one back); every method still returns the pool so
+* Two KV layouts, as in the reference: the dense slot cache (full rows, or
+  rings of W for sliding-window configs; ``cache_init`` / ``prefill`` /
+  ``decode_step``) and the paged pool (``paged_cache_init`` /
+  ``prefill_chunk`` / ``mixed_step`` / ``decode_step``). ``decode_step``
+  and ``decode_steps`` take either; a ``block_tables`` key selects the pool.
+* Caches are updated in place (the reference donates them to its jitted
+  steps and gets new ones back); every method still returns the cache so
   call sites read like the reference's.
-* Attention runs through the hand-written kernels: the decode lanes of
-  ``mixed_step`` / ``decode_steps`` through ``kernels.paged_decode_attention``
-  and the prefill-chunk rows of ``prefill_chunk`` / ``mixed_step`` through the
-  paged entry of ``kernels.flash_attention``. On CPU tensors those wrappers
-  run their plain PyTorch versions.
+* Attention runs through the hand-written kernels: dense decode through
+  ``kernels.decode_attention``, dense prefill through the dense entry of
+  ``kernels.flash_attention``, the decode lanes of the paged ``mixed_step`` /
+  ``decode_steps`` through ``kernels.paged_decode_attention`` and the
+  prefill-chunk rows of ``prefill_chunk`` / ``mixed_step`` through the paged
+  entry of ``kernels.flash_attention``. On CPU tensors those wrappers run
+  their plain PyTorch versions.
 * Nothing inside ``decode_steps`` reads device values on the host: its K
   iterations queue without a host sync, so a fused horizon is one sync (the
   caller's copy of the token block).
@@ -27,9 +34,27 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import paged_chunk_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
-from .cache import chunk_write_plan, paged_cache_init, token_write_plan, write_rows
+from .attention import attention_any
+from .cache import (
+    chunk_write_plan,
+    full_cache_init,
+    full_cache_shape,
+    full_cache_write,
+    full_token_plan,
+    paged_cache_init,
+    ring_cache_init,
+    ring_cache_shape,
+    ring_cache_write_prefill,
+    ring_positions_prefill,
+    ring_positions_write_token,
+    ring_token_plan,
+    token_write_plan,
+    write_rows,
+    write_token,
+)
 from .layers import (
     DTYPES,
     ParamDef,
@@ -69,7 +94,6 @@ class TransformerLM:
             "family": cfg.family != "dense",
             "moe": cfg.is_moe,
             "m_rope": cfg.m_rope,
-            "sliding_window": cfg.sliding_window > 0,
             "use_bias": cfg.use_bias,
             "norm_kind": cfg.norm_kind != "rmsnorm",
             "mlp_kind": cfg.mlp_kind != "swiglu",
@@ -78,7 +102,7 @@ class TransformerLM:
         if missing:
             raise NotImplementedError(
                 f"{cfg.name}: {missing} not ported yet — the port serves dense "
-                f"RMSNorm/SwiGLU decoders with full attention (see ROADMAP.md)"
+                f"RMSNorm/SwiGLU decoders (see ROADMAP.md)"
             )
         self.cfg = cfg
         self.hd = cfg.resolved_head_dim
@@ -144,12 +168,40 @@ class TransformerLM:
         return self._layers
 
     # ------------------------------------------------------------------ #
+    # Serving: cache declaration (dense layout)                           #
+    # ------------------------------------------------------------------ #
+    def cache_shape(self, batch: int, max_len: int):
+        """Tensor shapes of ``cache_init``: a ring of W = min(window,
+        max_len) for sliding-window configs, else a full row of max_len."""
+        cfg = self.cfg
+        if cfg.sliding_window > 0:
+            w = min(cfg.sliding_window, max_len)
+            return ring_cache_shape(cfg.n_layers, batch, w, cfg.n_kv_heads, self.hd)
+        return full_cache_shape(cfg.n_layers, batch, max_len, cfg.n_kv_heads, self.hd)
+
+    def cache_init(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        args = (cfg.n_layers, batch)
+        tail = (cfg.n_kv_heads, self.hd, self.dtype, self.device)
+        if cfg.sliding_window > 0:
+            return ring_cache_init(*args, min(cfg.sliding_window, max_len), *tail)
+        return full_cache_init(*args, max_len, *tail)
+
+    # ------------------------------------------------------------------ #
     # Serving: paged cache                                                #
     # ------------------------------------------------------------------ #
+    def _check_paged_supported(self) -> None:
+        if self.cfg.sliding_window > 0:
+            raise NotImplementedError(
+                "paged KV cache does not support sliding-window configs "
+                "(the ring cache already bounds their KV memory at W)"
+            )
+
     def paged_cache_init(
         self, num_pages: int, page_size: int, n_slots: int,
         max_pages_per_slot: int,
     ) -> Dict[str, torch.Tensor]:
+        self._check_paged_supported()
         return paged_cache_init(
             self.cfg.n_layers, num_pages, page_size, self.cfg.n_kv_heads,
             self.hd, n_slots, max_pages_per_slot, self.dtype, self.device,
@@ -188,6 +240,52 @@ class TransformerLM:
         return unembed(h, params["embed"]).float()
 
     # ------------------------------------------------------------------ #
+    # Serving: whole-prompt prefill into a dense cache                    #
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def prefill(
+        self,
+        params: Params,
+        tokens: torch.Tensor,                # (B, S) int32, right-padded
+        cache: Dict[str, torch.Tensor],      # dense cache of B rows, updated in place
+        lengths: Optional[torch.Tensor] = None,   # (B,) true prompt lengths
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Process the right-padded prompts, fill the cache and return the
+        logits at each prompt's last real token. ``lengths`` defaults to the
+        full padded width. Pad positions are computed and written like the
+        reference writes them; ``length`` masks them from every later read."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        dev = tokens.device
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        rope = rope_tables(positions, self.hd, cfg.rope_theta)
+        len_vec = (
+            torch.full((b,), s, dtype=torch.int32, device=dev) if lengths is None
+            else lengths.to(torch.int32)
+        )
+        ring = cfg.sliding_window > 0
+        if ring:
+            pos_map = ring_positions_prefill(b, cache["k"].shape[2], len_vec)
+        h = self._embed(tokens, params)
+        for l, lp in enumerate(self._layer_params(params)):
+            kc, vc = cache["k"][l], cache["v"][l]
+            x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
+            q, k, v = self._qkv_block(x, lp)
+            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+            if ring:
+                ring_cache_write_prefill(kc, vc, k, v, pos_map)
+            else:
+                full_cache_write(kc, vc, k, v, 0)
+            attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
+            h = self._mlp_block(h + self._attn_out(attn, lp), lp)
+        h_last = h[torch.arange(b, device=dev), (len_vec.long() - 1).clamp(min=0)]
+        logits = self._logits(h_last, params)
+        cache["length"].copy_(len_vec)
+        if ring:
+            cache["pos"].copy_(pos_map)
+        return logits, cache
+
+    # ------------------------------------------------------------------ #
     # Serving: chunked prefill into the paged pool                        #
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -204,6 +302,7 @@ class TransformerLM:
         rows' pages; queries attend to everything the slot has accumulated.
         Returns the logits at each row's last real chunk token and the pool."""
         cfg = self.cfg
+        self._check_paged_supported()
         b, c = tokens.shape
         n_slots = cache["block_tables"].shape[0]
         positions = starts[:, None] + torch.arange(c, dtype=torch.int32, device=tokens.device)
@@ -257,6 +356,7 @@ class TransformerLM:
         if getattr(sampler, "stochastic", False):
             raise NotImplementedError("stochastic samplers are not ported yet")
         cfg = self.cfg
+        self._check_paged_supported()
         r, c = chunk_tokens.shape
         n_slots = cache["block_tables"].shape[0]
         dev = chunk_tokens.device
@@ -308,9 +408,57 @@ class TransformerLM:
     # Serving: one decode step / fused multi-step decode                  #
     # ------------------------------------------------------------------ #
     def decode_step(self, params, tokens, cache, active=None):
-        """Append one token per slot; returns (logits (B, V) f32, pool). The
-        port has only the paged layout."""
-        return self._decode_step_paged(params, tokens, cache, active)
+        """Append one token per slot; returns (logits (B, V) f32, cache). A
+        ``block_tables`` key selects the paged pool, else the dense cache
+        (a ``pos`` key: its ring form). ``active`` masks the slots that may
+        write and advance; ``None`` advances every slot."""
+        if "block_tables" in cache:
+            return self._decode_step_paged(params, tokens, cache, active)
+        return self._decode_step_dense(params, tokens, cache, active)
+
+    @torch.no_grad()
+    def _decode_step_dense(
+        self,
+        params: Params,
+        tokens: torch.Tensor,                # (B,) int32
+        cache: Dict[str, torch.Tensor],      # full or ring cache of B slots
+        active: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        b = tokens.shape[0]
+        lengths = cache["length"]
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
+        new_lens = lengths + active.to(torch.int32)
+        rope = rope_tables(lengths[:, None], self.hd, cfg.rope_theta)
+        ring = "pos" in cache
+        if ring:
+            # the ring fills slot p mod W in order, so its valid entries are
+            # the prefix [0, min(len, W)), and every one of them lies inside
+            # the new query's window (W <= sliding_window): a length mask is
+            # the reference's position mask over ``pos``
+            w = cache["k"].shape[2]
+            plan = ring_token_plan(lengths, w, active)
+            new_pos = ring_positions_write_token(cache["pos"], lengths, active)
+            kv_lens = torch.clamp(new_lens, max=w)
+        else:
+            plan = full_token_plan(lengths, cache["k"].shape[2], active)
+            kv_lens = new_lens
+        h = self._embed(tokens[:, None], params)
+        for l, lp in enumerate(self._layer_params(params)):
+            kc, vc = cache["k"][l], cache["v"][l]
+            x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
+            q, k, v = self._qkv_block(x, lp)
+            q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
+            write_token(kc, vc, k, v, plan)
+            # (B, S, KV, D) slices seen as (B, KV, S, D): no copy of the cache
+            attn = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
+            h = self._mlp_block(h + self._attn_out(attn[:, None], lp), lp)
+        logits = self._logits(h[:, 0], params)
+        lengths.copy_(new_lens)
+        if ring:
+            cache["pos"].copy_(new_pos)
+        return logits, cache
 
     @torch.no_grad()
     def _decode_step_paged(
@@ -349,7 +497,7 @@ class TransformerLM:
         self,
         params: Params,
         tokens: torch.Tensor,                # (B,) int32 — last sampled token
-        cache: Dict[str, torch.Tensor],      # paged pool, updated in place
+        cache: Dict[str, torch.Tensor],      # dense or paged, updated in place
         *,
         num_steps: int,                      # the fused horizon K
         sampler,                             # serving.sampler.Sampler object
@@ -372,7 +520,7 @@ class TransformerLM:
         counts = torch.zeros_like(tokens)
         block = []
         for _ in range(num_steps):
-            logits, cache = self._decode_step_paged(params, cur, cache, active=act)
+            logits, cache = self.decode_step(params, cur, cache, active=act)
             nxt = torch.where(act, sampler(logits), cur)   # frozen slots keep theirs
             counts = counts + act.to(torch.int32)
             new_act = act & (counts < budgets)

@@ -1,20 +1,27 @@
-"""The serving engine, paged + mixed-step path (counterpart of
-``repro.serving.engine``): continuous batching under PD Competition with the
-paper's hybrid offline-online scheduler as the dispatch policy.
+"""The serving engine (counterpart of ``repro.serving.engine``): continuous
+batching under PD Competition with the paper's hybrid offline-online
+scheduler as the dispatch policy.
 
 The same ``RequestScheduler`` (offline assignment / Algorithm 1 stealing)
 and ``IterationPolicy`` (prefill-first / Lagrangian) objects as the
-reference drive the port's model steps over a paged KV pool:
+reference drive the port's model steps over one of two KV layouts:
 
-  * prompts are split into ``prefill_chunk``-token chunks written straight
-    into the slot's pages (``model.prefill_chunk``);
-  * with ``mixed_schedule=True`` (the default) every iteration with prefill
+  * ``kv_layout="dense"`` (the default, as in the reference): each slot owns
+    a preallocated row of the slot cache. An iteration either runs a
+    *prefill stage* — whole, bucket-padded prompts of the admitted batch in
+    one ``model.prefill`` whose cache is merged into the slot rows; it
+    preempts decoding, and ``prefill_stall_time`` counts what that costs the
+    active slots — or a fused decode stage. This is the paper's binary
+    stage choice, which the Lagrangian policy prices;
+  * ``kv_layout="paged"``: prompts are split into ``prefill_chunk``-token
+    chunks written straight into the slot's pages (``model.prefill_chunk``);
+    with ``mixed_schedule=True`` (the default) every iteration with prefill
     work pending dispatches ONE mixed batch (``model.mixed_step``): the
     decode tokens of every active slot plus a policy-priced share of chunk
     tokens, so prefill piggybacks on decode instead of preempting it;
-  * iterations with no prefill in view run a fused multi-step decode
-    (``model.decode_steps``): K iterations queued on the device, one host
-    sync at the horizon boundary.
+  * on either layout, iterations with no prefill in view run a fused
+    multi-step decode (``model.decode_steps``): K iterations queued on the
+    device, one host sync at the horizon boundary.
 
 Where the reference calls ``jax.jit(..., donate_argnums=...)`` executables,
 the port calls the model methods directly and they update the pool in place.
@@ -22,9 +29,9 @@ Every stage synchronises the device before it reads the clock (before the
 dispatch, and through the host copy of its sampled tokens after it), so the
 online profiler fits device time, not launch latency.
 
-Not ported yet (see ROADMAP.md): the dense KV layout and its prefill stage,
-stochastic sampling, page-copy migration (``export_slot``/``import_slot``),
-``state_dict`` checkpoints and the observability hooks.
+Not ported yet (see ROADMAP.md): stochastic sampling, page-copy migration
+(``export_slot``/``import_slot``), ``state_dict`` checkpoints and the
+observability hooks.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from ..core.types import (
     StageKind,
     StageRecord,
 )
-from .kv_slots import PagedSlotManager
+from .kv_slots import PagedSlotManager, SlotManager
 from .overload import OverloadPolicy
 from .profiler import OnlineProfiler
 from .sampler import greedy
@@ -57,9 +64,7 @@ Tree = Any
 @dataclasses.dataclass
 class EngineConfig:
     """The reference's engine configuration, with the same field names and
-    defaults except ``kv_layout``, which only takes (and defaults to)
-    ``"paged"`` in the port. See ``repro.serving.engine.EngineConfig`` for
-    each field."""
+    defaults. See ``repro.serving.engine.EngineConfig`` for each field."""
 
     n_slots: int = 8
     max_len: int = 256
@@ -68,7 +73,7 @@ class EngineConfig:
     eos_id: Optional[int] = None          # None → workload-driven stop
     max_stages: int = 200_000
     straggler_factor: float = 3.0
-    kv_layout: str = "paged"              # only "paged" is ported
+    kv_layout: str = "dense"              # "dense" | "paged"
     page_size: int = 16
     prefill_chunk: int = 32
     num_pages: Optional[int] = None
@@ -150,12 +155,6 @@ class Engine:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for {self.device}"
             )
-        if config.kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={config.kv_layout!r}: the port serves the paged "
-                f"layout only; the dense layout waits with its decode kernel "
-                f"(see ROADMAP.md)"
-            )
         if config.observe is not None:
             raise NotImplementedError(
                 "EngineConfig.observe: the observability hooks are not ported "
@@ -176,11 +175,21 @@ class Engine:
         self.sampler = sampler
         self.overload = overload_policy
         self.speed_factor = float(speed_factor)
-        self.slots = PagedSlotManager(
-            model, config.n_slots, config.max_len,
-            config.page_size, config.num_pages,
-            prefix_cache=config.prefix_cache,
-        )
+        if config.prefix_cache and config.kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache requires kv_layout='paged' — dense layout has "
+                "no page identity to share"
+            )
+        if config.kv_layout == "paged":
+            self.slots: Any = PagedSlotManager(
+                model, config.n_slots, config.max_len,
+                config.page_size, config.num_pages,
+                prefix_cache=config.prefix_cache,
+            )
+        elif config.kv_layout == "dense":
+            self.slots = SlotManager(model, config.n_slots, config.max_len)
+        else:
+            raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
         self.pending_token = np.zeros(config.n_slots, dtype=np.int32)
         # device copy of pending tokens carried between consecutive decode
         # stages (None → stale, rebuilt from the host array)
@@ -197,7 +206,9 @@ class Engine:
         self.offline_deferrals = 0
         self.recomputed_tokens = 0
         self.cache_hit_tokens = 0
-        self._use_prefix_cache = config.prefix_cache
+        self._use_prefix_cache = (
+            config.kv_layout == "paged" and config.prefix_cache
+        )
         self.debug_invariants = (
             config.debug_invariants
             if config.debug_invariants is not None
@@ -243,6 +254,44 @@ class Engine:
             self.straggler_events += 1
         elif self._budget_shift > 0 and dt < 1.5 * predicted:
             self._budget_shift -= 1
+
+    def _run_prefill_stage(self, pairs: List[Tuple[ClientState, Request]]):
+        """Execute one packed whole-prompt prefill (dense layout); returns
+        (duration_s, total_tokens)."""
+        reqs = [r for _, r in pairs]
+        slots = [c.cid for c, _ in pairs]
+        max_len = max(r.n_prefill for r in reqs)
+        s_pad = _bucket(max_len, self.cfg.prefill_seq_buckets)
+        n_pad = _bucket(len(reqs), self.cfg.prefill_req_buckets)
+        tokens = np.zeros((n_pad, s_pad), dtype=np.int32)
+        lengths = np.ones(n_pad, dtype=np.int32)
+        for i, r in enumerate(reqs):
+            tokens[i, : r.n_prefill] = self._prompt_tokens(r)
+            lengths[i] = r.n_prefill
+        cache = self.model.cache_init(n_pad, s_pad)
+        args = [self._tensor(x) for x in (tokens, lengths)]
+        self._sync()
+        t0 = time.perf_counter()
+        logits, pref_cache = self.model.prefill(self.params, args[0], cache, lengths=args[1])
+        first = self.sampler(logits).cpu().numpy()   # the stage's host sync
+        dt = (time.perf_counter() - t0) / self.speed_factor
+        self._dev_pending = None          # prefill rewrites pending tokens
+        # scatter only the real rows (the batch was padded to a bucket)
+        n = len(slots)
+        real_cache = {
+            k: x[:, :n] if x.dim() >= 3 else x[:n] for k, x in pref_cache.items()
+        }
+        self.slots.merge_prefill(real_cache, slots)
+        for i, (client, req) in enumerate(pairs):
+            self.slots.bind(client.cid, req)
+            self.slots.emitted[client.cid] = 1     # prefill samples token #1
+            self.pending_token[client.cid] = int(first[i])
+            self.generated.setdefault(req.rid, []).append(int(first[i]))
+            client.current = req
+        self._note_concurrency()
+        total_tokens = sum(r.n_prefill for r in reqs)
+        self._observe_prefill(total_tokens, dt)
+        return dt, total_tokens
 
     def _vocab(self) -> int:
         return self.model.cfg.vocab_size
@@ -775,7 +824,9 @@ class Engine:
 
     def _check_invariants(self) -> None:
         """Allocator consistency, the host↔device block-table mirror and
-        per-page refcounts."""
+        per-page refcounts — paged layout only."""
+        if self.cfg.kv_layout != "paged":
+            return
         self.slots.allocator.check_consistency()
         self.slots.check_block_table_mirror()
         self.slots.check_refcounts()
@@ -821,7 +872,8 @@ class Engine:
         runnable and no arrival to wait for)."""
         sv = self._sv
         cfg = self.cfg
-        mixed = cfg.mixed_schedule
+        paged = cfg.kv_layout == "paged"
+        mixed = paged and cfg.mixed_schedule
         clients = sv.clients
         request_scheduler = sv.scheduler
         iteration_policy = sv.policy
@@ -851,27 +903,33 @@ class Engine:
                 pairs = self._filter_overload(
                     pairs, idle, max_cap, request_scheduler, t
                 )
-            if pairs:
+            if paged and pairs:
                 pairs = self._admissible(pairs)
-            # the candidate stage is one chunk round: continuations of any
-            # in-flight prefills plus first chunks of new admissions
-            cont = sorted(self._chunking)
-            cached_est = 0
-            if self._use_prefix_cache and cfg.cache_aware_pricing:
-                cached_est = sum(
-                    self._chunking[s].cached for s in cont
-                ) + sum(
-                    self.slots.probe_prefix(self._prompt_tokens(r))
-                    for _, r in pairs
+            if paged:
+                # the candidate stage is one chunk round: continuations of
+                # any in-flight prefills plus first chunks of new admissions
+                cont = sorted(self._chunking)
+                cached_est = 0
+                if self._use_prefix_cache and cfg.cache_aware_pricing:
+                    cached_est = sum(
+                        self._chunking[s].cached for s in cont
+                    ) + sum(
+                        self.slots.probe_prefix(self._prompt_tokens(r))
+                        for _, r in pairs
+                    )
+                candidate = CandidateBatch(
+                    requests=[self._chunking[s].req for s in cont]
+                    + [r for _, r in pairs],
+                    client_ids=cont + [c.cid for c, _ in pairs],
+                    chunk_tokens=self._next_chunk_tokens()
+                    + sum(min(cfg.prefill_chunk, r.n_prefill) for _, r in pairs),
+                    cached_tokens=cached_est,
                 )
-            candidate = CandidateBatch(
-                requests=[self._chunking[s].req for s in cont]
-                + [r for _, r in pairs],
-                client_ids=cont + [c.cid for c, _ in pairs],
-                chunk_tokens=self._next_chunk_tokens()
-                + sum(min(cfg.prefill_chunk, r.n_prefill) for _, r in pairs),
-                cached_tokens=cached_est,
-            )
+            else:
+                candidate = CandidateBatch(
+                    requests=[r for _, r in pairs],
+                    client_ids=[c.cid for c, _ in pairs],
+                )
             snap = SystemSnapshot(
                 n_clients=cfg.n_slots,
                 n_active=len(active),
@@ -947,7 +1005,10 @@ class Engine:
                     req = self.slots.release(slot)
                     req.t_done = sv.t
                     clients[slot].current = None
-            elif candidate and (do_prefill or (mixed and decision.chunk_tokens > 0)):
+            elif (
+                candidate and paged
+                and (do_prefill or (mixed and decision.chunk_tokens > 0))
+            ):
                 # no decoders are running (or the alternating schedule chose
                 # prefill): run the plain chunk round
                 if pairs:
@@ -970,9 +1031,43 @@ class Engine:
                 )
                 sv.t = t + dt
                 self._finish_prefills(finished, clients, sv.t)
+            elif do_prefill and candidate:
+                # dense layout: one whole-prompt prefill stage, preempting
+                # every active decoder for its duration
+                self._commit_pairs(pairs)
+                sv.bin_index += 1
+                dt, tok = self._run_prefill_stage(pairs)
+                if active:
+                    self.prefill_stall_time += dt
+                busy = {}
+                for client, req in pairs:
+                    req.client = client.cid
+                    req.prefill_bin = sv.bin_index
+                    req.t_prefill_start = t
+                    req.t_prefill_end = t + dt
+                    req.decoded = 1
+                    self._note_first_token(req, t + dt)
+                    busy[client.cid] = req.rid
+                trace.stages.append(
+                    StageRecord(
+                        kind=StageKind.PREFILL,
+                        t_start=t, t_end=t + dt,
+                        bin_index=sv.bin_index, busy=busy, tokens=tok,
+                        level=self.profiler.cost_model.level_for(
+                            min(tok, max_cap)
+                        ).index,
+                    )
+                )
+                sv.t = t + dt
+                # requests with n_decode == 1 finish at prefill
+                for client, req in pairs:
+                    if self.cfg.eos_id is None and req.n_decode <= 1:
+                        req.t_done = sv.t
+                        self.slots.release(client.cid)
+                        client.current = None
             elif active:
                 k = self._choose_horizon(decision.horizon)
-                if cfg.page_reserve != "upfront":
+                if paged and cfg.page_reserve != "upfront":
                     k = self._ensure_decode_capacity(
                         k, allow_shrink=cfg.decode_horizon is None
                     )
@@ -1029,9 +1124,12 @@ class Engine:
             migrations_in=0,
             migrations_out=0,
             cached_prefill_tokens=self.cache_hit_tokens,
-            shared_pages_peak=self.slots.shared_pages_peak,
-            cow_copies=self.slots.cow_copies,
         )
+        if self.cfg.kv_layout == "paged":
+            trace.meta.update(
+                shared_pages_peak=self.slots.shared_pages_peak,
+                cow_copies=self.slots.cow_copies,
+            )
         if validate:
             trace.validate()
         return trace

@@ -1,16 +1,20 @@
-"""Slot management for the paged KV layout (counterpart of the paged parts
-of ``repro.serving.kv_slots``).
+"""Slot managers (counterpart of ``repro.serving.kv_slots``).
 
-J slots ↔ the paper's J parallel clients. Slots own *pages* of a shared
-pool, handed out by a host-side refcounted ``BlockAllocator`` and resolved
-through the device block table (see ``models.cache``). ``PrefixCacheIndex``
-shares full prompt pages across requests (copy-on-write at the divergence
-page). The allocator and the index are host-side bookkeeping, copied from
-the reference; ``PagedSlotManager`` mirrors every block-table row it changes
-to the device pool.
+J slots ↔ the paper's J parallel clients. Two KV ownership models:
 
-The dense ``SlotManager`` and page export/import for migration (with its
-checksum) are not ported yet (see ROADMAP.md).
+  * ``SlotManager`` — each slot owns one dense row of the batched cache
+    (a full row of max_len, or a ring of W for sliding-window configs); a
+    packed prefill's cache is merged into the slot rows (``scatter_cache``).
+  * ``PagedSlotManager`` — slots own *pages* of a shared pool, handed out by
+    a host-side refcounted ``BlockAllocator`` and resolved through the
+    device block table (see ``models.cache``). ``PrefixCacheIndex`` shares
+    full prompt pages across requests (copy-on-write at the divergence
+    page). The allocator and the index are host-side bookkeeping, copied
+    from the reference; ``PagedSlotManager`` mirrors every block-table row
+    it changes to the device pool.
+
+Page export/import for migration (with its checksum) is not ported yet (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,6 +24,74 @@ import numpy as np
 import torch
 
 from ..core.types import Request
+
+
+def scatter_cache(
+    main: Dict[str, torch.Tensor], pref: Dict[str, torch.Tensor],
+    slots: torch.Tensor,
+) -> None:
+    """Scatter prefill-cache rows into slot rows of ``main``, in place.
+
+    ``slots`` (n,) int64 names the target row of each of the prefill cache's
+    rows (distinct, in range). Rank-1 leaves (``length``) and rank-2 leaves
+    (ring ``pos``) carry the batch on axis 0, the rest (``k``/``v``,
+    (L, B, S, KV, D)) on axis 1. The prefill cache's sequence axis may be a
+    shorter bucket than the main cache's: the target rows are zeroed past the
+    bucket, so nothing of a previous occupant survives; ring ``pos`` rows
+    are padded with -1 (empty) likewise."""
+    for key, m in main.items():
+        p = pref[key].to(m.dtype)
+        if m.dim() == 1:
+            m.index_copy_(0, slots, p)
+        elif m.dim() == 2:
+            m.index_fill_(0, slots, -1)
+            m.narrow(1, 0, p.shape[1]).index_copy_(0, slots, p)
+        else:
+            s = p.shape[2]
+            if s < m.shape[2]:
+                m.narrow(2, s, m.shape[2] - s).index_fill_(1, slots, 0)
+            m.narrow(2, 0, s).index_copy_(1, slots, p)
+
+
+class SlotManager:
+    """Slot manager for the dense layout: the slot cache is preallocated at
+    ``n_slots`` rows of ``max_len`` (``model.cache_init``)."""
+
+    def __init__(self, model, n_slots: int, max_len: int):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.cache = model.cache_init(n_slots, max_len)
+        self.request_of: List[Optional[Request]] = [None] * n_slots
+        self.emitted: List[int] = [0] * n_slots
+
+    @property
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.request_of) if r is None]
+
+    @property
+    def active_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.request_of) if r is not None]
+
+    def bind(self, slot: int, request: Request) -> None:
+        if self.request_of[slot] is not None:
+            raise RuntimeError(f"slot {slot} already bound")
+        self.request_of[slot] = request
+        self.emitted[slot] = 0
+
+    def release(self, slot: int) -> Request:
+        req = self.request_of[slot]
+        if req is None:
+            raise RuntimeError(f"slot {slot} not bound")
+        self.request_of[slot] = None
+        self.emitted[slot] = 0
+        return req
+
+    def merge_prefill(self, prefill_cache: Dict[str, torch.Tensor], slots: Sequence[int]) -> None:
+        """Move a packed prefill's cache (batch = len(slots)) into the slot
+        cache rows."""
+        idx = torch.tensor(list(slots), dtype=torch.long, device=self.cache["length"].device)
+        scatter_cache(self.cache, prefill_cache, idx)
 
 
 class BlockAllocator:

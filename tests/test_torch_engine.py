@@ -93,8 +93,13 @@ def test_engine_schedules_the_reference_stages(both_serves):
 def test_engine_rejects_what_the_port_does_not_serve():
     _, ref_params = ref_model_and_params()
     model, params = port_model_and_params(ref_params)
-    with pytest.raises(NotImplementedError, match="paged"):
-        Engine(model, params, EngineConfig(kv_layout="dense"), device="cpu")
+    # the dense layout serves (the default, as in the reference); a prefix
+    # cache on it raises as the reference's does
+    assert Engine(model, params, EngineConfig(kv_layout="dense"), device="cpu").cfg.kv_layout == "dense"
+    with pytest.raises(ValueError, match="prefix_cache requires kv_layout='paged'"):
+        Engine(model, params, EngineConfig(kv_layout="dense", prefix_cache=True), device="cpu")
+    with pytest.raises(ValueError, match="unknown kv_layout"):
+        Engine(model, params, EngineConfig(kv_layout="ring"), device="cpu")
     with pytest.raises(NotImplementedError, match="observ"):
         Engine(model, params, EngineConfig(observe=object()), device="cpu")
     with pytest.raises(ValueError, match="model lives on"):

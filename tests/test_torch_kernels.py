@@ -3,8 +3,8 @@ PyTorch versions; these are held against the reference's Pallas kernels (in
 interpret mode, as tests/test_kernels.py runs them) and its oracles, on the
 cases of tests/test_kernels.py. Tolerances as there: float32 2e-5, bf16 2e-2.
 
-The tests marked ``cuda`` launch the CUDA kernels and hold them against the
-plain versions on the card; they skip on a machine without one."""
+The CUDA kernels themselves are held against the plain versions on the
+card in tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +17,7 @@ from repro.models.attention import attention_paged as ref_attention_paged
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import attention_paged
 from repro_torch.kernels import paged_decode_attention as pda
-from torch_port_helpers import need_cuda, shuffled_tables, to_np
+from torch_port_helpers import shuffled_tables, to_np
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -193,48 +193,3 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     pda.paged_decode_attention(tq[:, :1], tk, tv, torch.from_numpy(tables),
                                torch.from_numpy(valid))
     assert pda.launch_count == 0 and fa.launch_count == 0
-
-
-# --------------------------------------------------------------------------- #
-# On the card                                                                 #
-# --------------------------------------------------------------------------- #
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 128])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_paged_decode_matches_plain(d, dtype):
-    need_cuda()
-    rng = np.random.default_rng(d)
-    b, h, kv, p, bs, mb = 8, 32, 8, 400, 16, 40
-    lengths = rng.integers(1, mb * bs + 1, size=b).astype(np.int32)
-    lengths[-1] = 0                                   # an idle lane
-    tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
-    q = torch.randn(b, 1, h, d, device="cuda").to(TDT[dtype])
-    k = torch.randn(kv, p, bs, d, device="cuda").to(TDT[dtype])
-    v = torch.randn(kv, p, bs, d, device="cuda").to(TDT[dtype])
-    lens = torch.from_numpy(lengths).cuda()
-    out = pda.paged_decode_attention(q, k, v, tables, lens)
-    torch.cuda.synchronize()
-    ref = pda.paged_decode_attention_plain(q, k, v, tables, lens)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_dense_and_paged_match_plain(dtype):
-    need_cuda()
-    rng = np.random.default_rng(5)
-    for b, h, kv, s, d, causal, w in [(2, 4, 2, 256, 64, True, 0), (1, 4, 4, 128, 128, True, 32),
-                                      (2, 2, 1, 96, 16, False, 0)]:
-        q = torch.randn(b, h, s, d, device="cuda").to(TDT[dtype])
-        k = torch.randn(b, kv, s, d, device="cuda").to(TDT[dtype])
-        v = torch.randn(b, kv, s, d, device="cuda").to(TDT[dtype])
-        out = fa.flash_attention(q, k, v, causal=causal, window=w)
-        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=w)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
-    starts, chunk_lens, valid, tables, _, (tq, tk, tv) = _chunk_case(rng, dtype)
-    args = [t.cuda() for t in (tq, tk, tv)] + [
-        torch.from_numpy(x).cuda() for x in (tables, starts, valid)
-    ]
-    out = fa.paged_chunk_attention(*args)
-    ref = fa.paged_chunk_attention_plain(*args)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))

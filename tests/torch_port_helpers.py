@@ -5,7 +5,6 @@ import dataclasses
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import qwen3_8b as ref_qwen3
@@ -60,8 +59,3 @@ def shuffled_tables(rng, n_rows, mb, n_pages, page_size, lengths):
         tables[i, :need] = perm[used : used + need]
         used += need
     return tables
-
-
-def need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
