@@ -54,8 +54,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
-SERVE_LEN = 640                                     # tokens a slot can hold
-DENSE_BUCKETS = (64, 128, 256)                      # covers the workload's prompts
+# The serve (slot length, dense prefill buckets, requests) is defined once, in
+# repro_torch.launch.profile_step, which profiles its stages.
 
 
 class SmokeFailure(RuntimeError):
@@ -152,7 +152,7 @@ def chunk_case(torch, np, h, kv, d, r=8, c=32, bs=16, mb=40, seed=1):
     return q, k, v, t(tables), t(starts), t(valid), chunk_lens
 
 
-def dense_decode_case(torch, np, h, kv, d, dtype, b=8, s=SERVE_LEN, seed=3):
+def dense_decode_case(torch, np, h, kv, d, dtype, s, b=8, seed=3):
     """q (B, H, D) and the (B, S, KV, D) layer slice of a dense cache seen as
     (B, KV, S, D), as the model passes it; ragged lengths, the last 0."""
     rng = np.random.default_rng(seed)
@@ -227,12 +227,13 @@ def sdpa_inputs(q, k_pages, v_pages, tables):
     return q.transpose(1, 2), expand(kc), expand(vc)
 
 
-def run_kernel_checks(torch, np, prefill_len):
+def run_kernel_checks(torch, np):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len
     from repro_torch.models.cache import paged_key_positions
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
@@ -240,7 +241,7 @@ def run_kernel_checks(torch, np, prefill_len):
     for label, (h, kv, d) in (("qwen3-8b", (32, 8, 128)), ("smoke", (4, 2, 16))):
         # kernel 3: dense decode attention, both dtypes; timed in bf16
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt)
+            q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt, SERVE_LEN)
             check(not k.is_contiguous(), "decode case must be the strided cache view")
             out = da.decode_attention(q, k, v, lengths)
             torch.cuda.synchronize()
@@ -262,7 +263,7 @@ def run_kernel_checks(torch, np, prefill_len):
         )
         # kernel 2, dense entry, at the dense prefill's shape: 8 prompts of
         # the largest bucket the serve uses, causal
-        q, k, v = dense_prefill_case(torch, h, kv, d, 8, prefill_len)
+        q, k, v = dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len())
         out = fa.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=True), KERNEL_TOL["bfloat16"])
@@ -456,13 +457,6 @@ def warm(torch, model, params, eng):
     torch.cuda.synchronize()
 
 
-def serve_workload(n_requests=16, output_max=128):
-    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
-
-    return gsm8k_like_workload(WorkloadSpec(n_requests=n_requests, output_max=output_max),
-                               seed=0, known_lengths=True)
-
-
 def run_serve(torch, model, params, layout):
     """Serve the GSM8K-shaped closed-loop workload through the port's Engine
     under hybrid scheduling as launch/serve.py sets it up, on the paged
@@ -480,6 +474,7 @@ def run_serve(torch, model, params, layout):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch.profile_step import DENSE_BUCKETS, SERVE_LEN, serve_workload
     from repro_torch.serving.engine import Engine, EngineConfig
 
     cfg = model.cfg
@@ -556,15 +551,15 @@ def _leaves(tree):
 
 
 KERNELS = (
-    # (JSON name, results key, launch-count name, layout whose serve runs it, source, TPU kernel)
-    ("paged_decode_attention", "paged_decode_attention", "paged_decode_attention", "paged",
+    # (name, launch-count name, layout whose serve runs it, source, TPU kernel)
+    ("paged_decode_attention", "paged_decode_attention", "paged",
      "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
      "src/repro/kernels/paged_decode_attention.py:86"),
-    ("flash_attention", "flash_attention", "flash_attention", "paged",
+    ("flash_attention", "flash_attention", "paged",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
-    ("flash_attention_dense", "flash_attention_dense", "flash_attention", "dense",
+    ("flash_attention_dense", "flash_attention", "dense",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
-    ("decode_attention", "decode_attention", "decode_attention", "dense",
+    ("decode_attention", "decode_attention", "dense",
      "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77"),
 )
 
@@ -597,11 +592,8 @@ def main() -> int:
         print(f"  {src}: {len(regs)} kernel variants; e.g. {regs[-1] if regs else log.strip()[:200]}")
     phase("build", t0)
 
-    # the dense prefill's largest bucket in the serve, from its prompts
-    longest = max(r.n_prefill for r in serve_workload())
-    prefill_len = min(b for b in DENSE_BUCKETS if b >= longest)
     t0 = time.perf_counter()
-    kres = run_kernel_checks(torch, np, prefill_len)
+    kres = run_kernel_checks(torch, np)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -627,10 +619,10 @@ def main() -> int:
     phase("serve", t0)
 
     kernels = []
-    for jname, rkey, count, layout, source, replaces in KERNELS:
-        r = kres[(rkey, "qwen3-8b")]
+    for kname, count, layout, source, replaces in KERNELS:
+        r = kres[(kname, "qwen3-8b")]
         kernels.append({
-            "name": jname, "route": "cuda", "source": source, "replaces": replaces,
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[layout][count],
             "launches_by_path": {lay: launches[lay][count] for lay in launches},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

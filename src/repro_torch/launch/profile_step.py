@@ -1,7 +1,7 @@
 """Where a serving step's time goes on the card.
 
     python -m repro_torch.launch.profile_step --layers 36 --slots 8 \\
-        --context 320 --horizon 8 --prefill-len 128
+        --context 320 --horizon 8
 
 Builds the Qwen3-8B configuration (depth cut by ``--layers``) with random
 bf16 weights, fills ``--slots`` slots of a paged pool and of a dense slot
@@ -10,10 +10,10 @@ cache with ``--context`` tokens each, then measures on the CUDA device:
 * paged layout: a fused decode stage (``decode_steps`` with K =
   ``--horizon``) and a mixed round (``mixed_step``: every slot decoding plus
   ``--chunk-rows`` prefill chunks of 32 tokens);
-* dense layout: a prefill stage (``prefill`` of ``--slots`` prompts of
-  ``--prefill-len`` tokens, the bucket width, into a bucket cache, as the
-  engine runs it) and a fused decode stage (``decode_steps`` with K =
-  ``--horizon`` over the slot cache);
+* dense layout: a prefill stage (``prefill`` of ``--slots`` prompts at the
+  largest bucket the serve's prompts use, into a bucket cache, as the engine
+  runs it) and a fused decode stage (``decode_steps`` with K = ``--horizon``
+  over the slot cache);
 * for each: host wall time per call, each ending in a device synchronise,
   and one ``torch.profiler`` trace: device time summed over kernels, the
   device's busy share of the wall time, kernels launched per call, and the
@@ -31,8 +31,27 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..data import WorkloadSpec, gsm8k_like_workload
 from ..models.transformer import TransformerLM
 from ..serving.sampler import greedy
+
+# The full-size serve that chip_smoke.py runs and this script profiles: the
+# tokens a slot holds and the dense layout's prefill buckets, which cover the
+# workload's longest prompt.
+SERVE_LEN = 640
+DENSE_BUCKETS = (64, 128, 256)
+
+
+def serve_workload():
+    """The serve's 16 GSM8K-shaped requests (outputs capped at 128), seed 0."""
+    return gsm8k_like_workload(WorkloadSpec(n_requests=16, output_max=128),
+                               seed=0, known_lengths=True)
+
+
+def dense_prefill_len() -> int:
+    """The largest prefill bucket the serve's prompts use."""
+    longest = max(r.n_prefill for r in serve_workload())
+    return min(b for b in DENSE_BUCKETS if b >= longest)
 
 
 def _fill_pool(model, params, n_slots, context, page_size, max_len, device):
@@ -93,7 +112,6 @@ def main(argv=None):
     ap.add_argument("--context", type=int, default=320)
     ap.add_argument("--horizon", type=int, default=8)
     ap.add_argument("--chunk-rows", type=int, default=4)
-    ap.add_argument("--prefill-len", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -106,11 +124,11 @@ def main(argv=None):
     model = TransformerLM(cfg, device="cuda")
     params = model.init_params(seed=0)
     j, dev = args.slots, "cuda"
-    cache = _fill_pool(model, params, j, args.context, 16, 640, dev)
+    cache = _fill_pool(model, params, j, args.context, 16, SERVE_LEN, dev)
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
 
     # each call grows the live slots (decode) or rewrites the first chunk of
-    # the chunk rows' slots; the measured calls stay inside the 640-token pool
+    # the chunk rows' slots; the measured calls stay inside the SERVE_LEN pool
     def decode():
         model.decode_steps(
             params, z(j), cache, num_steps=args.horizon, sampler=greedy,
@@ -129,10 +147,11 @@ def main(argv=None):
             token_idx=z(j + r), sample_rows=torch.ones(j + r, dtype=torch.bool, device=dev),
         )
 
+    prefill_len = dense_prefill_len()
     head = {
         "device": torch.cuda.get_device_name(0), "layers": args.layers,
         "slots": j, "context": args.context, "horizon": args.horizon,
-        "chunk_rows": r, "prefill_len": args.prefill_len,
+        "chunk_rows": r, "prefill_len": prefill_len,
     }
     for name, fn in (("decode_steps", decode), ("mixed_step", mixed)):
         print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
@@ -142,14 +161,14 @@ def main(argv=None):
     # dense layout: the slot cache holds ``context`` tokens per slot
     rng = np.random.default_rng(1)
     t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)
-    slot_cache = model.cache_init(j, 640)
+    slot_cache = model.cache_init(j, SERVE_LEN)
     model.prefill(params, t(rng.integers(1, cfg.vocab_size, size=(j, args.context))),
                   slot_cache)
-    prompts = t(rng.integers(1, cfg.vocab_size, size=(j, args.prefill_len)))
-    bucket = model.cache_init(j, args.prefill_len)
+    prompts = t(rng.integers(1, cfg.vocab_size, size=(j, prefill_len)))
+    bucket = model.cache_init(j, prefill_len)
 
     def dense_prefill():
-        logits, _ = model.prefill(params, prompts, bucket, lengths=t(np.full(j, args.prefill_len)))
+        logits, _ = model.prefill(params, prompts, bucket, lengths=t(np.full(j, prefill_len)))
         greedy(logits).cpu()
 
     def dense_decode():

@@ -9,7 +9,7 @@ import torch
 
 from repro.models import cache as ref_cache
 from repro_torch.models import cache
-from torch_port_helpers import to_np
+from torch_port_arrays import to_np
 
 KV, P, BS, D, MB = 2, 12, 4, 8, 5
 

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
+from torch_port_arrays import shuffled_tables
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 pytestmark = pytest.mark.cuda
@@ -30,17 +31,6 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _shuffled_tables(rng, n_rows, mb, n_pages, page_size, lengths):
-    perm = rng.permutation(n_pages)
-    tables = np.full((n_rows, mb), -1, np.int32)
-    used = 0
-    for i in range(n_rows):
-        need = -(-int(lengths[i]) // page_size)
-        tables[i, :need] = perm[used : used + need]
-        used += need
-    return tables
-
-
 @pytest.mark.parametrize("d", [16, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_paged_decode_matches_plain(card, d, dtype):
@@ -48,7 +38,7 @@ def test_cuda_paged_decode_matches_plain(card, d, dtype):
     b, h, kv, p, bs, mb = 8, 32, 8, 400, 16, 40
     lengths = rng.integers(1, mb * bs + 1, size=b).astype(np.int32)
     lengths[-1] = 0                                   # an idle lane
-    tables = torch.from_numpy(_shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
+    tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
     q = torch.randn(b, 1, h, d, device="cuda").to(TDT[dtype])
     k = torch.randn(kv, p, bs, d, device="cuda").to(TDT[dtype])
     v = torch.randn(kv, p, bs, d, device="cuda").to(TDT[dtype])
@@ -75,7 +65,7 @@ def test_cuda_flash_dense_and_paged_match_plain(card, dtype):
     r, c, h, kv, d, p, bs, mb = 4, 8, 4, 2, 16, 20, 4, 10
     starts = np.array([0, 5, 13, 0], np.int32)
     valid = starts + np.array([8, 3, 7, 0], np.int32)
-    tables = _shuffled_tables(rng, r - 1, mb, p, bs, valid[:-1])
+    tables = shuffled_tables(rng, r - 1, mb, p, bs, valid[:-1])
     tables = np.concatenate([tables, tables[-1:]])
     args = [torch.randn(*shape, device="cuda").to(TDT[dtype])
             for shape in ((r, c, h, d), (kv, p, bs, d), (kv, p, bs, d))]

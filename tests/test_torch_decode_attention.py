@@ -15,7 +15,7 @@ import torch
 from repro.kernels.ops import decode_attention as ref_decode
 from repro.kernels.ref import decode_attention_ref
 from repro_torch.kernels import decode_attention as da
-from torch_port_helpers import to_np
+from torch_port_arrays import to_np
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -13,7 +13,7 @@ from repro.models import cache as ref_cache
 from repro.serving.kv_slots import _scatter_cache as ref_scatter_cache
 from repro_torch.models import cache
 from repro_torch.serving.kv_slots import scatter_cache
-from torch_port_helpers import to_np
+from torch_port_arrays import to_np
 
 B, S, KV, D, W = 4, 12, 2, 8, 5
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -21,7 +21,8 @@ from repro.serving.sampler import greedy as ref_greedy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.serving.sampler import greedy
-from torch_port_helpers import port_model_and_params, ref_model_and_params, to_np
+from torch_port_arrays import to_np
+from torch_port_helpers import port_model_and_params, ref_model_and_params
 
 TOL = 1e-4
 N_SLOTS, MAX_LEN, S = 4, 64, 32

@@ -17,7 +17,7 @@ from repro.models.attention import attention_paged as ref_attention_paged
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import attention_paged
 from repro_torch.kernels import paged_decode_attention as pda
-from torch_port_helpers import shuffled_tables, to_np
+from torch_port_arrays import shuffled_tables, to_np
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -11,7 +11,8 @@ import torch
 from repro.models import layers as ref_layers
 from repro_torch.models import layers
 from repro_torch.models.convert import params_from_numpy
-from torch_port_helpers import CFG, REF_CFG, port_model_and_params, ref_model_and_params, to_np
+from torch_port_arrays import to_np
+from torch_port_helpers import CFG, REF_CFG, port_model_and_params, ref_model_and_params
 
 TOL = 1e-5
 

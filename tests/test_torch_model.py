@@ -11,7 +11,8 @@ import torch
 
 from repro.serving.sampler import greedy as ref_greedy
 from repro_torch.serving.sampler import GreedySampler, greedy
-from torch_port_helpers import port_model_and_params, ref_model_and_params, to_np
+from torch_port_arrays import to_np
+from torch_port_helpers import port_model_and_params, ref_model_and_params
 
 TOL = 1e-4
 N_SLOTS, PAGE, MAX_LEN, C = 4, 8, 64, 16

@@ -1,6 +1,7 @@
 """Shared set-up of the PyTorch port's parity tests (``test_torch_*.py``):
-the reference model and its parameters, the same parameters carried into the
-port, and numpy helpers that feed both sides identical inputs."""
+the reference model and its parameters and the same parameters carried into
+the port. The numpy helpers that feed both sides identical inputs, which need
+no JAX, live in ``torch_port_arrays``."""
 import dataclasses
 
 import jax
@@ -38,24 +39,3 @@ def port_model_and_params(ref_params, cfg=CFG, device="cpu"):
     tree = jax.tree_util.tree_map(np.asarray, ref_params)
     return TransformerLM(cfg, device=device), params_from_numpy(tree, cfg, device)
 
-
-def to_np(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:
-            x = x.float()
-        return x.detach().cpu().numpy()
-    return np.asarray(x, dtype=np.float32) if np.asarray(x).dtype.name == "bfloat16" else np.asarray(x)
-
-
-def shuffled_tables(rng, n_rows, mb, n_pages, page_size, lengths):
-    """Block tables over a shuffled pool: row i owns just enough pages for
-    lengths[i] tokens (-1 past that)."""
-    perm = rng.permutation(n_pages)
-    tables = np.full((n_rows, mb), -1, np.int32)
-    used = 0
-    for i in range(n_rows):
-        need = -(-int(lengths[i]) // page_size)
-        assert used + need <= n_pages, "case under-provisions pages"
-        tables[i, :need] = perm[used : used + need]
-        used += need
-    return tables
