@@ -15,31 +15,44 @@ Phases, each printing its seconds on a line of its own:
              paged chunk flash over shuffled pages and -1 table entries in
              bf16; dense decode over the strided (B, S, KV, D) cache view with
              ragged lengths including 0, in bf16 and float32; dense flash at
-             the dense prefill's shape) and at the smoke shapes (head_dim 16);
-             time the kernel, the plain version and one PyTorch library call
-             (scaled_dot_product_attention on the same inputs, timed here
-             only) and compute the kernel's bound;
+             the dense prefill's shape), at the smoke shapes (head_dim 16) and
+             at RecurrentGemma-9B's (16 query heads on one KV head, head_dim
+             256: dense decode in bf16 and float32, dense flash with its window
+             of 2048; the RG-LRU scan at the prefill's (8, 128, 4096), at the
+             reference's test cases, at one token and chained across two
+             calls); time the kernel, the plain version and one PyTorch
+             library call (scaled_dot_product_attention on the same inputs,
+             timed here only; no single call computes the scan) and compute
+             the kernel's bound;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
-             prefill, fused decode) of the smoke Qwen3, and the dense path of
-             a sliding-window config whose ring wraps; logits within 1e-4,
-             identical greedy tokens;
+             prefill, fused decode) of the smoke Qwen3, the dense path of a
+             sliding-window config whose ring wraps, and the smoke
+             RecurrentGemma (ragged prefill, then decode steps that wrap its
+             window-8 ring); logits within 1e-4, identical greedy tokens;
 5. serve   — full-size Qwen3-8B (36 layers, bf16, random weights from a seed)
              behind the port's Engine, twice on the same weights and the same
              16 GSM8K-shaped requests (outputs capped at 128) under hybrid
              scheduling: the paged layout with mixed steps, then the dense
              layout with whole-prompt prefill stages and fused decode; checks
              the trace, the budgets, the token ids and that each kernel ran
-             exactly as often as each schedule implies.
+             exactly as often as each schedule implies. Then, Qwen3 freed,
+             full-size RecurrentGemma-9B (38 layers, bf16, random weights)
+             on the same 16 requests in two waves of 8 slots through its own
+             prefill and decode_step (launch.generate; the Engine does not
+             take it); checks the budgets, the token ids and that the scan
+             ran in each of the 26 recurrent layers and kernels 2 and 3 in
+             each of the 12 attention layers of every prefill and step.
 
-Then one JSON line naming every ported kernel (kernel 2 once per entry) with
-its launches in each serve and its times, and, last, {"ok": true, "device":
-{...}}. Any failed check raises, so the script exits non-zero and prints no
-result.
+Then one JSON line naming every ported kernel (kernel 2 once per entry, and
+kernels 2 and 3 again at RecurrentGemma's shapes) with its launches on each
+path and its times, and, last, {"ok": true, "device": {...}}. Any failed
+check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -52,6 +65,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+RGLRU_TOL = 1e-5                 # the scan vs its plain version (float32)
 LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
 # The serve (slot length, dense prefill buckets, requests) is defined once, in
@@ -192,6 +207,16 @@ def dense_flash_bound(q, k):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def rglru_bound(a):
+    """Read a and x and h0 once, write h and h_final once; one multiply and
+    one add an element, in float32 on the CUDA cores."""
+    b, s, r = a.shape
+    nbytes = (3 * b * s * r + 2 * b * r) * 4
+    flops = 2 * b * s * r
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def decode_bound(q, k, tables, lengths):
     b, _, h, d = q.shape
     kv = k.shape[0]
@@ -328,11 +353,99 @@ def run_kernel_checks(torch, np):
                 dq, dk, dv, causal=causal, window=window), KERNEL_TOL["bfloat16"])
             print(f"  flash_attention dense {label} causal={causal} window={window}: "
                   f"max_abs_err={derr:.3g}")
+    results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
     for (name, label), r in results.items():
-        print(f"  {name} [{label}] bf16 timed: max_abs_err={r['max_abs_err']:.4g} "
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {name} [{label}] timed: max_abs_err={r['max_abs_err']:.4g} "
               f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-              f"sdpa={r['library_ms']:.4f} ms bound={r['bound_ms']:.4f} ms ({r['bound_by']})",
+              f"library={lib} bound={r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
+    return results
+
+
+def run_recurrentgemma_kernel_checks(torch, np, F, flush):
+    """Kernels 2, 3 and 4 at RecurrentGemma-9B's shapes: 16 query heads on
+    one KV head at head_dim 256, window 2048, rnn width 4096, 8 slots."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len
+
+    label, (h, kv, d), window = "recurrentgemma-9b", (16, 1, 256), 2048
+    results = {}
+    # kernel 3 over the ring (W = min(2048, SERVE_LEN)), both dtypes; timed in bf16
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt, SERVE_LEN)
+        out = da.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
+        check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
+        print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}", flush=True)
+    qs = q[:, :, None]
+    ks, vs = (x.repeat_interleave(h // kv, dim=1).contiguous() for x in (k, v))
+    mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None]
+    results[("decode_attention", label)] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: da.decode_attention(q, k, v, lengths), flush),
+        plain_ms=time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lengths), flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                           flush),
+        **dict(zip(("bound_ms", "bound_by"), dense_decode_bound(q, k, lengths))),
+    )
+    # kernel 2's dense entry at the wave prefill's shape, causal, window 2048;
+    # float32 checked at the same shape
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dt) for x in dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len()))
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=True, window=window),
+                      KERNEL_TOL[name])
+        print(f"  flash_attention dense [{label}] {name}: max_abs_err={err:.4g}", flush=True)
+    qs = q.contiguous()
+    ks, vs = (x.repeat_interleave(h // kv, dim=1).contiguous() for x in (k, v))
+    results[("flash_attention_dense", label)] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=window), flush),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window), flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+                           flush),
+        **dict(zip(("bound_ms", "bound_by"), dense_flash_bound(q, k))),
+    )
+    # kernel 4: the prefill's shape, the reference's test cases
+    # (tests/test_kernels.py:161), one decode token, and two chained calls
+    g = torch.Generator(device="cuda").manual_seed(5)
+    errs = {}
+    for b, s, r in ((8, dense_prefill_len(), 4096), (2, 512, 256), (1, 256, 128), (3, 128, 384),
+                    (8, 1, 4096)):
+        a = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
+        x = torch.randn(b, s, r, device="cuda", generator=g)
+        h0 = torch.randn(b, r, device="cuda", generator=g)
+        out, hf = rglru.rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        ref, ref_hf = rglru.rglru_scan_plain(a, x, h0)
+        errs[(b, s, r)] = max(max_err(torch, out, ref, RGLRU_TOL), max_err(torch, hf, ref_hf, RGLRU_TOL))
+        print(f"  rglru_scan {(b, s, r)}: max_abs_err={errs[(b, s, r)]:.4g}", flush=True)
+        if (b, s, r) == (8, dense_prefill_len(), 4096):
+            timed = (a, x, h0)
+    a, x = torch.sigmoid(torch.randn(1, 256, 128, device="cuda", generator=g)), \
+        torch.randn(1, 256, 128, device="cuda", generator=g)
+    full, hf_full = rglru.rglru_scan(a, x)
+    _, hf1 = rglru.rglru_scan(a[:, :128], x[:, :128])
+    h2, hf2 = rglru.rglru_scan(a[:, 128:], x[:, 128:], hf1)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, h2, full[:, 128:], RGLRU_TOL), max_err(torch, hf2, hf_full, RGLRU_TOL))
+    print(f"  rglru_scan chained across two calls: max_abs_err={err:.4g}", flush=True)
+    a, x, h0 = timed
+    results[("rglru_scan", label)] = dict(
+        max_abs_err=max(errs.values()),
+        ms=time_ms(torch, lambda: rglru.rglru_scan(a, x, h0), flush),
+        plain_ms=time_ms(torch, lambda: rglru.rglru_scan_plain(a, x, h0), flush),
+        library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
+    )
     return results
 
 
@@ -386,8 +499,6 @@ def run_dense_parity(torch, np, cfg, what, k_steps=8):
 
 
 def run_parity(torch, np):
-    import dataclasses
-
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ArchConfig
     from repro_torch.serving.sampler import greedy
@@ -425,6 +536,44 @@ def run_parity(torch, np):
                      n_kv_heads=2, d_ff=128, vocab_size=256, sliding_window=24,
                      dtype="float32")
     run_dense_parity(torch, np, swa, "sliding-window ring")
+    run_recurrentgemma_parity(torch, np)
+
+
+def run_recurrentgemma_parity(torch, np, steps=12):
+    """The float32 smoke RecurrentGemma (8 layers, window 8): a ragged
+    prefill (prompts of 12, 9 and 7 tokens, so the ring wraps), then greedy
+    decode steps that wrap it again, on the card and on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.recurrentgemma import RecurrentGemma
+    from repro_torch.serving.sampler import greedy
+
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma_9b"), dtype="float32")
+    cpu = RecurrentGemma(cfg, device="cpu")
+    params_cpu = cpu.init_params(seed=0)
+    lengths = np.array([12, 9, 7], np.int32)
+    tokens = np.random.default_rng(1).integers(1, cfg.vocab_size, size=(3, 12)).astype(np.int32)
+    tokens[np.arange(12)[None, :] >= lengths[:, None]] = 0
+    outs = []
+    for m, p in ((cpu, params_cpu),
+                 (RecurrentGemma(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))):
+        t = lambda x: torch.from_numpy(x).to(m.device)
+        logits, cache = m.prefill(p, t(tokens), m.cache_init(3, 32), lengths=t(lengths))
+        dec, toks = [], []
+        cur = greedy(logits)
+        for _ in range(steps):
+            step_logits, cache = m.decode_step(p, cur, cache)
+            cur = greedy(step_logits)
+            dec.append(step_logits)
+            toks.append(cur)
+        outs.append((logits.cpu(), torch.stack(dec).cpu(), torch.stack(toks).cpu()))
+    for a, b, kind in zip(outs[0][:2], outs[1][:2], ("prefill", "decode")):
+        err = float((a - b).abs().max())
+        check(err <= LOGITS_TOL, f"recurrentgemma {kind} logits: card vs CPU max err {err:.3g}")
+        print(f"  smoke recurrentgemma float32 {kind} logits card vs CPU: max_abs_err={err:.3g}")
+    check(bool(torch.equal(outs[0][2], outs[1][2])), "recurrentgemma: greedy tokens differ card vs CPU")
+    print(f"  smoke recurrentgemma float32 {steps} decode steps (ring of 8 wrapped), "
+          f"tokens card == CPU: True", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -457,6 +606,27 @@ def warm(torch, model, params, eng):
     torch.cuda.synchronize()
 
 
+def kernel_modules():
+    """Each ported kernel's wrapper module by launch-count name."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.kernels import rglru
+
+    return {"paged_decode_attention": pda, "flash_attention": fa, "decode_attention": da,
+            "rglru_scan": rglru}
+
+
+def check_launches(path, launches, expect):
+    """Every kernel launched exactly as often as the path implies, and each
+    kernel of the path at least once."""
+    print(f"  {path} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
+    for name, n in launches.items():
+        check(n == expect[name], f"{path}: {name}: {n} launches, the path implies {expect[name]}")
+        if expect[name]:
+            check(n > 0, f"{path}: {name} was never launched on its path")
+
+
 def run_serve(torch, model, params, layout):
     """Serve the GSM8K-shaped closed-loop workload through the port's Engine
     under hybrid scheduling as launch/serve.py sets it up, on the paged
@@ -471,9 +641,6 @@ def run_serve(torch, model, params, layout):
         build_clients,
         solve_offline,
     )
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.launch.profile_step import DENSE_BUCKETS, SERVE_LEN, serve_workload
     from repro_torch.serving.engine import Engine, EngineConfig
 
@@ -491,7 +658,7 @@ def run_serve(torch, model, params, layout):
     eng.profiler.cost_model = cm
     warm(torch, model, params, eng)
     torch.cuda.reset_peak_memory_stats()
-    kernels = {"paged_decode_attention": pda, "flash_attention": fa, "decode_attention": da}
+    kernels = kernel_modules()
     for mod in kernels.values():
         mod.reset_launch_count()
     t0 = time.perf_counter()
@@ -515,12 +682,14 @@ def run_serve(torch, model, params, layout):
             "paged_decode_attention": cfg.n_layers * (decode_rounds + mixed),
             "flash_attention": cfg.n_layers * (mixed + prefills),
             "decode_attention": 0,
+            "rglru_scan": 0,
         }
     else:
         expect = {
             "paged_decode_attention": 0,
             "flash_attention": cfg.n_layers * prefills,
             "decode_attention": cfg.n_layers * decode_rounds,
+            "rglru_scan": 0,
         }
     s = trace.summary()
     stall = trace.meta["prefill_stall_time_s"]
@@ -532,14 +701,55 @@ def run_serve(torch, model, params, layout):
           f"({decode_rounds} rounds), decode dispatches {trace.meta['decode_dispatches']}, "
           f"prefill stall {stall} s")
     print(f"  {layout} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  {layout} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
-    for name, n in launches.items():
-        check(n == expect[name], f"{layout}: {name}: {n} launches, the schedule implies {expect[name]}")
-        if expect[name]:
-            check(n > 0, f"{layout}: {name} was never launched on its path")
+    check_launches(layout, launches, expect)
     if layout == "dense":
         check(stall > 0, "dense: no prefill stage ran while decoders were active")
     return eng, launches
+
+
+def run_recurrentgemma_serve(torch, model, params):
+    """The serve's 16 requests through RecurrentGemma's own prefill and
+    decode_step in two waves of 8 slots (launch.generate), after a warm-up
+    wave; returns the launches per kernel."""
+    from repro_torch.launch.generate import generate_waves
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len, serve_workload
+
+    cfg = model.cfg
+    reqs = serve_workload()
+    waves = dict(n_slots=8, max_len=SERVE_LEN, prefill_len=dense_prefill_len())
+    # warm-up: cuBLAS and the kernels initialised at the serve's shapes
+    generate_waves(model, params, [dataclasses.replace(r, n_decode=2) for r in reqs[:8]], **waves)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    t0 = time.perf_counter()
+    res = generate_waves(model, params, reqs, **waves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
+
+    for r in reqs:
+        got = res.generated.get(r.rid, [])
+        check(len(got) == r.n_decode, f"recurrentgemma: request {r.rid} emitted {len(got)} of {r.n_decode}")
+        check(all(0 <= t < cfg.vocab_size for t in got), f"recurrentgemma: request {r.rid}: invalid token id")
+    calls = res.prefills + res.decode_steps
+    n_attn, n_rec = model.n_periods, model.n_rec
+    expect = {
+        "paged_decode_attention": 0,
+        "flash_attention": n_attn * res.prefills,
+        "decode_attention": n_attn * res.decode_steps,
+        "rglru_scan": n_rec * calls,
+    }
+    print(f"  recurrentgemma serve: {len(reqs)} requests in {res.prefills} waves of 8 slots, "
+          f"{res.tokens} output tokens, {res.decode_steps} decode steps, wall {wall:.4f} s", flush=True)
+    print(f"  recurrentgemma tokens/s: {res.tokens / wall:.3f}")
+    print(f"  recurrentgemma ms per decode step: {1e3 * res.decode_s / res.decode_steps:.3f}")
+    print(f"  recurrentgemma ms per prefill (8 x {waves['prefill_len']}): "
+          f"{1e3 * res.prefill_s / res.prefills:.3f}")
+    print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_launches("recurrentgemma", launches, expect)
+    return launches
 
 
 def _leaves(tree):
@@ -551,16 +761,28 @@ def _leaves(tree):
 
 
 KERNELS = (
-    # (name, launch-count name, layout whose serve runs it, source, TPU kernel)
+    # (row name, launch-count name, path that runs it, source, TPU kernel,
+    #  shapes the row's times were taken at)
     ("paged_decode_attention", "paged_decode_attention", "paged",
      "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-     "src/repro/kernels/paged_decode_attention.py:86"),
+     "src/repro/kernels/paged_decode_attention.py:86", "qwen3-8b"),
     ("flash_attention", "flash_attention", "paged",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "qwen3-8b"),
     ("flash_attention_dense", "flash_attention", "dense",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98"),
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "qwen3-8b"),
     ("decode_attention", "decode_attention", "dense",
-     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77"),
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77",
+     "qwen3-8b"),
+    ("flash_attention_dense_recurrentgemma", "flash_attention", "recurrentgemma",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "recurrentgemma-9b"),
+    ("decode_attention_recurrentgemma", "decode_attention", "recurrentgemma",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77",
+     "recurrentgemma-9b"),
+    ("rglru_scan", "rglru_scan", "recurrentgemma",
+     "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:61", "recurrentgemma-9b"),
 )
 
 
@@ -616,11 +838,28 @@ def main() -> int:
         eng, launches[layout] = run_serve(torch, model, params, layout)
         del eng                       # free this layout's KV before the next one
         torch.cuda.empty_cache()
+    del model, params                 # free Qwen3-8B before RecurrentGemma-9B loads
+    torch.cuda.empty_cache()
+
+    from repro_torch.models.recurrentgemma import RecurrentGemma
+
+    t1 = time.perf_counter()
+    model = RecurrentGemma(get_config("recurrentgemma_9b"), device="cuda")
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f"  model {cfg.name}: {cfg.n_layers} layers ({model.n_rec} recurrent, "
+          f"{model.n_periods} attention), d_model {cfg.d_model}, "
+          f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
+          f"init {time.perf_counter() - t1:.2f} s", flush=True)
+    launches["recurrentgemma"] = run_recurrentgemma_serve(torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
     phase("serve", t0)
 
     kernels = []
-    for kname, count, layout, source, replaces in KERNELS:
-        r = kres[(kname, "qwen3-8b")]
+    for kname, count, layout, source, replaces, label in KERNELS:
+        r = kres[(kname.replace("_recurrentgemma", ""), label)]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[layout][count],

@@ -11,7 +11,7 @@ from typing import List
 
 from .base import ArchConfig
 
-ARCH_IDS: List[str] = ["qwen3_8b"]
+ARCH_IDS: List[str] = ["qwen3_8b", "recurrentgemma_9b"]
 
 
 def _module(name: str):

@@ -12,7 +12,9 @@
 // q (B, H, D), k / v (B, KV, S, D) with any batch / head / token strides
 // (the model passes its (B, S, KV, D) layer slice transposed, so the cache is
 // never copied), GQA with the g = H / KV query heads of a KV head sharing
-// every K/V load. Keys at positions >= lengths[b] are masked and never read;
+// every K/V load (up to 8 heads a CTA; a larger group, as MQA's g = 16, is
+// split across CTAs that read the same keys). Keys at positions >= lengths[b]
+// are masked and never read;
 // float32 online softmax; a slot with no valid key writes 0, as the Pallas
 // kernel does (running max stays -inf, output divided by max(l, 1e-30)).
 //
@@ -20,7 +22,8 @@
 // and feeds 2 x g flops, far below the ~295 flops/byte where the tensor cores
 // would become the limit. With only B x KV CTAs (64 at the serving shapes)
 // the risk is latency: too few bytes in flight per SM. So the design is:
-//   * one CTA of 8 warps per (slot, KV head); the warps split the slot's keys
+//   * one CTA of 8 warps per (slot, KV head, part of the group of at most 8
+//     query heads); the warps split the slot's keys
 //     between them (warp w takes steps w, w + 8, ...), and inside a warp
 //     each group of LPK lanes holds one key, each lane a DPL-wide slice of
 //     head_dim. A warp step covers KPW = 32 / LPK keys;
@@ -33,8 +36,9 @@
 //     reduced over its LPK lanes with shuffles;
 //   * each key group keeps its own running max / sum / accumulator (its own
 //     split of the keys), so the loop needs no cross-lane softmax; the
-//     groups are merged with shuffles and the warps through shared memory
-//     once, at the end.
+//     groups are merged with shuffles and the warps through (dynamic) shared
+//     memory once, at the end: 8 warps x heads x D floats, 66 KB at 8 heads
+//     of head_dim 256.
 // The TPU kernel's pad of the whole cache to a multiple of its block
 // (decode_attention.py:95-104) and its DMA of blocks past the length have
 // no counterpart here: tiles past the length are not read.
@@ -51,22 +55,24 @@ struct DenseDecodeArgs {
   const void* v;
   const int* lengths;   // (B,) int32
   void* out;            // (B, H, D)
-  int s;
+  int s, g;             // cache length, query heads per KV head
   long long q_sb, q_sh;
   long long k_sb, k_skv, k_ss, v_sb, v_skv, v_ss;
   long long o_sb, o_sh;
   float scale;
 };
 
-// How one warp covers the keys for element type T, head_dim D and group G:
-// DPL dims per lane (at least one 16-byte vector, and G x DPL <= 64 floats
-// of accumulator per lane where D allows), LPK lanes per key, KPW keys per
-// warp step, NVEC vector loads per lane per row, U steps loaded together.
+// How one warp covers the keys for element type T, head_dim D and G query
+// heads a CTA: DPL dims per lane (at least one 16-byte vector, at least D / 32
+// so that a key fits in a warp, and G x DPL <= 64 floats of accumulator per
+// lane where D allows), LPK lanes per key, KPW keys per warp step, NVEC
+// vector loads per lane per row, U steps loaded together.
 template <typename T, int D, int G>
 struct DecodeShape {
   static constexpr int VEC = Vec<T>::kElems;
   static constexpr int WANT = (32 / G < D) ? 32 / G : D;
-  static constexpr int DPL = WANT > VEC ? WANT : VEC;
+  static constexpr int FIT = D / 32 > VEC ? D / 32 : VEC;
+  static constexpr int DPL = WANT > FIT ? WANT : FIT;
   static constexpr int LPK = D / DPL;
   static constexpr int KPW = 32 / LPK;
   static constexpr int NVEC = DPL / VEC;
@@ -81,16 +87,19 @@ dense_decode_kernel(DenseDecodeArgs a) {
   constexpr int VEC = Sh::VEC, DPL = Sh::DPL, LPK = Sh::LPK, KPW = Sh::KPW;
   constexpr int NVEC = Sh::NVEC, U = Sh::U;
   constexpr unsigned kFull = 0xffffffffu;
-  __shared__ float m_s[kDecWarps][G], l_s[kDecWarps][G];
-  __shared__ float acc_s[kDecWarps][G][D];
+  extern __shared__ float dec_smem[];
+  float* m_s = dec_smem;                     // [kDecWarps][G]
+  float* l_s = m_s + kDecWarps * G;          // [kDecWarps][G]
+  float* acc_s = l_s + kDecWarps * G;        // [kDecWarps][G][D]
 
   const int b = blockIdx.x, kvh = blockIdx.y;
+  const int head0 = kvh * a.g + blockIdx.z * G;   // first query head of this CTA
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kg = lane / LPK;                 // key group of this lane
   const int d0 = (lane % LPK) * DPL;         // first head_dim index of its slice
   const int len = max(0, min(a.lengths[b], a.s));
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)kvh * G * a.q_sh;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)head0 * a.q_sh;
   float qr[G][DPL];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
@@ -185,46 +194,52 @@ dense_decode_kernel(DenseDecodeArgs a) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
-      for (int d = 0; d < DPL; ++d) acc_s[warp][gi][d0 + d] = acc[gi][d];
+      for (int d = 0; d < DPL; ++d) acc_s[(warp * G + gi) * D + d0 + d] = acc[gi][d];
       if (lane == 0) {
-        m_s[warp][gi] = m[gi];
-        l_s[warp][gi] = l[gi];
+        m_s[warp * G + gi] = m[gi];
+        l_s[warp * G + gi] = l[gi];
       }
     }
   }
   __syncthreads();
 
-  // merge the warps and write the (G, D) output tile of this KV head
-  T* out = static_cast<T*>(a.out) + b * a.o_sb + (long long)kvh * G * a.o_sh;
+  // merge the warps and write the (G, D) output tile of this CTA's heads
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + (long long)head0 * a.o_sh;
   for (int i = threadIdx.x; i < G * D; i += kDecThreads) {
     const int gi = i / D, d = i % D;
     float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_s[w][gi]);
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_s[w * G + gi]);
     float lt = 0.f, at = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w) {
-      const float sc = mx == -CUDART_INF_F ? 0.f : expf(m_s[w][gi] - mx);
-      lt += l_s[w][gi] * sc;
-      at += acc_s[w][gi][d] * sc;
+      const float sc = mx == -CUDART_INF_F ? 0.f : expf(m_s[w * G + gi] - mx);
+      lt += l_s[w * G + gi] * sc;
+      at += acc_s[(w * G + gi) * D + d] * sc;
     }
     store_f(out + gi * a.o_sh + d, at / fmaxf(lt, 1e-30f));
   }
 }
 
+// G query heads a CTA, ``parts`` CTAs per (slot, KV head)
 template <typename T, int D, int G>
-static int launch(const DenseDecodeArgs& a, int B, int KV, cudaStream_t stream) {
-  dense_decode_kernel<T, D, G><<<dim3(B, KV), kDecThreads, 0, stream>>>(a);
+static int launch(const DenseDecodeArgs& a, int B, int KV, int parts, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kDecWarps * G * (D + 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_decode_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dense_decode_kernel<T, D, G><<<dim3(B, KV, parts), kDecThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 static int dispatch_g(const DenseDecodeArgs& a, int B, int KV, int G, cudaStream_t s) {
   switch (G) {
-    case 1: return launch<T, D, 1>(a, B, KV, s);
-    case 2: return launch<T, D, 2>(a, B, KV, s);
-    case 4: return launch<T, D, 4>(a, B, KV, s);
-    case 8: return launch<T, D, 8>(a, B, KV, s);
+    case 1: return launch<T, D, 1>(a, B, KV, 1, s);
+    case 2: return launch<T, D, 2>(a, B, KV, 1, s);
+    case 4: return launch<T, D, 4>(a, B, KV, 1, s);
+    case 8: return launch<T, D, 8>(a, B, KV, 1, s);
+    case 16: return launch<T, D, 8>(a, B, KV, 2, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -235,6 +250,7 @@ static int dispatch_d(const DenseDecodeArgs& a, int B, int KV, int G, int D, cud
     case 16: return dispatch_g<T, 16>(a, B, KV, G, s);
     case 64: return dispatch_g<T, 64>(a, B, KV, G, s);
     case 128: return dispatch_g<T, 128>(a, B, KV, G, s);
+    case 256: return dispatch_g<T, 256>(a, B, KV, G, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -244,8 +260,8 @@ static int dispatch_d(const DenseDecodeArgs& a, int B, int KV, int G, int D, cud
 using namespace repro_torch;
 
 // Returns cudaGetLastError() after the launch (0 = launched). The caller
-// checks shapes, dtypes, strides and alignment; G = H / KV must be 1, 2, 4
-// or 8 and D 16, 64 or 128.
+// checks shapes, dtypes, strides and alignment; G = H / KV must be 1, 2, 4,
+// 8 or 16 and D 16, 64, 128 or 256.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out,
     int B, int H, int KV, int S, int D, long long q_sb, long long q_sh,
@@ -254,7 +270,7 @@ extern "C" int decode_attention_launch(
     float scale, int dtype, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  DenseDecodeArgs a{q, k, v, static_cast<const int*>(lengths), out, S,
+  DenseDecodeArgs a{q, k, v, static_cast<const int*>(lengths), out, S, H / KV,
                     q_sb, q_sh, k_sb, k_skv, k_ss, v_sb, v_skv, v_ss,
                     o_sb, o_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

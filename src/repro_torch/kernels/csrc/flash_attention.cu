@@ -271,6 +271,7 @@ static int dispatch(const FlashArgs& a, int rows, int H, int D, cudaStream_t s) 
     REPRO_FLASH_D(32)
     REPRO_FLASH_D(64)
     REPRO_FLASH_D(128)
+    REPRO_FLASH_D(256)
   }
 #undef REPRO_FLASH_D
   return (int)cudaErrorInvalidValue;

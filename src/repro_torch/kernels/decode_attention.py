@@ -31,8 +31,8 @@ from .flash_attention import check_vector_aligned, masked_attention
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64, 128)
-_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (16, 64, 128, 256)
+_GROUPS = (1, 2, 4, 8, 16)
 
 
 def reset_launch_count() -> None:

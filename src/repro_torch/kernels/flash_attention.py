@@ -32,7 +32,7 @@ from . import build
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def reset_launch_count() -> None:

@@ -14,6 +14,10 @@ cache with ``--context`` tokens each, then measures on the CUDA device:
   largest bucket the serve's prompts use, into a bucket cache, as the engine
   runs it) and a fused decode stage (``decode_steps`` with K = ``--horizon``
   over the slot cache);
+* then, with Qwen3 freed, full-size RecurrentGemma-9B (random bf16 weights):
+  a prefill stage (``prefill`` of ``--slots`` prompts at the same bucket into
+  a fresh cache, as ``launch.generate`` runs a wave) and one ``decode_step``
+  over slots holding ``--context`` tokens;
 * for each: host wall time per call, each ending in a device synchronise,
   and one ``torch.profiler`` trace: device time summed over kernels, the
   device's busy share of the wall time, kernels launched per call, and the
@@ -32,6 +36,7 @@ import torch
 
 from ..configs import get_config
 from ..data import WorkloadSpec, gsm8k_like_workload
+from ..models.recurrentgemma import RecurrentGemma
 from ..models.transformer import TransformerLM
 from ..serving.sampler import greedy
 
@@ -149,7 +154,7 @@ def main(argv=None):
 
     prefill_len = dense_prefill_len()
     head = {
-        "device": torch.cuda.get_device_name(0), "layers": args.layers,
+        "device": torch.cuda.get_device_name(0), "model": cfg.name, "layers": args.layers,
         "slots": j, "context": args.context, "horizon": args.horizon,
         "chunk_rows": r, "prefill_len": prefill_len,
     }
@@ -180,6 +185,28 @@ def main(argv=None):
         )
 
     for name, fn in (("dense_prefill", dense_prefill), ("dense_decode_steps", dense_decode)):
+        print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
+    del model, params, slot_cache, bucket
+    torch.cuda.empty_cache()
+
+    # RecurrentGemma-9B at full depth: its prefill stage and one decode step
+    rg = RecurrentGemma(get_config("recurrentgemma_9b"), device="cuda")
+    rg_params = rg.init_params(seed=0)
+    rg_cache = rg.cache_init(j, SERVE_LEN)
+    rg.prefill(rg_params, t(rng.integers(1, rg.cfg.vocab_size, size=(j, args.context))), rg_cache)
+    rg_prompts = t(rng.integers(1, rg.cfg.vocab_size, size=(j, prefill_len)))
+    lens = t(np.full(j, prefill_len))
+
+    def rg_prefill():
+        logits, _ = rg.prefill(rg_params, rg_prompts, rg.cache_init(j, SERVE_LEN), lengths=lens)
+        greedy(logits).cpu()
+
+    def rg_decode():
+        logits, _ = rg.decode_step(rg_params, z(j), rg_cache)
+        greedy(logits).cpu()
+
+    head = {**head, "model": rg.cfg.name, "layers": rg.cfg.n_layers}
+    for name, fn in (("rg_prefill", rg_prefill), ("rg_decode_step", rg_decode)):
         print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
 
 

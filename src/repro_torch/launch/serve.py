@@ -32,6 +32,13 @@ from ..models.transformer import TransformerLM
 from ..serving.engine import Engine, EngineConfig
 
 
+# The archs the Engine serves: the dense decoders (``TransformerLM``, with
+# its fused ``decode_steps``). RecurrentGemma has none — the reference's
+# launcher offers it and crashes at its first decode stage — and is served
+# by ``launch.generate`` instead.
+ENGINE_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family == "dense")
+
+
 def build_scheduling(mode, reqs, n_slots, cm):
     if mode == "baseline":
         return build_clients(n_slots, reqs, None), GlobalQueueScheduler(reqs), PrefillFirstPolicy()
@@ -67,7 +74,7 @@ def engine_config(n_slots: int) -> EngineConfig:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3_8b")
+    ap.add_argument("--arch", choices=ENGINE_ARCHS, default="qwen3_8b")
     ap.add_argument("--policy", choices=["baseline", "offline", "online", "hybrid"],
                     default="hybrid")
     ap.add_argument("--requests", type=int, default=32)

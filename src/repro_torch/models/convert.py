@@ -4,8 +4,11 @@
 tree (``init_params`` output) with every leaf already a numpy array —
 ``jax.tree_util.tree_map(np.asarray, params)`` on the reference side — and
 returns the port's tree: the same nesting, shapes and dtypes, as tensors on
-``device``. Both packages then compute the same function. bfloat16 leaves
-(numpy's ``bfloat16`` extension dtype) move bit for bit.
+``device``. The tree to expect comes from the port's model of ``cfg``
+(``registry.get_model``), and each leaf keeps its own dtype (RecurrentGemma's
+float32 ``lam`` in a bf16 tree stays float32). Both packages then compute the
+same function. bfloat16 leaves (numpy's ``bfloat16`` extension dtype) move
+bit for bit.
 """
 from __future__ import annotations
 
@@ -28,9 +31,9 @@ def _to_tensor(x: np.ndarray) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Tree, cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
-    from .transformer import TransformerLM
+    from .registry import get_model
 
-    defs = TransformerLM(cfg, device="cpu").param_defs()
+    defs = get_model(cfg, device="cpu").param_defs()
     want = dict(_leaves(defs))
     got = dict(_leaves(tree))
     if set(want) != set(got):

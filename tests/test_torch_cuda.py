@@ -108,3 +108,71 @@ def test_cuda_decode_matches_plain(card, h, kv, d, dtype):
     ref = da.decode_attention_plain(q, k, v, lengths)
     torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
     assert torch.equal(out[4], torch.zeros_like(out[4]))
+
+
+@pytest.mark.parametrize("b,s,r", [(8, 128, 4096), (2, 512, 256), (1, 256, 128), (3, 128, 384),
+                                   (8, 1, 4096), (2, 13, 100)])
+def test_cuda_rglru_matches_plain(card, b, s, r):
+    """Kernel 4 at the recurrentgemma prefill shape, the reference's test
+    cases (tests/test_kernels.py:161), one decode token and a ragged S and R;
+    the kernel rounds as the plain version does, so they agree to 1e-5."""
+    from repro_torch.kernels import rglru
+
+    g = torch.Generator(device="cuda").manual_seed(b * s + r)
+    a = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
+    x = torch.randn(b, s, r, device="cuda", generator=g)
+    h0 = torch.randn(b, r, device="cuda", generator=g)
+    rglru.reset_launch_count()
+    out, hf = rglru.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rglru.launch_count == 1
+    ref, ref_hf = rglru.rglru_scan_plain(a, x, h0)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, ref_hf, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_rglru_state_chains_across_calls(card):
+    """The final state of one call seeds the next (tests/test_kernels.py:177)."""
+    from repro_torch.kernels import rglru
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.sigmoid(torch.randn(1, 256, 128, device="cuda", generator=g))
+    x = torch.randn(1, 256, 128, device="cuda", generator=g)
+    full, hf_full = rglru.rglru_scan(a, x)
+    _, hf1 = rglru.rglru_scan(a[:, :128], x[:, :128])
+    h2, hf2 = rglru.rglru_scan(a[:, 128:], x[:, 128:], hf1)
+    torch.testing.assert_close(h2, full[:, 128:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf2, hf_full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_mqa_head_dim_256_matches_plain(card, dtype):
+    """Kernel 3 at recurrentgemma's decode shape: 16 query heads on one KV
+    head (two CTAs per slot), head_dim 256, ragged lengths with an idle lane."""
+    b, h, kv, d, s = 8, 16, 1, 256, 640
+    g = torch.Generator(device="cuda").manual_seed(256)
+    q = torch.randn(b, h, d, device="cuda", generator=g).to(TDT[dtype])
+    k = torch.randn(b, s, kv, d, device="cuda", generator=g).to(TDT[dtype]).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=g).to(TDT[dtype]).transpose(1, 2)
+    lengths = torch.tensor([1, 31, 330, 640, 0, 129, 256, 513], dtype=torch.int32, device="cuda")
+    out = da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(out[4], torch.zeros_like(out[4]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_dense_head_dim_256_matches_plain(card, dtype):
+    """Kernel 2's dense entry at recurrentgemma's prefill shape (16 query
+    heads, one KV head, head_dim 256) on bshk views, causal with the model's
+    window and with a window shorter than the prompt."""
+    b, s, h, kv, d = 8, 128, 16, 1, 256
+    g = torch.Generator(device="cuda").manual_seed(128)
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=g).to(TDT[dtype]).transpose(1, 2)
+               for n in (h, kv, kv))
+    for window in (2048, 48):
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
