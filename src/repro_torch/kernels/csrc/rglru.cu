@@ -21,8 +21,8 @@
 //   * one thread per (batch, channel) carries its state in a register and
 //     walks time; neighbouring threads hold neighbouring channels, so every
 //     load and store of a warp is one coalesced 128-byte row segment;
-//   * the loads of the next kU time steps are issued before the current
-//     kU steps' dependent multiply-adds run, so a thread has 2 x kU loads in
+//   * the loads of the next kU time steps start before the current kU
+//     steps' dependent multiply-adds run, so a thread has 2 x kU loads in
 //     flight while it computes, which hides the memory latency that a
 //     load-then-use loop would pay on every step.
 // The TPU kernel's blocking of S and R (rglru.py:76-77, a VMEM tile per grid
