@@ -1,9 +1,6 @@
 """Serve requests through a model's own ``prefill`` and ``decode_step``, in
 waves of slots.
 
-    python -m repro_torch.launch.generate --arch recurrentgemma_9b \\
-        --requests 16 --slots 8 --device cuda
-
 The port's ``Engine`` serves the dense decoders. RecurrentGemma has
 ``prefill`` and ``decode_step`` but no fused ``decode_steps``, and the
 reference's JAX ``Engine`` cannot run it either (it calls ``decode_steps``),
@@ -13,17 +10,11 @@ wave one ragged prefill of its prompts (right-padded to ``prefill_len``)
 into a fresh cache of ``max_len`` tokens a slot, then greedy ``decode_step``s
 until every request of the wave has its budget of ``n_decode`` tokens (the
 first from the prefill). A slot whose request is done decodes on with the
-others and its tokens are dropped. Prompts are the engine's synthetic ones,
-derived from the request id.
-
-The command line runs the smoke-size configuration with random weights from
-``--seed`` and prints the tokens per second. ``--device`` defaults to
-``cuda`` and the launcher raises if no CUDA device exists; ``--device cpu``
-runs the plain PyTorch versions of the kernels instead.
+others and its tokens are dropped. Prompts are the engine's
+(``serving.engine.prompt_tokens``).
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import time
 from typing import Dict, List, Sequence
@@ -31,19 +22,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..configs import ARCH_IDS, get_smoke_config
-from ..data import gsm8k_like_workload
-from ..models.registry import get_model
+from ..serving.engine import prompt_tokens
 from ..serving.sampler import greedy
-from .serve import workload_spec
-
-# the archs whose model has no fused ``decode_steps`` for the Engine
-WAVE_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family == "hybrid")
-
-
-def prompt_tokens(rid: int, n: int, vocab: int) -> np.ndarray:
-    """The engine's synthetic prompt of request ``rid`` (``n`` tokens)."""
-    return np.random.default_rng(rid).integers(1, vocab, size=n).astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -74,7 +54,7 @@ def generate_waves(model, params, reqs: Sequence, *, n_slots: int, max_len: int,
         if lengths.max() > prefill_len:
             raise ValueError(f"a prompt of {lengths.max()} tokens exceeds prefill_len {prefill_len}")
         for i, r in enumerate(wave):
-            tokens[i, : r.n_prefill] = prompt_tokens(r.rid, r.n_prefill, vocab)
+            tokens[i, : r.n_prefill] = prompt_tokens(r, vocab)
         sync()
         t0 = time.perf_counter()
         cache = model.cache_init(len(wave), max_len)
@@ -97,27 +77,3 @@ def generate_waves(model, params, reqs: Sequence, *, n_slots: int, max_len: int,
         for i, r in enumerate(wave):
             res.generated[r.rid] = block[: r.n_decode, i].tolist()
     return res
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=WAVE_ARCHS, default="recurrentgemma_9b")
-    ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
-    model = get_model(get_smoke_config(args.arch), device=args.device)
-    params = model.init_params(args.seed)
-    reqs = gsm8k_like_workload(workload_spec(args.requests), seed=args.seed, known_lengths=True)
-    res = generate_waves(model, params, reqs, n_slots=args.slots, max_len=128,
-                         prefill_len=max(r.n_prefill for r in reqs))
-    wall = res.prefill_s + res.decode_s
-    print(f"arch={args.arch} device={model.device} requests={len(reqs)} "
-          f"tokens={res.tokens} prefills={res.prefills} decode_steps={res.decode_steps} "
-          f"speed={res.tokens / wall:.0f} tok/s")
-
-
-if __name__ == "__main__":
-    main()

@@ -35,7 +35,7 @@ from ..serving.engine import Engine, EngineConfig
 # The archs the Engine serves: the dense decoders (``TransformerLM``, with
 # its fused ``decode_steps``). RecurrentGemma has none — the reference's
 # launcher offers it and crashes at its first decode stage — and is served
-# by ``launch.generate`` instead.
+# by ``launch.generate.generate_waves`` instead.
 ENGINE_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family == "dense")
 
 

@@ -412,15 +412,9 @@ class RecurrentGemma:
         views = self._layer_views(params)
         pa = self.n_periods
 
-        def rec(h, lp, i):
-            h, h_new, buf = self._rec_block_tok(h, lp, cache["rnn_h"][i], cache["conv_buf"][i])
-            cache["rnn_h"][i].copy_(h_new)
-            cache["conv_buf"][i].copy_(buf)
-            return self._mlp_block(h, lp)
-
         for p in range(pa):
-            h = rec(h, views["rec_a"][p], p)
-            h = rec(h, views["rec_b"][p], pa + p)
+            h = self._rec_layer(h[:, None], views["rec_a"][p], cache, p)[:, 0]
+            h = self._rec_layer(h[:, None], views["rec_b"][p], cache, pa + p)[:, 0]
             at = views["attn"][p]
             x = rms_norm(h, at["norm"], cfg.norm_eps)[:, None]
             q, k, v = self._qkv(x, at, rope)
@@ -430,7 +424,7 @@ class RecurrentGemma:
             attn = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
             h = self._mlp_block(h + attn.reshape(b, -1) @ at["wo"], at)
         for t, lp in enumerate(views["rec_tail"]):
-            h = rec(h, lp, 2 * pa + t)
+            h = self._rec_layer(h[:, None], lp, cache, 2 * pa + t)[:, 0]
         h = rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
         logits = unembed(h, params["embed"]).float()
         ring["pos"].copy_(new_pos)

@@ -101,6 +101,21 @@ def _bucket(x: int, buckets: Sequence[int]) -> int:
     )
 
 
+def prompt_tokens(req: Request, vocab: int) -> np.ndarray:
+    """Synthetic prompt tokens derived from the request id (and the prefix
+    group for shared-prefix workloads) — the reference's derivation, so
+    both engines see the same prompts."""
+    n = req.n_prefill
+    if req.prefix_group is not None and req.prefix_len > 0:
+        head_rng = np.random.default_rng(10_000_019 + req.prefix_group)
+        head = head_rng.integers(1, vocab, size=req.prefix_len).astype(np.int32)
+        tail_rng = np.random.default_rng(req.rid)
+        tail = tail_rng.integers(1, vocab, size=n - req.prefix_len).astype(np.int32)
+        return np.concatenate([head, tail])
+    rng = np.random.default_rng(req.rid)
+    return rng.integers(1, vocab, size=n).astype(np.int32)
+
+
 @dataclasses.dataclass
 class _ServeSession:
     """Host-side state of one in-progress serve (the step-driven API)."""
@@ -228,22 +243,7 @@ class Engine:
         return torch.from_numpy(x).to(self.device)
 
     def _prompt_tokens(self, req: Request) -> np.ndarray:
-        """Synthetic prompt tokens derived from the request id (and the
-        prefix group for shared-prefix workloads) — the reference's
-        derivation, so both engines see the same prompts."""
-        n = req.n_prefill
-        if req.prefix_group is not None and req.prefix_len > 0:
-            head_rng = np.random.default_rng(10_000_019 + req.prefix_group)
-            head = head_rng.integers(
-                1, self._vocab(), size=req.prefix_len
-            ).astype(np.int32)
-            tail_rng = np.random.default_rng(req.rid)
-            tail = tail_rng.integers(
-                1, self._vocab(), size=n - req.prefix_len
-            ).astype(np.int32)
-            return np.concatenate([head, tail])
-        rng = np.random.default_rng(req.rid)
-        return rng.integers(1, self._vocab(), size=n).astype(np.int32)
+        return prompt_tokens(req, self._vocab())
 
     def _observe_prefill(self, total_tokens: int, dt: float) -> None:
         """Feed the profiler and run straggler mitigation."""

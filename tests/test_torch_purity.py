@@ -47,7 +47,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import generate, serve
+    from repro_torch.launch import serve
     from repro_torch.models.recurrentgemma import RecurrentGemma
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -63,25 +63,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--requests", "2"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RecurrentGemma(get_smoke_config("recurrentgemma_9b"))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        generate.main(["--requests", "2"])
 
 
 def test_serve_launcher_offers_only_the_archs_the_engine_serves(capsys):
     """RecurrentGemma has no fused ``decode_steps``: the Engine's launcher
     refuses it (the reference's offers it and crashes at the first decode
-    stage) and the wave launcher serves it."""
+    stage); ``generate_waves`` serves it."""
     from repro_torch.configs import ARCH_IDS
-    from repro_torch.launch import generate, serve
+    from repro_torch.launch import serve
 
     assert "recurrentgemma_9b" in ARCH_IDS
     assert serve.ENGINE_ARCHS == ("qwen3_8b",)
-    assert set(serve.ENGINE_ARCHS) | set(generate.WAVE_ARCHS) == set(ARCH_IDS)
     with pytest.raises(SystemExit):
         serve.main(["--arch", "recurrentgemma_9b", "--device", "cpu"])
     assert "invalid choice" in capsys.readouterr().err
-    generate.main(["--requests", "4", "--slots", "2", "--device", "cpu"])
-    assert "requests=4" in capsys.readouterr().out
 
 
 def test_kernels_build_for_sm90a_from_the_checkout():

@@ -41,9 +41,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data import gsm8k_like_workload
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.launch.generate import generate_waves, prompt_tokens
+from repro_torch.launch.generate import generate_waves
 from repro_torch.launch.serve import workload_spec
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving.engine import prompt_tokens
 from repro_torch.models.recurrentgemma import RecurrentGemma
 from repro_torch.models.registry import get_model
 from repro_torch.serving.sampler import greedy
@@ -216,7 +217,7 @@ def test_two_wave_generation_matches_the_same_loop_on_the_reference(models):
         wave = reqs[w0 : w0 + 3]
         tok = np.zeros((3, width), np.int32)
         for i, r in enumerate(wave):
-            tok[i, : r.n_prefill] = prompt_tokens(r.rid, r.n_prefill, CFG.vocab_size)
+            tok[i, : r.n_prefill] = prompt_tokens(r, CFG.vocab_size)
         lens = jnp.asarray([r.n_prefill for r in wave], jnp.int32)
         logits, cache = prefill(ref_params, jnp.asarray(tok), ref_model.cache_init(3, MAX_LEN), lens)
         cur = jnp.argmax(logits, -1).astype(jnp.int32)
