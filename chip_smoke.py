@@ -8,7 +8,9 @@ Phases, each printing its seconds on a line of its own:
 1. device  — find the CUDA device (exit non-zero without one) and print its
              name and power limit as nvidia-smi reports them;
 2. build   — compile the hand-written kernels from src/repro_torch/kernels/csrc
-             with nvcc for sm_90a (one nvcc per source, all at once);
+             with nvcc for sm_90a (one nvcc per source, all at once), print
+             each variant's registers and spills for kernels 1 and 2, and
+             check that flash's tensor-core variants issue HGMMA (cuobjdump);
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              at the serving shapes of Qwen3-8B (8 slots, 32 query and 8 KV
              heads, head_dim 128, up to 640 tokens a slot: paged decode and
@@ -23,7 +25,10 @@ Phases, each printing its seconds on a line of its own:
              calls); time the kernel, the plain version and one PyTorch
              library call (scaled_dot_product_attention on the same inputs,
              timed here only; no single call computes the scan) and compute
-             the kernel's bound;
+             the kernel's bound; time flash's tensor-core body at each CTA
+             tile; check that one call of paged decode runs one device
+             kernel (its splits merge in the same launch) and that two calls
+             of it give the same bits;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -37,7 +42,8 @@ Phases, each printing its seconds on a line of its own:
              scheduling: the paged layout with mixed steps, then the dense
              layout with whole-prompt prefill stages and fused decode; checks
              the trace, the budgets, the token ids and that each kernel ran
-             exactly as often as each schedule implies. Then, Qwen3 freed,
+             exactly as often as each schedule implies, every flash launch
+             on the tensor-core body. Then, Qwen3 freed,
              full-size RecurrentGemma-9B (38 layers, bf16, random weights)
              on the same 16 requests in two waves of 8 slots through its own
              prefill and decode_step (launch.generate; the Engine does not
@@ -47,8 +53,9 @@ Phases, each printing its seconds on a line of its own:
 
 Then one JSON line naming every ported kernel (kernel 2 once per entry, and
 kernels 2 and 3 again at RecurrentGemma's shapes) with its launches on each
-path and its times, and, last, {"ok": true, "device": {...}}. Any failed
-check raises, so the script exits non-zero and prints no result.
+path (flash's also by device body) and its times (kernels 1 and 2 beside
+their times before the redesign), and, last, {"ok": true, "device": {...}}.
+Any failed check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -69,6 +76,15 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 RGLRU_TOL = 1e-5                 # the scan vs its plain version (float32)
 LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
+# Kernels 1 and 2 before their redesign (flash on the CUDA cores in float32,
+# paged decode unsplit), as this script timed them on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside this run's times, by (row, shapes).
+PREVIOUS_MS = {
+    ("paged_decode_attention", "qwen3-8b"): 0.0972,
+    ("flash_attention", "qwen3-8b"): 0.2076,
+    ("flash_attention_dense", "qwen3-8b"): 0.0996,
+    ("flash_attention_dense", "recurrentgemma-9b"): 0.1094,
+}
 # The serve (slot length, dense prefill buckets, requests) is defined once, in
 # repro_torch.launch.profile_step, which profiles its stages.
 
@@ -119,6 +135,28 @@ def max_err(torch, out, ref, tol):
     check(bool(torch.isfinite(out).all()), "kernel output is not finite")
     check(not bool(bad.any()), f"kernel disagrees with its plain version (max err {float(err.max()):.3g})")
     return float(err.max())
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA" and "emcpy" not in e.name
+            and "emset" not in e.name]
+
+
+def time_tiles(torch, flush, launch, d):
+    """The tensor-core body's CTA tiles (``flash_attention.TILES``; the key
+    split only at head_dim <= 128) on the same inputs: ``launch(tile)`` runs
+    one; ms by tile name."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return {fa.TILES[t]: time_ms(torch, lambda: launch(t), flush) for t in range(3 if d <= 128 else 2)}
 
 
 # --------------------------------------------------------------------------- #
@@ -301,6 +339,8 @@ def run_kernel_checks(torch, np):
         results[("flash_attention_dense", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
+            ms_by_tile=time_tiles(torch, flush, lambda t: fa._launch_dense(
+                q, k, v, True, 0, d ** -0.5, t), d) if d >= 64 else None,
         )
         # kernel 1: paged decode attention
         q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
@@ -315,6 +355,13 @@ def run_kernel_checks(torch, np):
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask), flush)
         bound_ms, bound_by = decode_bound(q, k, tables, lengths)
+        names = device_kernels(torch, lambda: pda.paged_decode_attention(q, k, v, tables, lengths))
+        check(len(names) == 1, f"paged_decode_attention: one call ran {len(names)} device kernels: {names}")
+        plan = pda.decode_plan(q.shape[0], h, kv, tables.shape[1], k.shape[2],
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"  paged_decode_attention [{label}] {plan}: one call, one device kernel ({names[0][:60]})")
+        twice = pda.paged_decode_attention(q, k, v, tables, lengths)
+        check(bool(torch.equal(out, twice)), "paged_decode_attention: two calls differ")
         results[("paged_decode_attention", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
@@ -339,6 +386,8 @@ def run_kernel_checks(torch, np):
         results[("flash_attention", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
+            ms_by_tile=time_tiles(torch, flush, lambda t: fa._launch_paged(
+                q, k, v, tables, starts, valid, d ** -0.5, t), d) if d >= 64 else None,
         )
         # the dense entry of kernel 2 under windows and without the causal
         # mask, against its plain version
@@ -356,9 +405,13 @@ def run_kernel_checks(torch, np):
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        prev = PREVIOUS_MS.get((name, label))
+        tiles = r.get("ms_by_tile")
         print(f"  {name} [{label}] timed: max_abs_err={r['max_abs_err']:.4g} "
               f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-              f"library={lib} bound={r['bound_ms']:.4f} ms ({r['bound_by']})",
+              f"library={lib} bound={r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f" previous={prev:.4f} ms" if prev else "")
+              + ("".join(f"; {t}: {ms:.4f} ms" for t, ms in tiles.items()) if tiles else ""),
               flush=True)
     return results
 
@@ -413,6 +466,8 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
                            flush),
         **dict(zip(("bound_ms", "bound_by"), dense_flash_bound(q, k))),
+        ms_by_tile=time_tiles(torch, flush, lambda t: fa._launch_dense(
+            q, k, v, True, window, d ** -0.5, t), d),
     )
     # kernel 4: the prefill's shape, the reference's test cases
     # (tests/test_kernels.py:161), one decode token, and two chained calls
@@ -617,11 +672,25 @@ def kernel_modules():
             "rglru_scan": rglru}
 
 
+def check_flash_variants(path, launches):
+    """Every flash launch of a (bf16) serve ran the tensor-core body; the
+    counts join ``launches`` under ``flash_attention_by_variant``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    by = dict(fa.launch_count_by_variant)
+    launches["flash_attention_by_variant"] = by
+    print(f"  {path} flash launches by body: {json.dumps(by)}", flush=True)
+    check(by["tensor_cores"] == launches["flash_attention"] and by["cuda_cores"] == 0,
+          f"{path}: bf16 flash launches off the tensor-core body: {by}")
+
+
 def check_launches(path, launches, expect):
     """Every kernel launched exactly as often as the path implies, and each
     kernel of the path at least once."""
     print(f"  {path} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
     for name, n in launches.items():
+        if name not in expect:
+            continue
         check(n == expect[name], f"{path}: {name}: {n} launches, the path implies {expect[name]}")
         if expect[name]:
             check(n > 0, f"{path}: {name} was never launched on its path")
@@ -691,6 +760,7 @@ def run_serve(torch, model, params, layout):
             "decode_attention": cfg.n_layers * decode_rounds,
             "rglru_scan": 0,
         }
+    check_flash_variants(layout, launches)
     s = trace.summary()
     stall = trace.meta["prefill_stall_time_s"]
     print(f"  {layout} serve: {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
@@ -748,6 +818,7 @@ def run_recurrentgemma_serve(torch, model, params):
     print(f"  recurrentgemma ms per prefill (8 x {waves['prefill_len']}): "
           f"{1e3 * res.prefill_s / res.prefills:.3f}")
     print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
     return launches
 
@@ -765,25 +836,45 @@ KERNELS = (
     #  shapes the row's times were taken at)
     ("paged_decode_attention", "paged_decode_attention", "paged",
      "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-     "src/repro/kernels/paged_decode_attention.py:86", "qwen3-8b"),
+     "src/repro/kernels/paged_decode_attention.py:136", "qwen3-8b"),
     ("flash_attention", "flash_attention", "paged",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
      "qwen3-8b"),
     ("flash_attention_dense", "flash_attention", "dense",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
      "qwen3-8b"),
     ("decode_attention", "decode_attention", "dense",
-     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111",
      "qwen3-8b"),
     ("flash_attention_dense_recurrentgemma", "flash_attention", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:98",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
      "recurrentgemma-9b"),
     ("decode_attention_recurrentgemma", "decode_attention", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:77",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111",
      "recurrentgemma-9b"),
     ("rglru_scan", "rglru_scan", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:61", "recurrentgemma-9b"),
+     "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81", "recurrentgemma-9b"),
 )
+
+
+def check_tensor_core_sass(build):
+    """The flash library's tensor-core kernels issue HGMMA (wgmma) in their
+    SASS, read with cuobjdump from the toolkit that built them."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    tc = {f: n for f, n in counts.items() if "flash_tc_kernel" in f}
+    print(f"  flash_attention SASS: HGMMA in {sum(1 for n in tc.values() if n)} of {len(tc)} "
+          f"tensor-core variants ({sum(tc.values())} instructions), "
+          f"{sum(n for f, n in counts.items() if f not in tc)} in the CUDA-core variants")
+    check(bool(tc) and all(tc.values()), f"flash tensor-core variants without HGMMA: {tc}")
 
 
 def main() -> int:
@@ -812,6 +903,10 @@ def main() -> int:
     for src, log in build.ptxas_log.items():
         regs = [l.strip() for l in log.splitlines() if "registers" in l]
         print(f"  {src}: {len(regs)} kernel variants; e.g. {regs[-1] if regs else log.strip()[:200]}")
+    for src in ("flash_attention", "paged_decode_attention"):
+        for fn, info in build.ptxas_kernels(src).items():
+            print(f"    {fn}: {info}")
+    check_tensor_core_sass(build)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -867,6 +962,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "previous_ms": PREVIOUS_MS.get((kname.replace("_recurrentgemma", ""), label)),
+            **({"launches_by_variant": launches[layout]["flash_attention_by_variant"],
+                "ms_by_tile": r.get("ms_by_tile")} if count == "flash_attention" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

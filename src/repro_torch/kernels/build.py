@@ -49,7 +49,8 @@ def nvcc_path() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` for the current sources lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -59,7 +60,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,7 +78,7 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     ptxas_log[name] = log
-    out = _lib_path(name)
+    out = lib_path(name)
     os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
 
 
@@ -90,10 +91,25 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
             _finish(n, proc)
 
 
+def ptxas_kernels(name: str) -> Dict[str, str]:
+    """Each kernel variant of ``name`` built here (mangled name) with the
+    registers and spill line ptxas reported for it."""
+    out: Dict[str, str] = {}
+    current = None
+    for line in ptxas_log.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line.strip()
+        elif current and "spill" in line:
+            out[current] = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            out[current] = line.split(":", 1)[-1].strip() + "; " + out.get(current, "")
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         build_all([name])
-        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib

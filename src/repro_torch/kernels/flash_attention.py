@@ -1,6 +1,7 @@
 """Flash attention: the CUDA port of the Pallas kernel
 ``repro.kernels.flash_attention`` with a dense entry and a paged
-chunked-prefill entry (``csrc/flash_attention.cu``; one device body).
+chunked-prefill entry (``csrc/flash_attention.cu``: a tensor-core body for
+bf16 at head_dim 64/128/256, a CUDA-core body for the rest; ``variant``).
 
 * ``flash_attention(q, k, v, causal, window)`` — dense prefill attention,
   ``(B, H, Sq, D)`` x ``(B, KV, Sk, D)``, the reference kernel's contract
@@ -16,28 +17,73 @@ chunked-prefill entry (``csrc/flash_attention.cu``; one device body).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 the kernel does not take. For a CUDA tensor it launches the kernel on the
-current stream (``launch_count`` counts those launches); for a CPU tensor it
-runs the plain PyTorch version in this module, and only then.
+current stream (``launch_count`` counts those launches, and
+``launch_count_by_variant`` which device body served each: ``variant``
+mirrors the kernel's dispatch table); for a CPU tensor it runs the plain
+PyTorch version in this module, and only then.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from . import build
 
+#: the kernel's device bodies, in the order of its FlashVariant enum
+VARIANTS = ("cuda_cores", "tensor_cores")
 #: launches of the CUDA kernel (both entries) since the last reset
 launch_count = 0
+#: the same launches by the body that served them
+launch_count_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+    for name in VARIANTS:
+        launch_count_by_variant[name] = 0
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The device body that serves ``dtype`` at ``head_dim``: bf16 at 64,
+    128 and 256 runs on the tensor cores (wgmma); float32 (which wgmma would
+    compute as TF32) and bf16 at 16 and 32 on the CUDA cores. The kernel's
+    ``flash_variant`` is the same table; a launch reports which it used."""
+    if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+#: the tensor-core body's CTA tiles, by the kernel's tile index
+TILES = ("64 rows", "128 rows", "64 rows, keys split")
+
+
+def tensor_core_tile(units: int, n_rows: int, max_keys: int, head_dim: int, n_sms: int) -> int:
+    """The tensor-core body's CTA tile (an index of ``TILES``), from shapes
+    only. ``units`` is rows x KV heads, ``n_rows`` the (query, head) pairs
+    of a unit (queries x group) and ``max_keys`` the most keys a row can
+    have. 128-row CTAs share each K/V tile between two warpgroups but
+    take more than one wave of the card's SMs sooner; past a wave, 64-row
+    CTAs. Within a wave, a key range longer than two tiles goes to 64-row
+    CTAs whose two warpgroups split every key tile (head_dim <= 128, where
+    the doubled stages fit in shared memory)."""
+    if units * -(-n_rows // 128) > n_sms:
+        return 0
+    if head_dim <= 128 and max_keys > 128:
+        return 2
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # --------------------------------------------------------------------------- #
@@ -144,18 +190,25 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "flash_attention_dense_launch":
-            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [
-                ctypes.c_float, i, p,
-            ]
+            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [ctypes.c_float, i, i, p, p]
         else:
-            fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, p]
+            fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _raise_on(err: int, what: str) -> None:
+_served = ctypes.c_int(-1)   # the body a launch reports
+
+
+def _count(err: int, what: str, dtype: torch.dtype, d: int) -> None:
+    global launch_count
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+    served = VARIANTS[_served.value]
+    if served != variant(dtype, d):
+        raise RuntimeError(f"{what}: the kernel ran {served}, the dispatch table says {variant(dtype, d)}")
+    launch_count += 1
+    launch_count_by_variant[served] += 1
 
 
 def flash_attention(
@@ -168,7 +221,6 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Dense flash attention (positions 0..Sq-1 and 0..Sk-1)."""
-    global launch_count
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q (B,H,Sq,D), k/v (B,KV,Sk,D)")
     b, h, sq, d = q.shape
@@ -181,6 +233,13 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
+    tile = tensor_core_tile(b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
+    return _launch_dense(q, k, v, causal, window, scale, tile)
+
+
+def _launch_dense(q, k, v, causal, window, scale, tile):
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
     # q's own strides where q is a permuted dense tensor (a bshk prefill
     # passes q.transpose(1, 2)), so the caller's transpose back is free
     out = torch.empty_like(q)
@@ -191,11 +250,10 @@ def flash_attention(
         out.stride(0), out.stride(1), out.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        float(scale), _DTYPES[q.dtype],
+        float(scale), _DTYPES[q.dtype], tile, ctypes.byref(_served),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, "flash_attention")
-    launch_count += 1
+    _count(err, "flash_attention", q.dtype, d)
     return out
 
 
@@ -210,7 +268,6 @@ def paged_chunk_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Causal chunked-prefill attention over the paged pool."""
-    global launch_count
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(
             "paged_chunk_attention: q (R,C,H,D), pages (KV,P,bs,D)"
@@ -236,6 +293,14 @@ def paged_chunk_attention(
         )
     for t in (q, k_pages, v_pages):
         check_vector_aligned("paged_chunk_attention", t, t.stride()[:3])
+    tile = tensor_core_tile(r * kv, c * (h // kv), block_tables.shape[1] * bs, d,
+                            _sm_count(q.device.index))
+    return _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, tile)
+
+
+def _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, tile):
+    r, c, h, d = q.shape
+    kv, bs = k_pages.shape[0], k_pages.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     err = _fn("flash_attention_paged_launch")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -246,9 +311,8 @@ def paged_chunk_attention(
         out.stride(0), out.stride(1), out.stride(2),
         k_pages.stride(0), k_pages.stride(1),
         v_pages.stride(0), v_pages.stride(1),
-        float(scale), _DTYPES[q.dtype],
+        float(scale), _DTYPES[q.dtype], tile, ctypes.byref(_served),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, "paged_chunk_attention")
-    launch_count += 1
+    _count(err, "paged_chunk_attention", q.dtype, d)
     return out

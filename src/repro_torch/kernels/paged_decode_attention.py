@@ -9,6 +9,12 @@ gives 0, as the Pallas kernel does. q and the output keep the model's
 ``bshk`` layout, ``(B, 1, H, D)``; the reference kernel's ``(B, H, D)`` is
 the same memory with the unit axis dropped.
 
+The kernel splits each slot's key range across CTAs and merges the splits
+in the same launch. ``decode_plan`` picks the split count and the heads a
+CTA from shapes alone (never from ``lengths``, which live on the device);
+``workspace`` holds the splits' partials and tickets, allocated once per
+device and grown only when a larger plan needs more.
+
 The wrapper checks device, dtype, shape and contiguity and raises on what
 the kernel does not take. For a CUDA tensor it launches the kernel on the
 current stream (``launch_count`` counts those launches); for a CPU tensor it
@@ -17,12 +23,12 @@ runs the plain PyTorch version in this module, and only then.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
-from .flash_attention import check_vector_aligned, masked_attention
+from .flash_attention import _sm_count, check_vector_aligned, masked_attention
 
 #: launches of the CUDA kernel since the last reset
 launch_count = 0
@@ -32,9 +38,59 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
 
 
+#: a split covers a multiple of this many keys (the kernel's kPdSplitTile)
+SPLIT_TILE = 32
+_CTA_GROUPS = (1, 2, 4, 8)
+
+
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+
+
+class DecodePlan(NamedTuple):
+    splits: int      # CTAs along each slot's key range
+    group: int       # query heads a CTA holds (1, 2, 4 or 8)
+    parts: int       # CTAs along the query-head group: ceil(g / group)
+
+    def scratch(self, b: int, kv: int, d: int) -> Tuple[int, int]:
+        """(floats, counters) the splits' merge needs; (0, 0) unsplit."""
+        if self.splits == 1:
+            return 0, 0
+        units = b * kv * self.parts
+        return units * self.splits * self.group * (d + 2), units
+
+
+def decode_plan(b: int, h: int, kv: int, mb: int, page_size: int, n_sms: int) -> DecodePlan:
+    """Split count and heads a CTA from shapes only: splits for about one
+    and a half CTAs of 16 warps an SM (the CTA count that measured fastest
+    at the serving shape: 3 splits of 8 slots x 8 KV heads on 132 SMs),
+    never more than the ``SPLIT_TILE``-key tiles of a full table row, never
+    fewer than 1."""
+    g = h // kv
+    group = next(x for x in _CTA_GROUPS if x >= min(g, 8))
+    parts = -(-g // group)
+    tiles = max(1, -(-(mb * page_size) // SPLIT_TILE))
+    splits = max(1, min(tiles, round(1.5 * n_sms / max(1, b * kv * parts))))
+    return DecodePlan(splits, group, parts)
+
+
+_workspaces: Dict[Tuple[str, Optional[int]], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def workspace(device: torch.device, n_floats: int, n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 partials and int32 tickets of split launches on
+    ``device``: one pair per device, reused by every call whose plan fits
+    and replaced by a larger one (tickets zeroed once, at allocation) when
+    a plan needs more. The kernel leaves every ticket at 0 when it ends."""
+    key = (device.type, device.index)
+    cur = _workspaces.get(key)
+    if cur is None or cur[0].numel() < n_floats or cur[1].numel() < n_counters:
+        old_f, old_c = (cur[0].numel(), cur[1].numel()) if cur is not None else (0, 0)
+        cur = (torch.empty(max(n_floats, old_f), dtype=torch.float32, device=device),
+               torch.zeros(max(n_counters, old_c), dtype=torch.int32, device=device))
+        _workspaces[key] = cur
+    return cur
 
 
 def paged_decode_attention_plain(
@@ -56,7 +112,7 @@ def _fn():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i] * 6 + [ll] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 8 + [ll] * 8 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -114,11 +170,17 @@ def paged_decode_attention(
         )
     for t in (k_pages, v_pages):
         check_vector_aligned("paged_decode_attention", t, t.stride()[:3])
+    mb = block_tables.shape[1]
+    plan = decode_plan(b, h, kv, mb, bs, _sm_count(dev.index))
+    n_floats, n_counters = plan.scratch(b, kv, d)
+    part, counters = workspace(dev, n_floats, n_counters) if n_counters else (None, None)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     err = _fn()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kv, d, bs, block_tables.shape[1],
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        b, h, kv, d, bs, mb, plan.splits, plan.group,
         q.stride(0), q.stride(2), out.stride(0), out.stride(2),
         k_pages.stride(0), k_pages.stride(1),
         v_pages.stride(0), v_pages.stride(1),

@@ -177,3 +177,124 @@ def test_cuda_flash_dense_head_dim_256_matches_plain(card, dtype):
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, causal=True, window=window)
         torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+
+
+def _bshk(b, s, n, d, dtype, g):
+    """(B, S, N, D) made contiguous, seen as (B, N, S, D) as the dense
+    prefill passes it."""
+    return torch.randn(b, s, n, d, device="cuda", generator=g).to(TDT[dtype]).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2), (16, 1)])
+def test_cuda_flash_tensor_core_variants(card, d, h, kv):
+    """The bf16 tensor-core body at g = 1, 4 and 16: causal, windowed and
+    non-causal, with Sq = 96 (not a multiple of the 64- or 128-row tile),
+    on strided bshk views; every launch is counted as the tensor-core one."""
+    g = torch.Generator(device="cuda").manual_seed(d + h)
+    b, s = 2, 96
+    q, k, v = (_bshk(b, s, n, d, "bfloat16", g) for n in (h, kv, kv))
+    fa.reset_launch_count()
+    for causal, window in ((True, 0), (True, 40), (False, 0)):
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        assert out.transpose(1, 2).is_contiguous()
+    assert fa.launch_count_by_variant == {"cuda_cores": 0, "tensor_cores": 3}
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+def test_cuda_flash_tensor_core_tiles(card, tile):
+    """Every CTA tile of the tensor-core body (64 rows, 128 rows, 64 rows
+    with the keys split between two warpgroups) on the dense and the paged
+    entry, whichever the plan would pick."""
+    g = torch.Generator(device="cuda").manual_seed(tile)
+    q, k, v = (_bshk(2, 160, n, 128, "bfloat16", g) for n in (8, 2, 2))
+    out = fa._launch_dense(q, k, v, True, 0, 128 ** -0.5, tile)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    rng = np.random.default_rng(tile)
+    r, c, h, kv, d, p, bs, mb = 4, 32, 8, 2, 128, 64, 16, 12
+    starts = np.array([0, 64, 150, 0], np.int32)
+    valid = starts + np.array([32, 32, 9, 0], np.int32)
+    tables = shuffled_tables(rng, r - 1, mb, p, bs, valid[:-1])
+    tables = np.concatenate([tables, tables[-1:]])
+    args = [torch.randn(*shape, device="cuda", generator=g).bfloat16()
+            for shape in ((r, c, h, d), (kv, p, bs, d), (kv, p, bs, d))]
+    args += [torch.from_numpy(x).cuda() for x in (tables, starts, valid)]
+    out = fa._launch_paged(*args, d ** -0.5, tile)
+    torch.cuda.synchronize()
+    ref = fa.paged_chunk_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+def test_cuda_flash_paged_chunk_at_serving_shape(card):
+    """The paged chunk entry at Qwen3's shape (8 rows x 32, 32/8 heads,
+    head_dim 128) over shuffled pages with -1 entries past each row and a
+    pad row that reads the last row's table; run twice, bit-identical."""
+    rng = np.random.default_rng(11)
+    r, c, h, kv, d, bs, mb = 8, 32, 32, 8, 128, 16, 40
+    p = r * mb
+    starts = (rng.integers(0, (mb * bs - c) // c + 1, size=r) * c).astype(np.int32)
+    lens = rng.integers(1, c + 1, size=r).astype(np.int32)
+    starts[-1], lens[-1] = 0, 0
+    valid = starts + lens
+    tables = shuffled_tables(rng, r - 1, mb, p, bs, valid[:-1])
+    tables = np.concatenate([tables, tables[-1:]])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    args = [torch.randn(*shape, device="cuda", generator=g).bfloat16()
+            for shape in ((r, c, h, d), (kv, p, bs, d), (kv, p, bs, d))]
+    args += [torch.from_numpy(x).cuda() for x in (tables, starts, valid)]
+    fa.reset_launch_count()
+    out = fa.paged_chunk_attention(*args)
+    again = fa.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert fa.launch_count_by_variant["tensor_cores"] == 2
+    assert torch.equal(out, again)
+    ref = fa.paged_chunk_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (16, 1, 64), (12, 4, 32), (4, 2, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_decode_many_splits(card, h, kv, d, dtype):
+    """Kernel 1 over 2048 keys a slot (many splits), lengths 0, 1, on and
+    one past a split boundary, and the full row; one launch a call, and two
+    calls give bit-identical outputs (tickets reset, merge order fixed)."""
+    rng = np.random.default_rng(h * d)
+    b, bs, mb = 8, 16, 128
+    plan = pda.decode_plan(b, h, kv, mb, bs, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.splits > 1
+    per = -(-(mb * bs) // plan.splits)
+    per = -(-per // pda.SPLIT_TILE) * pda.SPLIT_TILE
+    lengths = np.array([0, 1, per, per + 1, 2 * per, mb * bs, 777, 31], np.int32)
+    p = int(sum(-(-int(x) // bs) for x in lengths)) + 4
+    tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(h * d)
+    q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(TDT[dtype])
+    k = torch.randn(kv, p, bs, d, device="cuda", generator=g).to(TDT[dtype])
+    v = torch.randn(kv, p, bs, d, device="cuda", generator=g).to(TDT[dtype])
+    lens = torch.from_numpy(lengths).cuda()
+    pda.reset_launch_count()
+    out = pda.paged_decode_attention(q, k, v, tables, lens)
+    again = pda.paged_decode_attention(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert pda.launch_count == 2
+    assert torch.equal(out, again)
+    ref = pda.paged_decode_attention_plain(q, k, v, tables, lens)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def test_cuda_flash_dense_repeats_bit_identical(card):
+    """Kernel 2's dense entry at RecurrentGemma's shape, twice: the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (_bshk(8, 128, n, 256, "bfloat16", g) for n in (16, 1, 1))
+    a = fa.flash_attention(q, k, v, causal=True, window=2048)
+    b = fa.flash_attention(q, k, v, causal=True, window=2048)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
