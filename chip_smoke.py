@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run below
+    python3 chip_smoke.py --sweep    # kernel plans and L2 states, timed
 
 Phases, each printing its seconds on a line of its own:
 
@@ -53,9 +54,17 @@ Phases, each printing its seconds on a line of its own:
 
 Then one JSON line naming every ported kernel (kernel 2 once per entry, and
 kernels 2 and 3 again at RecurrentGemma's shapes) with its launches on each
-path (flash's also by device body) and its times (kernels 1 and 2 beside
-their times before the redesign), and, last, {"ok": true, "device": {...}}.
+path (flash's also by device body) and this run's times, and, last,
+{"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
+
+``--sweep`` builds the kernels and times, at the Qwen3-8B serving shapes,
+paged decode attention at every split count from 1 to 20 (each checked
+against its plain version) and kernels 1, 2 and 3 with the L2 cold (as
+above), warm (calls back to back behind a device-side sleep) and
+host-paced (events around each call, no sleep ahead: what a loop of calls
+reads when the host launches slower than the device runs), beside a
+one-element ``add_``; it ends with one JSON line of those times.
 """
 from __future__ import annotations
 
@@ -76,15 +85,6 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 RGLRU_TOL = 1e-5                 # the scan vs its plain version (float32)
 LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
-# Kernels 1 and 2 before their redesign (flash on the CUDA cores in float32,
-# paged decode unsplit), as this script timed them on an NVIDIA H100 80GB
-# HBM3 at 700 W; printed beside this run's times, by (row, shapes).
-PREVIOUS_MS = {
-    ("paged_decode_attention", "qwen3-8b"): 0.0972,
-    ("flash_attention", "qwen3-8b"): 0.2076,
-    ("flash_attention_dense", "qwen3-8b"): 0.0996,
-    ("flash_attention_dense", "recurrentgemma-9b"): 0.1094,
-}
 # The serve (slot length, dense prefill buckets, requests) is defined once, in
 # repro_torch.launch.profile_step, which profiles its stages.
 
@@ -125,6 +125,46 @@ def time_ms(torch, fn, flush, iters=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_warm_ms(torch, fn, batch=20, reps=10):
+    """Median device time of ``fn`` in ms with a warm L2: ``batch`` calls
+    back to back between one pair of events, queued behind a device-side
+    sleep so that the host's launch time between calls does not show."""
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times)
+
+
+def time_host_paced_ms(torch, fn, iters=30):
+    """Median ms between events recorded around each call, the calls back to
+    back with no sleep ahead: where the host takes longer to launch a call
+    than the device takes to run the last, the start event fires on an idle
+    device and the reading is the host's launch time."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def max_err(torch, out, ref, tol):
@@ -405,12 +445,10 @@ def run_kernel_checks(torch, np):
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        prev = PREVIOUS_MS.get((name, label))
         tiles = r.get("ms_by_tile")
         print(f"  {name} [{label}] timed: max_abs_err={r['max_abs_err']:.4g} "
               f"kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
               f"library={lib} bound={r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f" previous={prev:.4f} ms" if prev else "")
               + ("".join(f"; {t}: {ms:.4f} ms" for t, ms in tiles.items()) if tiles else ""),
               flush=True)
     return results
@@ -673,15 +711,15 @@ def kernel_modules():
 
 
 def check_flash_variants(path, launches):
-    """Every flash launch of a (bf16) serve ran the tensor-core body; the
-    counts join ``launches`` under ``flash_attention_by_variant``."""
+    """Every flash launch of a (bf16) serve ran the tensor-core body;
+    returns flash's launches by body."""
     from repro_torch.kernels import flash_attention as fa
 
     by = dict(fa.launch_count_by_variant)
-    launches["flash_attention_by_variant"] = by
     print(f"  {path} flash launches by body: {json.dumps(by)}", flush=True)
     check(by["tensor_cores"] == launches["flash_attention"] and by["cuda_cores"] == 0,
           f"{path}: bf16 flash launches off the tensor-core body: {by}")
+    return by
 
 
 def check_launches(path, launches, expect):
@@ -689,8 +727,6 @@ def check_launches(path, launches, expect):
     kernel of the path at least once."""
     print(f"  {path} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
     for name, n in launches.items():
-        if name not in expect:
-            continue
         check(n == expect[name], f"{path}: {name}: {n} launches, the path implies {expect[name]}")
         if expect[name]:
             check(n > 0, f"{path}: {name} was never launched on its path")
@@ -700,8 +736,8 @@ def run_serve(torch, model, params, layout):
     """Serve the GSM8K-shaped closed-loop workload through the port's Engine
     under hybrid scheduling as launch/serve.py sets it up, on the paged
     layout (mixed steps) or the dense layout (whole-prompt prefill stages),
-    and check the result. Returns (engine, launches per kernel, launches
-    the schedule implies)."""
+    and check the result. Returns (engine, launches per kernel, flash's
+    launches by body)."""
     from repro_torch.core import (
         CostModel,
         LagrangianPolicy,
@@ -760,7 +796,7 @@ def run_serve(torch, model, params, layout):
             "decode_attention": cfg.n_layers * decode_rounds,
             "rglru_scan": 0,
         }
-    check_flash_variants(layout, launches)
+    by_variant = check_flash_variants(layout, launches)
     s = trace.summary()
     stall = trace.meta["prefill_stall_time_s"]
     print(f"  {layout} serve: {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
@@ -774,13 +810,13 @@ def run_serve(torch, model, params, layout):
     check_launches(layout, launches, expect)
     if layout == "dense":
         check(stall > 0, "dense: no prefill stage ran while decoders were active")
-    return eng, launches
+    return eng, launches, by_variant
 
 
 def run_recurrentgemma_serve(torch, model, params):
     """The serve's 16 requests through RecurrentGemma's own prefill and
     decode_step in two waves of 8 slots (launch.generate), after a warm-up
-    wave; returns the launches per kernel."""
+    wave; returns the launches per kernel and flash's launches by body."""
     from repro_torch.launch.generate import generate_waves
     from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len, serve_workload
 
@@ -818,9 +854,9 @@ def run_recurrentgemma_serve(torch, model, params):
     print(f"  recurrentgemma ms per prefill (8 x {waves['prefill_len']}): "
           f"{1e3 * res.prefill_s / res.prefills:.3f}")
     print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check_flash_variants("recurrentgemma", launches)
+    by_variant = check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
-    return launches
+    return launches, by_variant
 
 
 def _leaves(tree):
@@ -877,7 +913,55 @@ def check_tensor_core_sass(build):
     check(bool(tc) and all(tc.values()), f"flash tensor-core variants without HGMMA: {tc}")
 
 
+def run_sweep(torch, np):
+    """Paged decode attention at every split count, and kernels 1-3 under
+    each L2 state, at the Qwen3-8B serving shapes; returns the times."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pda
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len
+
+    h, kv, d = 32, 8, 128
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
+    b, mb, bs = q.shape[0], tables.shape[1], k.shape[2]
+    scale = d ** -0.5
+    plan = pda.decode_plan(b, h, kv, mb, bs, torch.cuda.get_device_properties(0).multi_processor_count)
+    ref = pda.paged_decode_attention_plain(q, k, v, tables, lengths)
+    splits = {}
+    for n in range(1, 21):
+        p = pda.plan_with_splits(n, mb * bs, plan.group, plan.parts)
+        call = lambda: pda._launch(q, k, v, tables, lengths, scale, p)
+        err = max_err(torch, call(), ref, KERNEL_TOL["bfloat16"])
+        splits[n] = dict(split_keys=p.split_keys, ctas=n * b * kv * p.parts, max_abs_err=err,
+                         cold_ms=time_ms(torch, call, flush), warm_ms=time_warm_ms(torch, call))
+        print(f"  paged_decode_attention splits={n}: {json.dumps(splits[n])}"
+              + (" (the plan)" if n == plan.splits else ""), flush=True)
+
+    dq, dk, dv, dlen = dense_decode_case(torch, np, h, kv, d, torch.bfloat16, SERVE_LEN)
+    cq, ck, cv, ctab, cst, cval, _ = chunk_case(torch, np, h, kv, d)
+    fq, fk, fv = dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len())
+    one = torch.zeros(1, device="cuda")
+    calls = {
+        "paged_decode_attention": lambda: pda.paged_decode_attention(q, k, v, tables, lengths),
+        "flash_attention": lambda: fa.paged_chunk_attention(cq, ck, cv, ctab, cst, cval),
+        "flash_attention_dense": lambda: fa.flash_attention(fq, fk, fv, causal=True),
+        "decode_attention": lambda: da.decode_attention(dq, dk, dv, dlen),
+        "add_": lambda: one.add_(1.0),
+    }
+    l2 = {}
+    for name, call in calls.items():
+        l2[name] = dict(cold_ms=time_ms(torch, call, flush), warm_ms=time_warm_ms(torch, call),
+                        host_paced_ms=time_host_paced_ms(torch, call))
+        print(f"  {name}: {json.dumps(l2[name])}", flush=True)
+    return {"plan_splits": plan.splits, "paged_decode_attention_by_splits": splits, "l2_states": l2}
+
+
 def main() -> int:
+    sweep = sys.argv[1:] == ["--sweep"]
+    if sys.argv[1:] and not sweep:
+        print("usage: chip_smoke.py [--sweep]", file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     import numpy as np
     import torch
@@ -909,6 +993,13 @@ def main() -> int:
     check_tensor_core_sass(build)
     phase("build", t0)
 
+    if sweep:
+        t0 = time.perf_counter()
+        res = run_sweep(torch, np)
+        phase("sweep", t0)
+        print(json.dumps({"sweep": res, "device": smi}))
+        return 0
+
     t0 = time.perf_counter()
     kres = run_kernel_checks(torch, np)
     phase("kernels", t0)
@@ -928,9 +1019,9 @@ def main() -> int:
     print(f"  model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
           f"init {time.perf_counter() - t0:.2f} s", flush=True)
-    launches = {}
+    launches, by_variant = {}, {}
     for layout in ("paged", "dense"):
-        eng, launches[layout] = run_serve(torch, model, params, layout)
+        eng, launches[layout], by_variant[layout] = run_serve(torch, model, params, layout)
         del eng                       # free this layout's KV before the next one
         torch.cuda.empty_cache()
     del model, params                 # free Qwen3-8B before RecurrentGemma-9B loads
@@ -947,7 +1038,8 @@ def main() -> int:
           f"{model.n_periods} attention), d_model {cfg.d_model}, "
           f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
           f"init {time.perf_counter() - t1:.2f} s", flush=True)
-    launches["recurrentgemma"] = run_recurrentgemma_serve(torch, model, params)
+    launches["recurrentgemma"], by_variant["recurrentgemma"] = run_recurrentgemma_serve(
+        torch, model, params)
     del model, params
     torch.cuda.empty_cache()
     phase("serve", t0)
@@ -962,8 +1054,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "previous_ms": PREVIOUS_MS.get((kname.replace("_recurrentgemma", ""), label)),
-            **({"launches_by_variant": launches[layout]["flash_attention_by_variant"],
+            **({"launches_by_variant": by_variant[layout],
                 "ms_by_tile": r.get("ms_by_tile")} if count == "flash_attention" else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -45,7 +45,8 @@
 // float32 at any head_dim, and bf16 at head_dim 16 / 32, run the CUDA-core
 // body (flash_kernel): float32 FMAs on tiles widened to float32 in shared
 // memory. Tensor cores would compute float32 as TF32, which misses the
-// float32 tolerance. flash_variant() below is the one dispatch table.
+// float32 tolerance. The host's plan (flash_attention.py :: variant, plan)
+// picks the body and tile; a launch this build cannot serve is refused.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -579,13 +580,6 @@ static int launch_tc(const FlashArgs& a, int rows, int KV, cudaStream_t stream) 
   return (int)cudaGetLastError();
 }
 
-// The one dispatch table of this kernel: the body that serves a dtype and a
-// head_dim. It depends on nothing else; a launch that fails returns its error.
-enum FlashVariant { kCudaCoreBody = 0, kTensorCoreBody = 1 };
-static int flash_variant(int dtype, int D) {
-  return dtype == kBF16 && (D == 64 || D == 128 || D == 256) ? kTensorCoreBody : kCudaCoreBody;
-}
-
 template <typename T, int D, bool PAGED>
 static int launch_core(const FlashArgs& a, int rows, int H, cudaStream_t s) {
   return a.sq <= 32 ? launch<T, D, 32, PAGED>(a, rows, H, s) : launch<T, D, 64, PAGED>(a, rows, H, s);
@@ -603,15 +597,16 @@ static int launch_tc_tile(const FlashArgs& a, int rows, int KV, int tile, cudaSt
   return (int)cudaErrorInvalidValue;
 }
 
-// tile: the tensor-core body's CTA tile (launch_tc_tile); *variant
-// receives the body that served the launch
+// tile: the body the host planned, -1 for the CUDA-core body, else the
+// tensor-core body's CTA tile (launch_tc_tile; bf16 at head_dim 64 / 128 /
+// 256 only). The CUDA-core body serves float32 and bf16 at head_dim 16 / 32.
 template <bool PAGED>
 static int dispatch(const FlashArgs& a, int rows, int H, int KV, int D, int dtype,
-                    int tile, int* variant, cudaStream_t s) {
-  *variant = flash_variant(dtype, D);
+                    int tile, cudaStream_t s) {
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (tile >= 0 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   if (rows == 0 || a.sq == 0) return 0;
-  if (*variant == kTensorCoreBody) {
+  if (tile >= 0) {
     switch (D) {
       case 64: return launch_tc_tile<64, PAGED>(a, rows, KV, tile, s);
       case 128: return launch_tc_tile<128, PAGED>(a, rows, KV, tile, s);
@@ -648,12 +643,12 @@ extern "C" int flash_attention_dense_launch(
     long long q_sh, long long q_ss, long long o_sb, long long o_sh,
     long long o_ss, long long k_sb, long long k_skv, long long k_ss,
     long long v_sb, long long v_skv, long long v_ss, float scale, int dtype,
-    int tile, int* variant, void* stream) {
+    int tile, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   FlashArgs a{q, k, v, out, nullptr, nullptr, nullptr, Sq, H / KV, Sk, 1, 0,
               causal, window, q_sb, q_ss, q_sh, o_sb, o_ss, o_sh,
               k_sb, k_skv, k_ss, v_sb, v_skv, v_ss, scale};
-  return dispatch<false>(a, B, H, KV, D, dtype, tile, variant, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(a, B, H, KV, D, dtype, tile, static_cast<cudaStream_t>(stream));
 }
 
 // Paged chunk entry: q (R, C, H, D) bshk with query c of row r at position
@@ -665,12 +660,12 @@ extern "C" int flash_attention_paged_launch(
     int KV, int D, int page_size, int mb, long long q_sb, long long q_ss,
     long long q_sh, long long o_sb, long long o_ss, long long o_sh,
     long long k_skv, long long k_sp, long long v_skv, long long v_sp,
-    float scale, int dtype, int tile, int* variant, void* stream) {
+    float scale, int dtype, int tile, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   FlashArgs a{q, k, v, out, static_cast<const int*>(tables),
               static_cast<const int*>(q_start), static_cast<const int*>(kv_len),
               C, H / KV, 0, page_size, mb, 1, 0,
               q_sb, q_ss, q_sh, o_sb, o_ss, o_sh,
               0, k_skv, k_sp, 0, v_skv, v_sp, scale};
-  return dispatch<true>(a, R, H, KV, D, dtype, tile, variant, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(a, R, H, KV, D, dtype, tile, static_cast<cudaStream_t>(stream));
 }

@@ -21,11 +21,11 @@
 // decides the time is how many bytes are in flight at once and how many
 // SMs carry them. The design:
 //   * flash-decoding: the grid is (split, KV head x head part, slot); the
-//     split count comes from shapes alone (the wrapper's decode_plan: about
-//     one and a half CTAs an SM, never more splits than 32-key tiles), so
-//     lengths are never read on the host. A split past its slot's length
-//     writes an empty partial (m = -inf, l = 0) and goes straight to the
-//     merge;
+//     split count and the keys a split covers come from shapes alone (the
+//     wrapper's decode_plan: about one and a half CTAs an SM, never more
+//     splits than 32-key tiles), so lengths are never read on the host. A
+//     split past its slot's length (or past the table) writes an empty
+//     partial (m = -inf, l = 0) and goes straight to the merge;
 //   * merge in the same launch: each CTA writes its partial (m, l and the
 //     unnormalised float32 accumulator) to a scratch buffer the wrapper
 //     allocates once per device and size, fences, and takes a ticket from
@@ -54,7 +54,6 @@ namespace repro_torch {
 
 constexpr int kPdWarps = 16;
 constexpr int kPdThreads = 32 * kPdWarps;
-constexpr int kPdSplitTile = 32;   // a split covers a multiple of this many keys
 
 struct DecodeArgs {
   const void* q;        // (B, 1, H, D) bshk
@@ -142,7 +141,8 @@ paged_decode_kernel(DecodeArgs a) {
 #pragma unroll
     for (int d = 0; d < DPL; ++d)
       qr[gi][d] = gi < n_heads ? load_f(q + gi * a.q_sh + d0 + d) * a.scale : 0.f;
-  const int k1 = min(len, k0 + a.split_keys);
+  // keys past the block table's last page are masked, whatever the length
+  const int k1 = min(min(len, a.mb * a.page_size), k0 + a.split_keys);
 
   float m[GC], l[GC], acc[GC][DPL];
 #pragma unroll
@@ -352,26 +352,26 @@ static int dispatch_d(const DecodeArgs& a, int B, int KV, int D, int GC, cudaStr
 using namespace repro_torch;
 
 // Returns cudaGetLastError() after the launch (0 = launched). The caller
-// checks shapes, dtypes and contiguity and plans the launch: n_splits
-// CTAs per (slot, KV head, head part), gc query heads a CTA (1, 2, 4 or 8,
+// checks shapes, dtypes and contiguity and plans the launch
+// (paged_decode_attention.py :: decode_plan): n_splits CTAs per (slot, KV
+// head, head part), each over split_keys keys (together at least the
+// table's mb x page_size), gc query heads a CTA (1, 2, 4 or 8,
 // gc >= min(g, 8)), and, for n_splits > 1, a scratch of
 // B x KV x parts x n_splits x gc x (D + 2) floats and B x KV x parts int32
 // counters that are 0. g = H / KV must be at most 16.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k, const void* v, const void* tables,
     const void* lengths, void* out, void* part, void* counters, int B, int H,
-    int KV, int D, int page_size, int mb, int n_splits, int gc,
+    int KV, int D, int page_size, int mb, int n_splits, int split_keys, int gc,
     long long q_sb, long long q_sh, long long o_sb, long long o_sh,
     long long k_skv, long long k_sp, long long v_skv, long long v_sp,
     float scale, int dtype, void* stream) {
-  if (KV <= 0 || H % KV != 0 || H / KV > 16 || n_splits < 1 || page_size < 1)
+  if (KV <= 0 || H % KV != 0 || H / KV > 16 || n_splits < 1 || page_size < 1 ||
+      split_keys < 1 || (long long)split_keys * n_splits < (long long)mb * page_size)
     return (int)cudaErrorInvalidValue;
   const int g = H / KV;
   if (gc < (g < 8 ? g : 8) || (n_splits > 1 && (part == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int keys = mb * page_size;
-  int split_keys = (keys + n_splits - 1) / n_splits;
-  split_keys = (split_keys + kPdSplitTile - 1) / kPdSplitTile * kPdSplitTile;
   DecodeArgs a{q, k, v, static_cast<const int*>(tables),
                static_cast<const int*>(lengths), out, static_cast<float*>(part),
                static_cast<int*>(counters), g, page_size, mb, n_splits, split_keys,

@@ -19,8 +19,9 @@ Each wrapper checks device, dtype, shape and contiguity and raises on what
 the kernel does not take. For a CUDA tensor it launches the kernel on the
 current stream (``launch_count`` counts those launches, and
 ``launch_count_by_variant`` which device body served each: ``variant``
-mirrors the kernel's dispatch table); for a CPU tensor it runs the plain
-PyTorch version in this module, and only then.
+is the dispatch table, and the kernel serves the body and tile it is
+given); for a CPU tensor it runs the plain PyTorch version in this module,
+and only then.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 
 from . import build
 
-#: the kernel's device bodies, in the order of its FlashVariant enum
+#: the kernel's device bodies
 VARIANTS = ("cuda_cores", "tensor_cores")
 #: launches of the CUDA kernel (both entries) since the last reset
 launch_count = 0
@@ -54,8 +55,8 @@ def reset_launch_count() -> None:
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The device body that serves ``dtype`` at ``head_dim``: bf16 at 64,
     128 and 256 runs on the tensor cores (wgmma); float32 (which wgmma would
-    compute as TF32) and bf16 at 16 and 32 on the CUDA cores. The kernel's
-    ``flash_variant`` is the same table; a launch reports which it used."""
+    compute as TF32) and bf16 at 16 and 32 on the CUDA cores. This is the
+    one dispatch table: the launch passes its choice to the kernel."""
     if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS:
         return "tensor_cores"
     return "cuda_cores"
@@ -63,6 +64,8 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 
 #: the tensor-core body's CTA tiles, by the kernel's tile index
 TILES = ("64 rows", "128 rows", "64 rows, keys split")
+#: the tile index that asks the kernel for its CUDA-core body
+CUDA_CORES = -1
 
 
 def tensor_core_tile(units: int, n_rows: int, max_keys: int, head_dim: int, n_sms: int) -> int:
@@ -79,6 +82,14 @@ def tensor_core_tile(units: int, n_rows: int, max_keys: int, head_dim: int, n_sm
     if head_dim <= 128 and max_keys > 128:
         return 2
     return 1
+
+
+def plan(dtype: torch.dtype, units: int, n_rows: int, max_keys: int, head_dim: int, n_sms: int) -> int:
+    """The kernel's tile argument: ``CUDA_CORES`` where ``variant`` says so,
+    else the tensor-core body's tile (``tensor_core_tile``)."""
+    if variant(dtype, head_dim) == "cuda_cores":
+        return CUDA_CORES
+    return tensor_core_tile(units, n_rows, max_keys, head_dim, n_sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,25 +201,19 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "flash_attention_dense_launch":
-            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [ctypes.c_float, i, i, p, p]
+            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [ctypes.c_float, i, i, p]
         else:
-            fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, i, p, p]
+            fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-_served = ctypes.c_int(-1)   # the body a launch reports
-
-
-def _count(err: int, what: str, dtype: torch.dtype, d: int) -> None:
+def _count(err: int, what: str, tile: int) -> None:
     global launch_count
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-    served = VARIANTS[_served.value]
-    if served != variant(dtype, d):
-        raise RuntimeError(f"{what}: the kernel ran {served}, the dispatch table says {variant(dtype, d)}")
     launch_count += 1
-    launch_count_by_variant[served] += 1
+    launch_count_by_variant["cuda_cores" if tile == CUDA_CORES else "tensor_cores"] += 1
 
 
 def flash_attention(
@@ -233,7 +238,7 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
-    tile = tensor_core_tile(b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
+    tile = plan(q.dtype, b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
     return _launch_dense(q, k, v, causal, window, scale, tile)
 
 
@@ -250,10 +255,10 @@ def _launch_dense(q, k, v, causal, window, scale, tile):
         out.stride(0), out.stride(1), out.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        float(scale), _DTYPES[q.dtype], tile, ctypes.byref(_served),
+        float(scale), _DTYPES[q.dtype], tile,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _count(err, "flash_attention", q.dtype, d)
+    _count(err, "flash_attention", tile)
     return out
 
 
@@ -293,8 +298,8 @@ def paged_chunk_attention(
         )
     for t in (q, k_pages, v_pages):
         check_vector_aligned("paged_chunk_attention", t, t.stride()[:3])
-    tile = tensor_core_tile(r * kv, c * (h // kv), block_tables.shape[1] * bs, d,
-                            _sm_count(q.device.index))
+    tile = plan(q.dtype, r * kv, c * (h // kv), block_tables.shape[1] * bs, d,
+                _sm_count(q.device.index))
     return _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, tile)
 
 
@@ -311,8 +316,8 @@ def _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, 
         out.stride(0), out.stride(1), out.stride(2),
         k_pages.stride(0), k_pages.stride(1),
         v_pages.stride(0), v_pages.stride(1),
-        float(scale), _DTYPES[q.dtype], tile, ctypes.byref(_served),
+        float(scale), _DTYPES[q.dtype], tile,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _count(err, "paged_chunk_attention", q.dtype, d)
+    _count(err, "paged_chunk_attention", tile)
     return out

@@ -38,7 +38,7 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
 
 
-#: a split covers a multiple of this many keys (the kernel's kPdSplitTile)
+#: a split covers a multiple of this many keys
 SPLIT_TILE = 32
 _CTA_GROUPS = (1, 2, 4, 8)
 
@@ -50,6 +50,7 @@ def reset_launch_count() -> None:
 
 class DecodePlan(NamedTuple):
     splits: int      # CTAs along each slot's key range
+    split_keys: int  # keys a split covers (splits x split_keys >= the table's keys)
     group: int       # query heads a CTA holds (1, 2, 4 or 8)
     parts: int       # CTAs along the query-head group: ceil(g / group)
 
@@ -62,17 +63,24 @@ class DecodePlan(NamedTuple):
 
 
 def decode_plan(b: int, h: int, kv: int, mb: int, page_size: int, n_sms: int) -> DecodePlan:
-    """Split count and heads a CTA from shapes only: splits for about one
-    and a half CTAs of 16 warps an SM (the CTA count that measured fastest
-    at the serving shape: 3 splits of 8 slots x 8 KV heads on 132 SMs),
-    never more than the ``SPLIT_TILE``-key tiles of a full table row, never
-    fewer than 1."""
+    """Split count, keys a split and heads a CTA from shapes only: splits
+    for about one and a half CTAs an SM (``chip_smoke.py --sweep`` times
+    every split count at the serving shape), never more than the
+    ``SPLIT_TILE``-key tiles of a full table row, never fewer than 1; each
+    split covers an equal share of the row rounded up to ``SPLIT_TILE``."""
     g = h // kv
     group = next(x for x in _CTA_GROUPS if x >= min(g, 8))
     parts = -(-g // group)
-    tiles = max(1, -(-(mb * page_size) // SPLIT_TILE))
+    keys = mb * page_size
+    tiles = max(1, -(-keys // SPLIT_TILE))
     splits = max(1, min(tiles, round(1.5 * n_sms / max(1, b * kv * parts))))
-    return DecodePlan(splits, group, parts)
+    return plan_with_splits(splits, keys, group, parts)
+
+
+def plan_with_splits(splits: int, keys: int, group: int, parts: int) -> DecodePlan:
+    """The plan of ``splits`` CTAs over a table row of ``keys`` keys."""
+    split_keys = -(-max(1, -(-keys // splits)) // SPLIT_TILE) * SPLIT_TILE
+    return DecodePlan(splits, split_keys, group, parts)
 
 
 _workspaces: Dict[Tuple[str, Optional[int]], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -112,7 +120,7 @@ def _fn():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 8 + [i] * 8 + [ll] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [ll] * 8 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -126,7 +134,6 @@ def paged_decode_attention(
     *,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    global launch_count
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention: q must be (B, 1, H, D), got {tuple(q.shape)}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -170,8 +177,15 @@ def paged_decode_attention(
         )
     for t in (k_pages, v_pages):
         check_vector_aligned("paged_decode_attention", t, t.stride()[:3])
-    mb = block_tables.shape[1]
-    plan = decode_plan(b, h, kv, mb, bs, _sm_count(dev.index))
+    plan = decode_plan(b, h, kv, block_tables.shape[1], bs, _sm_count(dev.index))
+    return _launch(q, k_pages, v_pages, block_tables, lengths, scale, plan)
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths, scale, plan: DecodePlan):
+    global launch_count
+    b, _, h, d = q.shape
+    kv, bs = k_pages.shape[0], k_pages.shape[2]
+    dev = q.device
     n_floats, n_counters = plan.scratch(b, kv, d)
     part, counters = workspace(dev, n_floats, n_counters) if n_counters else (None, None)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -180,7 +194,7 @@ def paged_decode_attention(
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(),
-        b, h, kv, d, bs, mb, plan.splits, plan.group,
+        b, h, kv, d, bs, block_tables.shape[1], plan.splits, plan.split_keys, plan.group,
         q.stride(0), q.stride(2), out.stride(0), out.stride(2),
         k_pages.stride(0), k_pages.stride(1),
         v_pages.stride(0), v_pages.stride(1),

@@ -269,8 +269,7 @@ def test_cuda_paged_decode_many_splits(card, h, kv, d, dtype):
     b, bs, mb = 8, 16, 128
     plan = pda.decode_plan(b, h, kv, mb, bs, torch.cuda.get_device_properties(0).multi_processor_count)
     assert plan.splits > 1
-    per = -(-(mb * bs) // plan.splits)
-    per = -(-per // pda.SPLIT_TILE) * pda.SPLIT_TILE
+    per = plan.split_keys
     lengths = np.array([0, 1, per, per + 1, 2 * per, mb * bs, 777, 31], np.int32)
     p = int(sum(-(-int(x) // bs) for x in lengths)) + 4
     tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
@@ -288,6 +287,29 @@ def test_cuda_paged_decode_many_splits(card, h, kv, d, dtype):
     ref = pda.paged_decode_attention_plain(q, k, v, tables, lens)
     torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
     assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("splits", [1, 3, 9, 20])
+def test_cuda_paged_decode_lengths_past_the_table(card, splits):
+    """Lengths beyond the block table's MB x page_size keys: the kernel, at
+    split counts whose last splits start past the table, drops the keys past
+    it as the plain version does."""
+    rng = np.random.default_rng(splits)
+    b, h, kv, d, bs, mb = 4, 8, 2, 64, 16, 40
+    lengths = np.array([mb * bs + 1, 1000, 0, 300], np.int32)
+    p = b * mb
+    tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, np.minimum(lengths, mb * bs))).cuda()
+    g = torch.Generator(device="cuda").manual_seed(splits)
+    q = torch.randn(b, 1, h, d, device="cuda", generator=g).bfloat16()
+    k = torch.randn(kv, p, bs, d, device="cuda", generator=g).bfloat16()
+    v = torch.randn(kv, p, bs, d, device="cuda", generator=g).bfloat16()
+    lens = torch.from_numpy(lengths).cuda()
+    plan = pda.plan_with_splits(splits, mb * bs, 4, 1)
+    out = pda._launch(q, k, v, tables, lens, d ** -0.5, plan)
+    torch.cuda.synchronize()
+    ref = pda.paged_decode_attention_plain(q, k, v, tables, lens)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
 
 
 def test_cuda_flash_dense_repeats_bit_identical(card):

@@ -30,6 +30,8 @@ def test_decode_plan_bounds(b, h, kv, mb, bs):
     plan = pda.decode_plan(b, h, kv, mb, bs, H100_SMS)
     tiles = -(-(mb * bs) // pda.SPLIT_TILE)
     assert 1 <= plan.splits <= max(1, tiles)
+    assert plan.split_keys % pda.SPLIT_TILE == 0 and plan.split_keys * plan.splits >= mb * bs
+    assert (plan.split_keys - pda.SPLIT_TILE) * plan.splits < max(1, mb * bs)
     g = h // kv
     assert plan.group in (1, 2, 4, 8) and plan.group >= min(g, 8)
     assert plan.parts * plan.group >= g and (plan.parts - 1) * plan.group < g
@@ -42,7 +44,7 @@ def test_decode_plan_at_the_serving_shape():
     """8 slots x 8 KV heads over 640 keys: 3 splits of 224 keys, 192 CTAs
     on 132 SMs."""
     plan = pda.decode_plan(8, 32, 8, 40, 16, H100_SMS)
-    assert plan == pda.DecodePlan(splits=3, group=4, parts=1)
+    assert plan == pda.DecodePlan(splits=3, split_keys=224, group=4, parts=1)
     assert plan.scratch(8, 8, 128) == (64 * 3 * 4 * 130, 64)
 
 
@@ -60,8 +62,20 @@ def test_decode_plan_uses_shapes_only():
 
 
 def test_decode_scratch_unsplit_is_empty():
-    assert pda.DecodePlan(1, 4, 1).scratch(8, 8, 128) == (0, 0)
-    assert pda.DecodePlan(3, 8, 2).scratch(2, 1, 64) == (2 * 2 * 3 * 8 * 66, 4)
+    assert pda.DecodePlan(1, 640, 4, 1).scratch(8, 8, 128) == (0, 0)
+    assert pda.DecodePlan(3, 224, 8, 2).scratch(2, 1, 64) == (2 * 2 * 3 * 8 * 66, 4)
+
+
+@pytest.mark.parametrize("splits,keys,split_keys", [
+    (1, 640, 640), (3, 640, 224), (5, 640, 128), (9, 640, 96), (20, 640, 32),
+    (1, 1, 32), (2, 33, 32), (4, 0, 32),
+])
+def test_plan_with_splits_covers_the_row(splits, keys, split_keys):
+    """A split covers an equal share of the row rounded up to SPLIT_TILE
+    keys; together the splits cover the whole row."""
+    plan = pda.plan_with_splits(splits, keys, 4, 1)
+    assert plan == pda.DecodePlan(splits, split_keys, 4, 1)
+    assert plan.splits * plan.split_keys >= keys
 
 
 def test_workspace_reused_per_device_and_grown_once():
@@ -121,6 +135,18 @@ def test_flash_variant_table(dtype, d):
 def test_flash_tensor_core_tile(units, n_rows, max_keys, d, want):
     assert fa.tensor_core_tile(units, n_rows, max_keys, d, H100_SMS) == want
     assert len(fa.TILES) == 3
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, 2), (torch.bfloat16, 256, 1), (torch.bfloat16, 64, 2),
+    (torch.bfloat16, 32, fa.CUDA_CORES), (torch.float32, 128, fa.CUDA_CORES),
+])
+def test_flash_plan_sends_the_variant_to_the_kernel(dtype, d, want):
+    """The launch's tile argument: the CUDA-core body where the dispatch
+    table says so, else the tensor-core tile (the paged chunk's shape)."""
+    assert fa.plan(dtype, 64, 32 * 4, 640, d, H100_SMS) == want
+    if want != fa.CUDA_CORES:
+        assert want == fa.tensor_core_tile(64, 32 * 4, 640, d, H100_SMS)
 
 
 def test_flash_reset_clears_variant_counts():
