@@ -10,7 +10,7 @@ Phases, each printing its seconds on a line of its own:
              name and power limit as nvidia-smi reports them;
 2. build   — compile the hand-written kernels from src/repro_torch/kernels/csrc
              with nvcc for sm_90a (one nvcc per source, all at once), print
-             each variant's registers and spills for kernels 1 and 2, and
+             each variant's registers and spills for kernels 1, 2 and 3, and
              check that flash's tensor-core variants issue HGMMA (cuobjdump);
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              at the serving shapes of Qwen3-8B (8 slots, 32 query and 8 KV
@@ -27,9 +27,10 @@ Phases, each printing its seconds on a line of its own:
              library call (scaled_dot_product_attention on the same inputs,
              timed here only; no single call computes the scan) and compute
              the kernel's bound; time flash's tensor-core body at each CTA
-             tile; check that one call of paged decode runs one device
-             kernel (its splits merge in the same launch) and that two calls
-             of it give the same bits;
+             tile; check that one call of paged decode, and of dense decode
+             at each shape and dtype, runs one device kernel (the splits
+             merge in the same launch) and that two calls give the same
+             bits;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -58,13 +59,18 @@ path (flash's also by device body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
-``--sweep`` builds the kernels and times, at the Qwen3-8B serving shapes,
-paged decode attention at every split count from 1 to 20 (each checked
-against its plain version) and kernels 1, 2 and 3 with the L2 cold (as
-above), warm (calls back to back behind a device-side sleep) and
-host-paced (events around each call, no sleep ahead: what a loop of calls
-reads when the host launches slower than the device runs), beside a
-one-element ``add_``; it ends with one JSON line of those times.
+``--sweep`` builds the kernels and times, each checked against its plain
+version: paged decode attention at the Qwen3-8B serving shape at every
+split count from 1 to 20; dense decode attention on each body at every split
+count from 1 to 20 at Qwen3-8B's and RecurrentGemma-9B's decode shapes
+(RecurrentGemma's also with the serve's lengths, at most 256 keys) and
+inside the models' decode (Qwen3-8B cut to 8 layers, RecurrentGemma-9B to
+6) at three context lengths under several plans; and
+kernels 1, 2 and 3 (at both shapes) with the L2 cold (as above), warm (calls
+back to back behind a device-side sleep) and host-paced (events around each
+call, no sleep ahead: what a loop of calls reads when the host launches
+slower than the device runs), beside a one-element ``add_``; it ends with
+one JSON line of those times.
 """
 from __future__ import annotations
 
@@ -177,17 +183,33 @@ def max_err(torch, out, ref, tol):
     return float(err.max())
 
 
-def device_kernels(torch, fn):
-    """Names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+def device_kernels(torch, fn, attempts=3):
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler).
+    A trace that holds no device event at all missed the call (on the card
+    a process's later traces now and then come back empty), so the call
+    is traced again, up to ``attempts`` times; every retry is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type.name == "CUDA" and "emcpy" not in e.name
-            and "emset" not in e.name]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if events:
+            break
+        print(f"  device_kernels: trace {attempt} of {attempts} held no device event", flush=True)
+    return [n for n in events if "emcpy" not in n and "emset" not in n]
+
+
+def check_one_kernel_and_repeat(torch, what, call, out):
+    """One call of ``call`` runs one device kernel (split keys merge in the
+    same launch), and a second call gives the same bits as ``out``."""
+    names = device_kernels(torch, call)
+    check(len(names) == 1, f"{what}: one call ran {len(names)} device kernels: {names}")
+    check(bool(torch.equal(out, call())), f"{what}: two calls differ")
+    return names[0]
 
 
 def time_tiles(torch, flush, launch, d):
@@ -245,11 +267,22 @@ def chunk_case(torch, np, h, kv, d, r=8, c=32, bs=16, mb=40, seed=1):
     return q, k, v, t(tables), t(starts), t(valid), chunk_lens
 
 
-def dense_decode_case(torch, np, h, kv, d, dtype, s, b=8, seed=3):
+def n_sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def dense_plan(torch, da, q, k):
+    """Kernel 3's plan for these inputs, printed with its body's name."""
+    p = da.plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], k.shape[2], q.shape[2], n_sms(torch))
+    return f"{da.BODIES[p.body]} {p.split}"
+
+
+def dense_decode_case(torch, np, h, kv, d, dtype, s, b=8, seed=3, max_len=None):
     """q (B, H, D) and the (B, S, KV, D) layer slice of a dense cache seen as
-    (B, KV, S, D), as the model passes it; ragged lengths, the last 0."""
+    (B, KV, S, D), as the model passes it; ragged lengths up to ``max_len``
+    (default S), the last 0."""
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, s + 1, size=b).astype(np.int32)
+    lengths = rng.integers(1, (max_len or s) + 1, size=b).astype(np.int32)
     lengths[-1] = 0                                # an idle decode lane
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, h, d, device="cuda", generator=g).to(dtype)
@@ -351,7 +384,10 @@ def run_kernel_checks(torch, np):
             name = str(dt).split(".")[1]
             err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
             check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
-            print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}", flush=True)
+            kname = check_one_kernel_and_repeat(
+                torch, f"decode_attention [{label}] {name}", lambda: da.decode_attention(q, k, v, lengths), out)
+            print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}, {dense_plan(torch, da, q, k)}, "
+                  f"one call, one device kernel ({kname[:60]}), two calls equal", flush=True)
         g = h // kv
         qs = q[:, :, None]
         ks, vs = (x.repeat_interleave(g, dim=1).contiguous() for x in (k, v))
@@ -395,13 +431,11 @@ def run_kernel_checks(torch, np):
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask), flush)
         bound_ms, bound_by = decode_bound(q, k, tables, lengths)
-        names = device_kernels(torch, lambda: pda.paged_decode_attention(q, k, v, tables, lengths))
-        check(len(names) == 1, f"paged_decode_attention: one call ran {len(names)} device kernels: {names}")
-        plan = pda.decode_plan(q.shape[0], h, kv, tables.shape[1], k.shape[2],
-                               torch.cuda.get_device_properties(0).multi_processor_count)
-        print(f"  paged_decode_attention [{label}] {plan}: one call, one device kernel ({names[0][:60]})")
-        twice = pda.paged_decode_attention(q, k, v, tables, lengths)
-        check(bool(torch.equal(out, twice)), "paged_decode_attention: two calls differ")
+        kname = check_one_kernel_and_repeat(
+            torch, "paged_decode_attention", lambda: pda.paged_decode_attention(q, k, v, tables, lengths), out)
+        plan = pda.decode_plan(q.shape[0], h, kv, tables.shape[1], k.shape[2], n_sms(torch))
+        print(f"  paged_decode_attention [{label}] {plan}: one call, one device kernel ({kname[:60]}), "
+              f"two calls equal")
         results[("paged_decode_attention", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
@@ -472,7 +506,10 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
         name = str(dt).split(".")[1]
         err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
         check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
-        print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}", flush=True)
+        kname = check_one_kernel_and_repeat(
+            torch, f"decode_attention [{label}] {name}", lambda: da.decode_attention(q, k, v, lengths), out)
+        print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}, {dense_plan(torch, da, q, k)}, "
+              f"one call, one device kernel ({kname[:60]}), two calls equal", flush=True)
     qs = q[:, :, None]
     ks, vs = (x.repeat_interleave(h // kv, dim=1).contiguous() for x in (k, v))
     mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None]
@@ -913,9 +950,110 @@ def check_tensor_core_sass(build):
     check(bool(tc) and all(tc.values()), f"flash tensor-core variants without HGMMA: {tc}")
 
 
+def sweep_dense_decode(torch, np, flush):
+    """Kernel 3's bf16 body at every split count from 1 to 20, at Qwen3-8B's
+    and RecurrentGemma-9B's decode shapes (the latter also with the serve's
+    lengths, at most 256 keys of the 640-key ring), each checked against its
+    plain version; cold and warm ms by split count."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_split import plan_with_splits
+    from repro_torch.launch.profile_step import SERVE_LEN
+
+    out = {}
+    for label, (h, kv, d), max_len in (("qwen3-8b", (32, 8, 128), None),
+                                       ("recurrentgemma-9b", (16, 1, 256), None),
+                                       ("recurrentgemma-9b serve lengths", (16, 1, 256), 256)):
+        q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, torch.bfloat16, SERVE_LEN,
+                                             max_len=max_len)
+        ref = da.decode_attention_plain(q, k, v, lengths)
+        p = da.plan(q.dtype, q.shape[0], h, kv, SERVE_LEN, d, n_sms(torch))
+        g = h // kv
+        rows = out[label] = {"plan": [da.BODIES[p.body], p.split.splits]}
+        for n in range(1, 21):
+            plan = da.Plan(p.body, plan_with_splits(n, SERVE_LEN, h // kv, 1))
+            call = lambda: da._launch(q, k, v, lengths, d ** -0.5, plan)
+            err = max_err(torch, call(), ref, KERNEL_TOL["bfloat16"])
+            row = dict(body=da.BODIES[p.body], splits=n, split_keys=plan.split.split_keys,
+                       ctas=n * q.shape[0] * kv, max_abs_err=err,
+                       cold_ms=time_ms(torch, call, flush), warm_ms=time_warm_ms(torch, call))
+            rows[f"{da.BODIES[p.body]} {n}"] = row
+            print(f"  decode_attention [{label}] {json.dumps(row)}"
+                  + (" (the plan)" if n == p.split.splits else ""), flush=True)
+    return out
+
+
+def sweep_dense_decode_in_place(torch, np):
+    """Kernel 3's device time inside the models' decode, under its plan and
+    under other split counts: Qwen3-8B cut to 8 layers (fused decode, K = 8
+    steps) and RecurrentGemma-9B cut to 6 layers (2 attention layers, 8
+    decode steps), 8 slots holding 128, 240, 336 or 496 tokens before the
+    steps, random bf16 weights; the median per launch of torch.profiler's
+    device events. Each plan is forced by replacing ``decode_attention.plan``
+    for the measured call only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.decode_split import plan_with_splits
+    from repro_torch.launch.profile_step import SERVE_LEN
+    from repro_torch.models.recurrentgemma import RecurrentGemma
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.sampler import greedy
+
+    j, steps = 8, 8
+    rng = np.random.default_rng(1)
+    tok = lambda x: torch.from_numpy(np.asarray(x, np.int32)).cuda()
+    z = torch.zeros(j, dtype=torch.int32, device="cuda")
+    on = torch.ones(j, dtype=torch.bool, device="cuda")
+    big = torch.full((j,), 10**6, dtype=torch.int32, device="cuda")
+    cases = (
+        ("qwen3-8b", TransformerLM, get_config("qwen3_8b"), 8, 4, (1, 2, 3, 4, 5, 10)),
+        ("recurrentgemma-9b", RecurrentGemma, get_config("recurrentgemma_9b"), 6, 16, (1, 2, 5, 10, 20)),
+    )
+    out, plan = [], da.plan
+    for label, cls, cfg, layers, g, plans in cases:
+        model = cls(dataclasses.replace(cfg, n_layers=layers), device="cuda")
+        params = model.init_params(seed=0)
+        if label == "qwen3-8b":
+            run = lambda cache: model.decode_steps(params, z, cache, num_steps=steps, sampler=greedy,
+                                                   active=on, budgets=big, rids=z, token_idx0=z)
+        else:
+            def run(cache):
+                for _ in range(steps):
+                    _, cache = model.decode_step(params, z, cache)
+        for ctx in (128, 240, 336, 496):
+            for n in (None,) + plans:
+                if n is not None:
+                    forced = da.Plan(da.TENSOR_CORES, plan_with_splits(n, SERVE_LEN, g, 1))
+                cache = model.cache_init(j, SERVE_LEN)
+                model.prefill(params, tok(rng.integers(1, cfg.vocab_size, size=(j, ctx))), cache)
+                try:
+                    if n is not None:
+                        da.plan = lambda *args, _p=forced: _p
+                    run(cache)                 # warm-up; the cache grows by `steps` tokens
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        run(cache)
+                        torch.cuda.synchronize()
+                finally:
+                    da.plan = plan
+                us = [e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type.name == "CUDA" and "dense_decode" in e.name]
+                row = dict(model=label, tokens=f"{ctx + steps + 1}-{ctx + 2 * steps}",
+                           plan="the plan" if n is None else f"{da.BODIES[da.TENSOR_CORES]} {n}",
+                           launches=len(us), us_median=statistics.median(us))
+                out.append(row)
+                print(f"  in place {json.dumps(row)}", flush=True)
+                del cache
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_sweep(torch, np):
-    """Paged decode attention at every split count, and kernels 1-3 under
-    each L2 state, at the Qwen3-8B serving shapes; returns the times."""
+    """Paged decode attention at every split count, kernel 3 by split count
+    at both of its serving shapes (cold, warm and inside the models'
+    decode), and kernels 1-3 under each L2 state; returns the times."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
@@ -926,7 +1064,7 @@ def run_sweep(torch, np):
     q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
     b, mb, bs = q.shape[0], tables.shape[1], k.shape[2]
     scale = d ** -0.5
-    plan = pda.decode_plan(b, h, kv, mb, bs, torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = pda.decode_plan(b, h, kv, mb, bs, n_sms(torch))
     ref = pda.paged_decode_attention_plain(q, k, v, tables, lengths)
     splits = {}
     for n in range(1, 21):
@@ -937,8 +1075,11 @@ def run_sweep(torch, np):
                          cold_ms=time_ms(torch, call, flush), warm_ms=time_warm_ms(torch, call))
         print(f"  paged_decode_attention splits={n}: {json.dumps(splits[n])}"
               + (" (the plan)" if n == plan.splits else ""), flush=True)
+    dense = sweep_dense_decode(torch, np, flush)
+    in_place = sweep_dense_decode_in_place(torch, np)
 
     dq, dk, dv, dlen = dense_decode_case(torch, np, h, kv, d, torch.bfloat16, SERVE_LEN)
+    mq, mk, mv, mlen = dense_decode_case(torch, np, 16, 1, 256, torch.bfloat16, SERVE_LEN)
     cq, ck, cv, ctab, cst, cval, _ = chunk_case(torch, np, h, kv, d)
     fq, fk, fv = dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len())
     one = torch.zeros(1, device="cuda")
@@ -947,6 +1088,7 @@ def run_sweep(torch, np):
         "flash_attention": lambda: fa.paged_chunk_attention(cq, ck, cv, ctab, cst, cval),
         "flash_attention_dense": lambda: fa.flash_attention(fq, fk, fv, causal=True),
         "decode_attention": lambda: da.decode_attention(dq, dk, dv, dlen),
+        "decode_attention_recurrentgemma": lambda: da.decode_attention(mq, mk, mv, mlen),
         "add_": lambda: one.add_(1.0),
     }
     l2 = {}
@@ -954,7 +1096,9 @@ def run_sweep(torch, np):
         l2[name] = dict(cold_ms=time_ms(torch, call, flush), warm_ms=time_warm_ms(torch, call),
                         host_paced_ms=time_host_paced_ms(torch, call))
         print(f"  {name}: {json.dumps(l2[name])}", flush=True)
-    return {"plan_splits": plan.splits, "paged_decode_attention_by_splits": splits, "l2_states": l2}
+    return {"plan_splits": plan.splits, "paged_decode_attention_by_splits": splits,
+            "decode_attention_by_body_and_splits": dense, "decode_attention_in_place": in_place,
+            "l2_states": l2}
 
 
 def main() -> int:
@@ -987,7 +1131,7 @@ def main() -> int:
     for src, log in build.ptxas_log.items():
         regs = [l.strip() for l in log.splitlines() if "registers" in l]
         print(f"  {src}: {len(regs)} kernel variants; e.g. {regs[-1] if regs else log.strip()[:200]}")
-    for src in ("flash_attention", "paged_decode_attention"):
+    for src in ("flash_attention", "paged_decode_attention", "decode_attention"):
         for fn, info in build.ptxas_kernels(src).items():
             print(f"    {fn}: {info}")
     check_tensor_core_sass(build)

@@ -24,21 +24,22 @@
 //     split count and the keys a split covers come from shapes alone (the
 //     wrapper's decode_plan: about one and a half CTAs an SM, never more
 //     splits than 32-key tiles), so lengths are never read on the host. A
-//     split past its slot's length (or past the table) writes an empty
-//     partial (m = -inf, l = 0) and goes straight to the merge;
-//   * merge in the same launch: each CTA writes its partial (m, l and the
-//     unnormalised float32 accumulator) to a scratch buffer the wrapper
-//     allocates once per device and size, fences, and takes a ticket from
-//     an int32 counter per (slot, KV head, head part); the CTA that takes
-//     the last ticket merges the partials in split order (bit-identical
-//     from call to call) and resets the counter to 0. No second kernel, no
-//     allocation per call;
-//   * inside a CTA, kernel 3's key loop (decode_attention.cu): each of 16
-//     warps takes every 16th warp step of the split's keys, each key group of
-//     LPK lanes one key, each lane a DPL-wide slice of head_dim; every key
-//     group keeps its own online-softmax state for the CTA's heads in
-//     registers, and the groups and warps merge once at the end, so the
-//     key loop has no block barrier;
+//     split past its slot's live keys (the length, cut at the table's end)
+//     returns at once;
+//   * merge in the same launch (split_merge.cuh, shared with kernel 3): each
+//     live CTA writes its partial (m, l and the unnormalised float32
+//     accumulator) to a scratch buffer the wrapper allocates once per
+//     device and size, fences, and takes a ticket from an int32 counter per
+//     (slot, KV head, head part); the CTA that takes the last ticket merges
+//     the partials in split order (bit-identical from call to call) and
+//     resets the counter to 0. A slot whose keys fit one split writes its
+//     output directly. No second kernel, no allocation per call;
+//   * inside a CTA, the CUDA-core key loop of kernel 3 (decode_attention.cu):
+//     each of 16 warps takes every 16th warp step of the split's keys, each
+//     key group of LPK lanes one key, each lane a DPL-wide slice of
+//     head_dim; every key group keeps its own online-softmax state for the
+//     CTA's heads in registers, and the groups and warps merge once at the
+//     end, so the key loop has no block barrier;
 //   * K/V arrive through a cp.async ring per lane, kept in their own dtype
 //     in shared memory (each lane reads back only the bytes it copied, so
 //     the ring needs no barrier either): with 16 warps and 4 stages at the
@@ -49,6 +50,7 @@
 //     most 8 (a grid axis reading the same keys), the register shape of
 //     g = 8.
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace repro_torch {
 
@@ -112,7 +114,6 @@ paged_decode_kernel(DecodeArgs a) {
   float* l_s = m_s + kPdWarps * GC;                             // [warps][GC]
   float* acc_s = l_s + kPdWarps * GC;                           // [warps][GC][D]
   int* table_s = reinterpret_cast<int*>(acc_s + kPdWarps * GC * D);   // the split's pages
-  __shared__ int last_s;
 
   const int split = blockIdx.x, b = blockIdx.z;
   const int kvh = blockIdx.y / a.parts, part = blockIdx.y % a.parts;
@@ -122,10 +123,7 @@ paged_decode_kernel(DecodeArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kg = lane / LPK, d0 = (lane % LPK) * DPL;
   const int S = a.n_splits;
-
   const int k0 = split * a.split_keys;
-  float* acc_part = a.part + ((long long)unit * S * GC) * D;
-  float* ml_part = a.part + (long long)gridDim.z * gridDim.y * S * GC * D + (long long)unit * S * GC * 2;
 
   // the slot's length, this split's block-table entries and the query are
   // independent reads: all are issued before any is waited on
@@ -141,8 +139,12 @@ paged_decode_kernel(DecodeArgs a) {
 #pragma unroll
     for (int d = 0; d < DPL; ++d)
       qr[gi][d] = gi < n_heads ? load_f(q + gi * a.q_sh + d0 + d) * a.scale : 0.f;
-  // keys past the block table's last page are masked, whatever the length
-  const int k1 = min(min(len, a.mb * a.page_size), k0 + a.split_keys);
+  // keys past the block table's last page are masked, whatever the length;
+  // a split past the slot's live keys has nothing to add to the merge
+  const int live = max(0, min(len, a.mb * a.page_size));
+  const int n_live = (live + a.split_keys - 1) / a.split_keys;
+  if (split >= max(n_live, 1)) return;
+  const int k1 = min(live, k0 + a.split_keys);
 
   float m[GC], l[GC], acc[GC][DPL];
 #pragma unroll
@@ -259,60 +261,22 @@ paged_decode_kernel(DecodeArgs a) {
   __syncthreads();
 
   T* out = static_cast<T*>(a.out) + b * a.o_sb + (long long)(kvh * a.g + head0) * a.o_sh;
-  for (int i = tid; i < n_heads * D; i += kPdThreads) {
-    const int gi = i / D, d = i % D;
-    float mx = -CUDART_INF_F;
+  split_epilogue<kPdThreads, GC, D>(
+      SplitScratch{a.part, a.counters}, unit, gridDim.z * gridDim.y, split, S, n_live, GC, n_heads,
+      out, a.o_sh, [&](int gi, int d) {
+        // merge the CTA's warps
+        float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < kPdWarps; ++w) mx = fmaxf(mx, m_s[w * GC + gi]);
-    float lt = 0.f, at = 0.f;
+        for (int w = 0; w < kPdWarps; ++w) mx = fmaxf(mx, m_s[w * GC + gi]);
+        float lt = 0.f, at = 0.f;
 #pragma unroll
-    for (int w = 0; w < kPdWarps; ++w) {
-      const float sc = mx == -CUDART_INF_F ? 0.f : expf(m_s[w * GC + gi] - mx);
-      lt += l_s[w * GC + gi] * sc;
-      at += acc_s[(w * GC + gi) * D + d] * sc;
-    }
-    if (S == 1) {
-      store_f(out + gi * a.o_sh + d, at / fmaxf(lt, 1e-30f));
-    } else {
-      // an empty split's accumulator is never read, so it is not written
-      if (mx != -CUDART_INF_F) acc_part[(split * GC + gi) * D + d] = at;
-      if (d == 0) {
-        ml_part[(split * GC + gi) * 2] = mx;
-        ml_part[(split * GC + gi) * 2 + 1] = lt;
-      }
-    }
-  }
-  if (S == 1) return;
-
-  // ticket: the CTA that finishes last merges every split of this unit
-  // (the barrier orders every thread's partial before thread 0's fence,
-  // which releases them all with the ticket)
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last_s = atomicAdd(a.counters + unit, 1) == S - 1;
-  }
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  for (int i = tid; i < n_heads * D; i += kPdThreads) {
-    const int gi = i / D, d = i % D;
-    float mx = -CUDART_INF_F;
-    for (int s = 0; s < S; ++s) mx = fmaxf(mx, __ldcg(ml_part + (s * GC + gi) * 2));
-    float lt = 0.f, at = 0.f;
-    for (int s = 0; s < S; ++s) {
-      // an empty split's accumulator was never written: read it with the
-      // rest (one round trip) and select it away
-      const float ms = __ldcg(ml_part + (s * GC + gi) * 2);
-      const float ls = __ldcg(ml_part + (s * GC + gi) * 2 + 1);
-      const float as = __ldcg(acc_part + (s * GC + gi) * D + d);
-      const float sc = ms == -CUDART_INF_F ? 0.f : expf(ms - mx);
-      lt += ms == -CUDART_INF_F ? 0.f : ls * sc;
-      at += ms == -CUDART_INF_F ? 0.f : as * sc;
-    }
-    store_f(out + gi * a.o_sh + d, at / fmaxf(lt, 1e-30f));
-  }
-  if (tid == 0) a.counters[unit] = 0;
+        for (int w = 0; w < kPdWarps; ++w) {
+          const float sc = mx == -CUDART_INF_F ? 0.f : expf(m_s[w * GC + gi] - mx);
+          lt += l_s[w * GC + gi] * sc;
+          at += acc_s[(w * GC + gi) * D + d] * sc;
+        }
+        return SplitResult{mx, lt, at};
+      });
 }
 
 template <typename T, int D, int GC>
@@ -369,6 +333,7 @@ extern "C" int paged_decode_attention_launch(
   if (KV <= 0 || H % KV != 0 || H / KV > 16 || n_splits < 1 || page_size < 1 ||
       split_keys < 1 || (long long)split_keys * n_splits < (long long)mb * page_size)
     return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   const int g = H / KV;
   if (gc < (g < 8 ? g : 8) || (n_splits > 1 && (part == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -377,7 +342,6 @@ extern "C" int paged_decode_attention_launch(
                static_cast<int*>(counters), g, page_size, mb, n_splits, split_keys,
                (g + gc - 1) / gc, q_sb, q_sh, o_sb, o_sh, k_skv, k_sp, v_skv, v_sp, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0) return 0;
   if (dtype == kF32) return dispatch_d<float>(a, B, KV, D, gc, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(a, B, KV, D, gc, s);
   return (int)cudaErrorInvalidValue;

@@ -12,6 +12,14 @@ k and v may be strided views: the model passes its ``(B, S, KV, D)`` layer
 slice of the ``(L, B, S, KV, D)`` cache as ``slice.transpose(1, 2)``, so the
 cache is never copied. Only the head_dim axis must be contiguous.
 
+The kernel splits each slot's keys across CTAs and merges the splits in the
+same launch. ``plan`` picks the body (tensor cores for bf16 at head_dim 64,
+128 and 256, with the whole group of up to 16 heads in one CTA; CUDA cores
+for float32 and head_dim 16), the split count, the keys a split takes at
+the full row and the heads a CTA from shapes alone; the kernel places each
+slot's splits from its length on the device. The splits' scratch is
+``decode_split.workspace``, shared with kernel 1.
+
 The wrapper checks device, dtype, shape, strides and alignment and raises on
 what the kernel does not take. For a CUDA tensor it launches the kernel on
 the current stream (``launch_count`` counts those launches); for a CPU tensor
@@ -20,12 +28,13 @@ it runs the plain PyTorch version in this module, and only then.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
-from .flash_attention import check_vector_aligned, masked_attention
+from .decode_split import DecodePlan, cta_group, split_plan, workspace
+from .flash_attention import _sm_count, check_vector_aligned, masked_attention
 
 #: launches of the CUDA kernel since the last reset
 launch_count = 0
@@ -34,10 +43,47 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8, 16)
 
+#: the kernel's two bodies, by the code the launcher takes
+CUDA_CORES, TENSOR_CORES = 0, 1
+BODIES = {CUDA_CORES: "cuda_cores", TENSOR_CORES: "tensor_cores"}
+_TC_HEAD_DIMS = (64, 128, 256)
+#: CTAs an SM the split count aims at, by body, and the longest split of the
+#: tensor-core body (two tiles, one for each warp group) where that target
+#: allows. One CTA of the tensor-core body fits an SM, so its splits stay in
+#: one wave: 2 splits of 320 keys at Qwen3-8B's shape, 10 of 64 at
+#: RecurrentGemma-9B's. A slot of ``len`` keys takes round(len / split_keys)
+#: of them (the kernel's ``split_range``), so Qwen3's rows under 480 keys run
+#: unsplit and pay no merge. ``chip_smoke.py --sweep`` times every split
+#: count, cold and inside the models' decode, at both serving shapes.
+CTAS_PER_SM = {CUDA_CORES: 2.0, TENSOR_CORES: 1.0}
+TC_SPLIT_KEYS = 64
+
+
+class Plan(NamedTuple):
+    body: int          # CUDA_CORES or TENSOR_CORES
+    split: DecodePlan  # splits, keys a split, heads a CTA, head parts
+
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+
+
+def plan(dtype: torch.dtype, b: int, h: int, kv: int, s: int, d: int, n_sms: int) -> Plan:
+    """Body, split count, keys a split and heads a CTA from shapes only
+    (never from ``lengths``): bf16 at head_dim 64, 128 and 256 (both serving
+    paths) takes the tensor-core body, which holds the whole group of
+    g <= 16 query heads in one CTA; float32 and head_dim 16 take the
+    CUDA-core body, at most 8 heads a CTA (``decode_split.cta_group``).
+    Splits over the cache length S by ``CTAS_PER_SM`` and
+    ``TC_SPLIT_KEYS``; ``split_keys`` is a split's share of a full row, and
+    a shorter row takes fewer splits (``CTAS_PER_SM``'s note)."""
+    g = h // kv
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return Plan(TENSOR_CORES, split_plan(b, kv, s, g, 1, n_sms, CTAS_PER_SM[TENSOR_CORES],
+                                             TC_SPLIT_KEYS))
+    group, parts = cta_group(g)
+    return Plan(CUDA_CORES, split_plan(b, kv, s, group, parts, n_sms, CTAS_PER_SM[CUDA_CORES]))
 
 
 def decode_attention_plain(
@@ -58,7 +104,7 @@ def _fn():
     fn = build.load("decode_attention").decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 5 + [i] * 5 + [ll] * 10 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,7 +118,6 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Returns ``(B, H, D)`` in q's dtype (contiguous)."""
-    global launch_count
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"decode_attention: q (B, H, D), k/v (B, KV, S, D), got "
@@ -108,10 +153,23 @@ def decode_attention(
         return decode_attention_plain(q, k, v, lengths, scale=scale)
     for t in (k, v):
         check_vector_aligned("decode_attention", t, t.stride()[:3])
+    return _launch(q, k, v, lengths, scale, plan(q.dtype, b, h, kv, s, d, _sm_count(dev.index)))
+
+
+def _launch(q, k, v, lengths, scale, p: Plan):
+    """Launch the kernel under plan ``p`` (any plan the launcher can serve)."""
+    global launch_count
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    dev = q.device
+    n_floats, n_counters = p.split.scratch(b, kv, d)
+    part, counters = workspace(dev, n_floats, n_counters) if n_counters else (None, None)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     err = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kv, s, d,
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        b, h, kv, s, d, p.body, p.split.splits, p.split.split_keys, p.split.group,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),

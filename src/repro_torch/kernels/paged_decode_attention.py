@@ -23,11 +23,20 @@ runs the plain PyTorch version in this module, and only then.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from . import build
+from .decode_split import (  # noqa: F401  (kernel 1's plan names, shared with kernel 3)
+    SPLIT_TILE,
+    DecodePlan,
+    _workspaces,
+    cta_group,
+    plan_with_splits,
+    split_plan,
+    workspace,
+)
 from .flash_attention import _sm_count, check_vector_aligned, masked_attention
 
 #: launches of the CUDA kernel since the last reset
@@ -38,67 +47,18 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 16
 
 
-#: a split covers a multiple of this many keys
-SPLIT_TILE = 32
-_CTA_GROUPS = (1, 2, 4, 8)
-
-
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
 
 
-class DecodePlan(NamedTuple):
-    splits: int      # CTAs along each slot's key range
-    split_keys: int  # keys a split covers (splits x split_keys >= the table's keys)
-    group: int       # query heads a CTA holds (1, 2, 4 or 8)
-    parts: int       # CTAs along the query-head group: ceil(g / group)
-
-    def scratch(self, b: int, kv: int, d: int) -> Tuple[int, int]:
-        """(floats, counters) the splits' merge needs; (0, 0) unsplit."""
-        if self.splits == 1:
-            return 0, 0
-        units = b * kv * self.parts
-        return units * self.splits * self.group * (d + 2), units
-
-
 def decode_plan(b: int, h: int, kv: int, mb: int, page_size: int, n_sms: int) -> DecodePlan:
-    """Split count, keys a split and heads a CTA from shapes only: splits
-    for about one and a half CTAs an SM (``chip_smoke.py --sweep`` times
-    every split count at the serving shape), never more than the
-    ``SPLIT_TILE``-key tiles of a full table row, never fewer than 1; each
-    split covers an equal share of the row rounded up to ``SPLIT_TILE``."""
-    g = h // kv
-    group = next(x for x in _CTA_GROUPS if x >= min(g, 8))
-    parts = -(-g // group)
-    keys = mb * page_size
-    tiles = max(1, -(-keys // SPLIT_TILE))
-    splits = max(1, min(tiles, round(1.5 * n_sms / max(1, b * kv * parts))))
-    return plan_with_splits(splits, keys, group, parts)
-
-
-def plan_with_splits(splits: int, keys: int, group: int, parts: int) -> DecodePlan:
-    """The plan of ``splits`` CTAs over a table row of ``keys`` keys."""
-    split_keys = -(-max(1, -(-keys // splits)) // SPLIT_TILE) * SPLIT_TILE
-    return DecodePlan(splits, split_keys, group, parts)
-
-
-_workspaces: Dict[Tuple[str, Optional[int]], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def workspace(device: torch.device, n_floats: int, n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The float32 partials and int32 tickets of split launches on
-    ``device``: one pair per device, reused by every call whose plan fits
-    and replaced by a larger one (tickets zeroed once, at allocation) when
-    a plan needs more. The kernel leaves every ticket at 0 when it ends."""
-    key = (device.type, device.index)
-    cur = _workspaces.get(key)
-    if cur is None or cur[0].numel() < n_floats or cur[1].numel() < n_counters:
-        old_f, old_c = (cur[0].numel(), cur[1].numel()) if cur is not None else (0, 0)
-        cur = (torch.empty(max(n_floats, old_f), dtype=torch.float32, device=device),
-               torch.zeros(max(n_counters, old_c), dtype=torch.int32, device=device))
-        _workspaces[key] = cur
-    return cur
+    """Split count, keys a split and heads a CTA from shapes only
+    (``decode_split.split_plan`` over a row of the table's MB x page_size
+    keys: about one and a half CTAs an SM; ``chip_smoke.py --sweep`` times
+    every split count at the serving shape)."""
+    group, parts = cta_group(h // kv)
+    return split_plan(b, kv, mb * page_size, group, parts, n_sms)
 
 
 def paged_decode_attention_plain(

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pda
+from repro_torch.kernels.decode_split import cta_group, plan_with_splits
 from torch_port_arrays import shuffled_tables
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -149,7 +150,8 @@ def test_cuda_rglru_state_chains_across_calls(card):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_decode_mqa_head_dim_256_matches_plain(card, dtype):
     """Kernel 3 at recurrentgemma's decode shape: 16 query heads on one KV
-    head (two CTAs per slot), head_dim 256, ragged lengths with an idle lane."""
+    head (in bf16 one CTA holds the whole group; in float32 two head parts
+    of 8), head_dim 256, ragged lengths with an idle lane."""
     b, h, kv, d, s = 8, 16, 1, 256, 640
     g = torch.Generator(device="cuda").manual_seed(256)
     q = torch.randn(b, h, d, device="cuda", generator=g).to(TDT[dtype])
@@ -320,3 +322,80 @@ def test_cuda_flash_dense_repeats_bit_identical(card):
     b = fa.flash_attention(q, k, v, causal=True, window=2048)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("splits", ["one", "plan", "most"])
+@pytest.mark.parametrize("dtype,body", [("float32", da.CUDA_CORES), ("bfloat16", da.TENSOR_CORES)])
+@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (16, 1, 256)])
+def test_cuda_decode_split_counts(card, h, kv, d, dtype, body, splits):
+    """Kernel 3 at both serving shapes (Qwen3-8B's dense decode round,
+    RecurrentGemma-9B's MQA ring) on the body of each dtype, unsplit, at the
+    plan's split count and at the most splits (one 32-key tile each):
+    lengths 0 (an idle lane, which gives 0), 1, on and one past a split's
+    keys, on either side of 1.5 splits (where a row first takes two), twice
+    a split less one, the whole cache and past it; one launch a call, and
+    two calls give the same bits (tickets reset, merge order fixed)."""
+    b, s = 10, 640
+    g = h // kv
+    group, parts = (g, 1) if body == da.TENSOR_CORES else cta_group(g)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = {"one": 1, "most": s // 32,
+         "plan": da.plan(TDT[dtype], b, h, kv, s, d, n_sms).split.splits}[splits]
+    plan = da.Plan(body, plan_with_splits(n, s, group, parts))
+    per = plan.split.split_keys
+    two = -(-3 * per // 2)                 # the shortest row that takes two splits
+    lengths = [min(x, s) for x in (0, 1, per, per + 1, two - 1, two, 2 * per - 1, s)] + [s + 100, 257]
+    gen = torch.Generator(device="cuda").manual_seed(h * d + n)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(TDT[dtype])
+    k = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    da.reset_launch_count()
+    out = da._launch(q, k, v, lens, d ** -0.5, plan)
+    torch.cuda.synchronize()
+    assert da.launch_count == 1
+    again = da._launch(q, k, v, lens, d ** -0.5, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = da.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("kernel", ["dense", "paged"])
+def test_cuda_decode_with_no_slot(card, kernel):
+    """Kernels 1 and 3 with B = 0 (the plan splits, but no scratch is
+    needed): an empty output, no error."""
+    h, kv, d = 32, 8, 128
+    lens = torch.zeros(0, dtype=torch.int32, device="cuda")
+    if kernel == "dense":
+        q = torch.zeros(0, h, d, device="cuda", dtype=torch.bfloat16)
+        k = torch.zeros(0, 640, kv, d, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+        out = da.decode_attention(q, k, k, lens)
+    else:
+        q = torch.zeros(0, 1, h, d, device="cuda", dtype=torch.bfloat16)
+        k = torch.zeros(kv, 8, 16, d, device="cuda", dtype=torch.bfloat16)
+        tables = torch.zeros(0, 40, dtype=torch.int32, device="cuda")
+        out = pda.paged_decode_attention(q, k, k, tables, lens)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+
+
+def test_cuda_decode_bf16_cuda_cores_only_at_head_dim_16(card):
+    """bf16 takes the CUDA-core body only at head_dim 16: a plan that sends
+    bf16 at head_dim 128 there is refused by the launcher, not run."""
+    q = torch.zeros(2, 8, 128, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(2, 64, 2, 128, device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+    lens = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    plan = da.Plan(da.CUDA_CORES, plan_with_splits(1, 64, *cta_group(4)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        da._launch(q, k, k, lens, 128 ** -0.5, plan)
+
+
+def test_cuda_decode_plan_at_the_serving_shapes(card):
+    """The wrapper's plan at both serving shapes in bf16, on this card: the
+    tensor-core body with the whole group in one CTA, more than one split."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for h, kv, d in ((32, 8, 128), (16, 1, 256)):
+        p = da.plan(torch.bfloat16, 8, h, kv, 640, d, n_sms)
+        assert p.body == da.TENSOR_CORES and p.split.parts == 1 and p.split.splits > 1

@@ -1,6 +1,8 @@
 """Host-side plans of the attention kernels, on the CPU: the split count and
 heads a CTA of paged decode attention (kernel 1), its scratch sizing and
-reuse, and flash attention's (kernel 2) dispatch table and CTA tile.
+reuse, flash attention's (kernel 2) dispatch table and CTA tile, and dense
+decode attention's (kernel 3) body, split count and heads a CTA, with the
+split scratch it shares with kernel 1.
 None of these reads a device tensor; they decide from shapes alone."""
 import numpy as np
 import pytest
@@ -154,3 +156,106 @@ def test_flash_reset_clears_variant_counts():
     fa.reset_launch_count()
     assert fa.launch_count == 0 and set(fa.launch_count_by_variant.values()) == {0}
     assert set(fa.launch_count_by_variant) == set(fa.VARIANTS)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 3: body, split count, heads a CTA, shared scratch                    #
+# --------------------------------------------------------------------------- #
+DENSE_SHAPES = [
+    # (dtype, B, H, KV, S, D)
+    (torch.bfloat16, 8, 32, 8, 640, 128),     # Qwen3-8B dense decode round
+    (torch.bfloat16, 8, 16, 1, 640, 256),     # RecurrentGemma-9B decode step (MQA ring)
+    (torch.float32, 8, 16, 1, 640, 256),      # the same in float32
+    (torch.float32, 4, 4, 2, 64, 16),         # the smoke model
+    (torch.bfloat16, 1, 16, 1, 640, 256),     # one slot
+    (torch.bfloat16, 0, 32, 8, 640, 128),     # no slot at all
+    (torch.bfloat16, 8, 32, 8, 4096, 128),    # 4096 keys
+    (torch.bfloat16, 2, 8, 8, 1, 64),         # one key a row
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,kv,s,d", DENSE_SHAPES)
+def test_dense_decode_plan_bounds(dtype, b, h, kv, s, d):
+    from repro_torch.kernels import decode_attention as da
+
+    p = da.plan(dtype, b, h, kv, s, d, H100_SMS)
+    tc = dtype == torch.bfloat16 and d in (64, 128, 256)
+    assert p.body == (da.TENSOR_CORES if tc else da.CUDA_CORES)
+    sp, g = p.split, h // kv
+    tiles = -(-s // pda.SPLIT_TILE)
+    assert 1 <= sp.splits <= max(1, tiles)
+    assert sp.split_keys % pda.SPLIT_TILE == 0 and sp.split_keys * sp.splits >= s
+    assert (sp.split_keys - pda.SPLIT_TILE) * sp.splits < max(1, s)
+    if tc:
+        assert (sp.group, sp.parts) == (g, 1)
+    else:
+        assert sp.group in (1, 2, 4, 8) and sp.group >= min(g, 8)
+        assert sp.parts * sp.group >= g and (sp.parts - 1) * sp.group < g
+    if tc:
+        # no more splits than keep a split within what the ring holds in flight
+        tiles = min(tiles, max(1, -(-s // da.TC_SPLIT_KEYS)))
+        if sp.splits == tiles:
+            assert sp.split_keys <= da.TC_SPLIT_KEYS
+    if sp.splits < max(1, tiles):
+        target = da.CTAS_PER_SM[p.body] * H100_SMS / max(1, b * kv * sp.parts)
+        assert sp.splits == max(1, round(target))
+
+
+def test_dense_decode_plan_mqa_holds_the_group_in_one_cta():
+    """RecurrentGemma's 16 query heads on one KV head: one head part on the
+    tensor-core body (each key read once), two parts of 8 on the CUDA cores
+    (float32); Qwen3-8B's group of 4 in one CTA of the tensor-core body."""
+    from repro_torch.kernels import decode_attention as da
+
+    bf = da.plan(torch.bfloat16, 8, 16, 1, 640, 256, H100_SMS)
+    f32 = da.plan(torch.float32, 8, 16, 1, 640, 256, H100_SMS)
+    qwen = da.plan(torch.bfloat16, 8, 32, 8, 640, 128, H100_SMS)
+    assert bf.body == da.TENSOR_CORES and (bf.split.group, bf.split.parts) == (16, 1)
+    assert f32.body == da.CUDA_CORES and (f32.split.group, f32.split.parts) == (8, 2)
+    assert qwen.body == da.TENSOR_CORES and (qwen.split.group, qwen.split.parts) == (4, 1)
+
+
+def test_dense_decode_plan_reads_no_device_tensor(monkeypatch):
+    """The plan takes a dtype and ints: it reads nothing off the device (no
+    lengths) and gives the same plan whatever the caller's tensors hold."""
+    from repro_torch.kernels import decode_attention as da
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plan read a tensor")
+
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    a = da.plan(torch.bfloat16, 8, 32, 8, 640, 128, H100_SMS)
+    assert a == da.plan(torch.bfloat16, 8, 32, 8, 640, 128, H100_SMS)
+    assert da.plan(torch.bfloat16, 8, 32, 8, 640, 128, 66).split.splits < a.split.splits
+
+
+def test_dense_decode_scratch_unsplit_is_empty():
+    from repro_torch.kernels import decode_attention as da
+
+    p = da.Plan(da.TENSOR_CORES, pda.plan_with_splits(1, 640, 16, 1))
+    assert p.split.scratch(8, 1, 256) == (0, 0)
+    q = da.Plan(da.TENSOR_CORES, pda.plan_with_splits(20, 640, 16, 1))
+    assert q.split.scratch(8, 1, 256) == (8 * 20 * 16 * 258, 8)
+
+
+def test_workspace_shared_by_kernels_1_and_3_and_grown_once():
+    """Kernel 1 and kernel 3 draw their split scratch from one workspace a
+    device: the larger plan's scratch serves the smaller, and a plan that
+    needs more replaces it once."""
+    from repro_torch.kernels import decode_attention as da
+
+    assert da.workspace is pda.workspace
+    dev = torch.device("cpu")
+    pda._workspaces.pop((dev.type, dev.index), None)
+    k1 = pda.decode_plan(8, 32, 8, 40, 16, H100_SMS).scratch(8, 8, 128)
+    k3 = da.plan(torch.bfloat16, 8, 16, 1, 640, 256, H100_SMS).split.scratch(8, 1, 256)
+    small, large = sorted((k1, k3))
+    f1, c1 = pda.workspace(dev, *small)
+    f2, c2 = da.workspace(dev, *large)                 # grows once
+    assert f2 is not f1 and f2.numel() == large[0] and c2.numel() == max(k1[1], k3[1])
+    for need in (small, large, small):
+        f, c = pda.workspace(dev, *need)
+        assert f is f2 and c is c2
+    pda._workspaces.pop((dev.type, dev.index), None)
