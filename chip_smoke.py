@@ -38,6 +38,9 @@ Phases, each printing its seconds on a line of its own:
              sliding-window config whose ring wraps, and the smoke
              RecurrentGemma (ragged prefill, then decode steps that wrap its
              window-8 ring); logits within 1e-4, identical greedy tokens;
+             and three smoke Qwen3 fleets under a scripted clock (a hard
+             kill, a 2-speed fleet with stealing, a migrate_slot), with the
+             same assignment, streams, steals, migrations and faults;
 5. serve   — full-size Qwen3-8B (36 layers, bf16, random weights from a seed)
              behind the port's Engine, twice on the same weights and the same
              16 GSM8K-shaped requests (outputs capped at 128) under hybrid
@@ -45,7 +48,17 @@ Phases, each printing its seconds on a line of its own:
              layout with whole-prompt prefill stages and fused decode; checks
              the trace, the budgets, the token ids and that each kernel ran
              exactly as often as each schedule implies, every flash launch
-             on the tensor-core body. Then, Qwen3 freed,
+             on the tensor-core body. Then the fleet on the same weights: two
+             replicas of 8 slots (paged, mixed) over one weight set (the
+             memory Fleet(...) adds must be the two pools), 32 GSM8K-shaped
+             requests under the offline LPT partition, least-load dispatch
+             and queued and running work stealing, every request exactly
+             once, the makespan printed beside its lower bound (the paper
+             prior's flat-pool bound, a model number: not a gate), launches exact
+             summed over the replicas; then 8 requests
+             with replica 0 drained mid-decode by page-copy (zero drops,
+             zero recomputed tokens, each import's landed pages holding the
+             export's CRC32), page-copy times printed. Then, Qwen3 freed,
              full-size RecurrentGemma-9B (38 layers, bf16, random weights)
              on the same 16 requests in two waves of 8 slots through its own
              prefill and decode_step (launch.generate; the Engine does not
@@ -74,6 +87,7 @@ one JSON line of those times.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -710,29 +724,23 @@ def run_recurrentgemma_parity(torch, np, steps=12):
 # Serve                                                                       #
 # --------------------------------------------------------------------------- #
 def warm(torch, model, params, eng):
-    """One all-pad call of each serving entry of the engine's layout (every
+    """All-pad calls of the serving entries of the engine's layout (every
     write dropped or thrown away, every lane inactive) so cuBLAS and the
-    kernels are initialised before the measured serve."""
+    kernels are initialised before the measured serve: the engine's own
+    warm pass on the paged layout, one prefill and one decode step on the
+    dense one."""
     from repro_torch.serving.sampler import greedy
 
-    cfg = eng.cfg
-    j = cfg.n_slots
-    dev = model.device
-    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
-    off = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
-    cache = eng.slots.cache
-    if cfg.kv_layout == "paged":
-        c = cfg.prefill_chunk
-        pad = torch.full((8,), j, dtype=torch.int32, device=dev)
-        model.prefill_chunk(params, z(8, c), cache, pad, z(8), z(8))
-        model.mixed_step(params, z(j), cache, z(8, c), pad, z(8), z(8), sampler=greedy,
-                         dec_active=off(j), rids=z(j + 8), token_idx=z(j + 8),
-                         sample_rows=off(j + 8))
-    else:
-        s = cfg.prefill_seq_buckets[0]
-        model.prefill(params, z(1, s), model.cache_init(1, s), lengths=z(1) + 1)
-    model.decode_steps(params, z(j), cache, num_steps=1, sampler=greedy,
-                       active=off(j), budgets=z(j), rids=z(j), token_idx0=z(j))
+    if eng.cfg.kv_layout == "paged":
+        eng.warm_serving_shapes()
+        return
+    j = eng.cfg.n_slots
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=model.device)
+    s = eng.cfg.prefill_seq_buckets[0]
+    model.prefill(params, z(1, s), model.cache_init(1, s), lengths=z(1) + 1)
+    model.decode_steps(params, z(j), eng.slots.cache, num_steps=1, sampler=greedy,
+                       active=torch.zeros(j, dtype=torch.bool, device=model.device),
+                       budgets=z(j), rids=z(j), token_idx0=z(j))
     torch.cuda.synchronize()
 
 
@@ -894,6 +902,287 @@ def run_recurrentgemma_serve(torch, model, params):
     by_variant = check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
     return launches, by_variant
+
+
+# --------------------------------------------------------------------------- #
+# Fleet                                                                       #
+# --------------------------------------------------------------------------- #
+class ScriptedClock:
+    """Stands in for ``repro_torch.serving.engine.time``: every
+    ``perf_counter`` call advances 2**-10 s, so each stage lasts exactly that
+    (over its replica's speed factor) and no fleet decision reads the wall
+    clock. A power of two keeps every clock reading exact."""
+
+    STEP = 2.0 ** -10
+
+    def __init__(self):
+        self.calls = 0
+
+    def perf_counter(self):
+        self.calls += 1
+        return self.calls * self.STEP
+
+
+@contextlib.contextmanager
+def scripted_clock():
+    """The engine module reads a ScriptedClock while the context is open."""
+    from repro_torch.serving import engine as engine_mod
+
+    saved = engine_mod.time
+    engine_mod.time = ScriptedClock()
+    try:
+        yield
+    finally:
+        engine_mod.time = saved
+
+
+def fleet_expect(cfg, report):
+    """Kernel launches a paged fleet serve implies: summed over every
+    replica's trace (a drained replica's stages before the drain included;
+    an import runs no prefill)."""
+    from repro_torch.core import StageKind
+
+    stages = [s for t in report.traces for s in t.stages]
+    rounds = sum(s.rounds for s in stages if s.kind is StageKind.DECODE)
+    mixed = sum(1 for s in stages if s.kind is StageKind.MIXED)
+    prefills = sum(1 for s in stages if s.kind is StageKind.PREFILL)
+    return {
+        "paged_decode_attention": cfg.n_layers * (rounds + mixed),
+        "flash_attention": cfg.n_layers * (mixed + prefills),
+        "decode_attention": 0,
+        "rglru_scan": 0,
+    }
+
+
+def check_exactly_once(what, fleet, report, reqs, vocab):
+    """Every request finished on exactly one replica's trace and emitted its
+    budget of valid token ids once (``Fleet.generated`` raises on a request
+    decoded on two replicas)."""
+    report.validate()
+    served = [r.rid for t in report.traces for r in t.requests]
+    check(sorted(served) == sorted(r.rid for r in reqs), f"{what}: served {sorted(served)}")
+    gen = fleet.generated
+    for r in reqs:
+        got = gen.get(r.rid, [])
+        check(len(got) == r.n_decode, f"{what}: request {r.rid} emitted {len(got)} of {r.n_decode}")
+        check(all(0 <= t < vocab for t in got), f"{what}: request {r.rid}: invalid token id")
+
+
+def tree_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def watch_page_copies(torch, fleet):
+    """Wrap every replica's export_slot / import_slot: time each (device
+    synchronised), time the payload's CRC alone, and check right after each
+    import that the CRC of the landed pages, gathered back out of the
+    destination pool, equals the export's checksum. Returns the records."""
+    from repro_torch.serving.kv_slots import page_checksum
+
+    records = []
+
+    def wrap(eng):
+        export, import_ = eng.export_slot, eng.import_slot
+
+        def export_slot(slot):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = export(slot)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            page_checksum(ckpt.k_pages, ckpt.v_pages, ckpt.kv_length)
+            crc_ms = 1e3 * (time.perf_counter() - t1)
+            nbytes = 2 * ckpt.k_pages.numel() * ckpt.k_pages.element_size()
+            records.append(dict(rid=ckpt.req.rid, kind=ckpt.kind, pages=ckpt.n_pages, bytes=nbytes,
+                                export_ms=1e3 * (t1 - t0), crc_ms=crc_ms))
+            return ckpt
+
+        def import_slot(ckpt):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot = import_(ckpt)
+            torch.cuda.synchronize()
+            rec = records[-1]
+            rec["import_ms"] = 1e3 * (time.perf_counter() - t0)
+            cache = eng.slots.cache
+            idx = torch.tensor(eng.slots.tables[slot], dtype=torch.long, device=cache["k"].device)
+            landed = page_checksum(cache["k"].index_select(2, idx), cache["v"].index_select(2, idx),
+                                   int(cache["length"][slot]))
+            check(landed == ckpt.checksum,
+                  f"rid {ckpt.req.rid}: landed pages CRC {landed:#010x} != export {ckpt.checksum:#010x}")
+            rec["crc_verified"] = True
+            return slot
+
+        eng.export_slot, eng.import_slot = export_slot, import_slot
+
+    for eng in fleet.engines:
+        wrap(eng)
+    return records
+
+
+def fleet_workload(n, seed):
+    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+
+    return gsm8k_like_workload(WorkloadSpec(n_requests=n, output_max=128), seed=seed, known_lengths=True)
+
+
+def run_fleet(torch, model, params):
+    """Two replicas of the full-size model on one card over one weight set,
+    the paged mixed layout, priced by the paper-prior cost model the other
+    serves start from: a clean serve of 32 GSM8K-shaped requests under the
+    offline LPT partition, least-load dispatch and work stealing (queued and
+    running), then a serve of 8 requests that drains replica 0 mid-decode
+    by page-copy (after the same 8 served clean, which times the drain).
+    Returns the clean serve's launches and flash's launches by body."""
+    from repro_torch.core import CostModel
+    from repro_torch.launch.profile_step import SERVE_LEN
+    from repro_torch.serving import EngineConfig, FaultPlan, Fleet, FleetConfig, ReplicaFault
+
+    cfg = model.cfg
+    gib = lambda b: b / 2**30
+    ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged", mixed_schedule=True)
+    fcfg = FleetConfig(n_replicas=2, assign="lpt", dispatch="least_load", work_stealing=True,
+                       steal_running=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fleet = Fleet(model, params, ecfg, fcfg, cost_model=CostModel(level_caps=(32, 64, 128, 256)),
+                  device=model.device)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    weights = tree_bytes(params)
+    pools = sum(tree_bytes(eng.slots.cache) for eng in fleet.engines)
+    print(f"  fleet memory: {gib(before):.3f} GiB before Fleet(...) (weights {gib(weights):.3f} GiB), "
+          f"{gib(after):.3f} GiB after: +{gib(after - before):.3f} GiB for {fleet.n_replicas} pools of "
+          f"{gib(pools / fleet.n_replicas):.3f} GiB", flush=True)
+    check(all(eng.params is params for eng in fleet.engines), "fleet: a replica holds its own weights")
+    check(abs((after - before) - pools) <= 2**20 * fleet.n_replicas,
+          f"fleet: Fleet(...) allocated {after - before} bytes for {pools} bytes of pools")
+    check(before >= weights, "fleet: the weights are not on the card")
+
+    fleet.warm_serving_shapes()
+    kernels = kernel_modules()
+    reqs = fleet_workload(32, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    t0 = time.perf_counter()
+    report = fleet.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    check_exactly_once("fleet", fleet, report, reqs, cfg.vocab_size)
+    running = sum(1 for e in fleet.steal_log if e.get("running"))
+    print(f"  fleet serve: {len(reqs)} requests on {fleet.n_replicas} replicas x 8 slots, offline "
+          f"{report.offline_solver} partition {[len(p) for p in fleet._offline_result.assignment]}, "
+          f"makespan {report.makespan:.4f} s (virtual: replicas in parallel), lower bound "
+          f"{report.lower_bound_s:.4f} s (ratio {report.lb_ratio:.4f}), utilization {report.utilization:.6f}, "
+          f"{report.generation_speed:.3f} tok/s, wall {wall:.4f} s "
+          f"({sum(len(v) for v in fleet.generated.values()) / wall:.3f} tok/s on the one card)", flush=True)
+    print(f"  fleet steals: {report.steal_events} queued, {running} running; "
+          f"migrations {fleet.migration_events} ({fleet.migrated_pages} pages); per replica: "
+          + "; ".join(f"r{i} makespan {t.makespan:.4f} s, {len(t.requests)} requests, {len(t.stages)} stages"
+                      for i, t in enumerate(report.traces)))
+    print(f"  fleet peak device memory {gib(peak):.3f} GiB against weights + pools "
+          f"{gib(weights + pools):.3f} GiB", flush=True)
+    by_variant = check_flash_variants("fleet", launches)
+    check_launches("fleet", launches, fleet_expect(cfg, report))
+
+    # drain: the same fleet, 8 requests (4 a replica under LPT), so the
+    # survivor always has a free slot and pages for each of replica 0's
+    # in-flight requests; the drain fires at half replica 0's clean makespan
+    drain_reqs = lambda: fleet_workload(8, 1)
+    clean = fleet.serve(drain_reqs())
+    at_s = 0.5 * clean.traces[0].makespan
+    records = watch_page_copies(torch, fleet)
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    reqs = drain_reqs()
+    report = fleet.serve(reqs, fault_plan=FaultPlan([ReplicaFault(replica=0, at_s=at_s, kind="drain")]))
+    torch.cuda.synchronize()
+    drain_launches = {name: mod.launch_count for name, mod in kernels.items()}
+    check_exactly_once("drain", fleet, report, reqs, cfg.vocab_size)
+    entry = fleet.fault_log[0]
+    meta = report.meta
+    print(f"  drain at {at_s:.4f} s: {json.dumps(entry)}; meta drained {meta['drained_replicas']}, "
+          f"recomputed tokens {meta['recomputed_tokens']}, page-copy {meta['recovered_page_copy']}, "
+          f"recompute {meta['recovered_recompute']}", flush=True)
+    for rec in records:
+        print(f"  page-copy {json.dumps(rec)}")
+    check(meta["drained_replicas"] == 1.0 and meta["recomputed_tokens"] == 0.0
+          and meta["recovered_recompute"] == 0.0, "drain: a request was dropped or recomputed")
+    check(entry["page_copy"] >= 1, "drain: replica 0 held nothing in flight at the drain")
+    check(len(records) == fleet.migration_events and all(r.get("crc_verified") for r in records),
+          "drain: a page-copy import went unverified")
+    check_launches("drain", drain_launches, fleet_expect(cfg, report))
+    del fleet
+    return launches, by_variant
+
+
+def run_fleet_parity(torch, np):
+    """The float32 smoke Qwen3 fleet on the card (kernels) and on the CPU
+    (plain versions) under the scripted clock, so both sides take the same
+    decisions: a hard kill of replica 0 (recompute-on-resume), a 2-speed
+    fleet (R||Cmax partition, queued and running steals) and a migrate_slot
+    at a fixed step. Same offline assignment, streams, steals, migrations
+    and fault records on both sides."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import CostModel, Request
+    from repro_torch.serving import (
+        EngineConfig, FaultPlan, Fleet, FleetConfig, OnlineProfiler, ReplicaFault, ReplicaSpec,
+    )
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
+    ecfg = EngineConfig(n_slots=2, max_len=64, kv_layout="paged", page_size=16, prefill_chunk=16)
+    cm = CostModel(level_caps=(32, 64, 128))
+    step = ScriptedClock.STEP
+
+    def requests():
+        return [Request(rid=i, n_prefill=10 + 2 * (i % 3), n_decode=(20 if i % 2 == 0 else 3) + i)
+                for i in range(6)]
+
+    def kill(fleet):
+        return fleet.serve(requests(), fault_plan=FaultPlan([ReplicaFault(replica=0, at_s=6 * step)]))
+
+    def migrate(fleet):
+        fleet.begin_serve(requests())
+        for k in range(10**6):
+            if k == 8:
+                eng = fleet.engines[0]
+                slot = eng.slots.active_slots[0]
+                check(fleet.migrate_slot(0, slot, 1) == "page_copy", "parity: migrate_slot refused")
+            if not fleet.step():
+                return fleet.finish_serve()
+
+    cases = (
+        ("kill", FleetConfig(n_replicas=2, assign="round_robin", dispatch="round_robin",
+                             work_stealing=False), None, kill),
+        ("2-speed", FleetConfig(n_replicas=2, assign="lpt", work_stealing=True, steal_running=True),
+         [ReplicaSpec(speed_factor=1.0), ReplicaSpec(speed_factor=0.5)], lambda f: f.serve(requests())),
+        ("migrate", FleetConfig(n_replicas=2, assign="round_robin", dispatch="round_robin",
+                                work_stealing=False), None, migrate),
+    )
+    (cpu, p_cpu), (card, p_card) = _card_and_cpu(torch, cfg)
+    for what, fcfg, specs, run in cases:
+        outs = []
+        for m, p in ((cpu, p_cpu), (card, p_card)):
+            fleet = Fleet(m, p, ecfg, fcfg, cost_model=cm, replica_specs=specs, device=m.device,
+                          profiler_factory=lambda: OnlineProfiler(initial=cm, refit_every=10**9))
+            with scripted_clock():
+                report = run(fleet)
+            check_exactly_once(f"{what} fleet ({m.device})", fleet, report, requests(), cfg.vocab_size)
+            outs.append(dict(assignment=fleet._offline_result.assignment, generated=fleet.generated,
+                             steals=fleet.steal_log, migrations=fleet.migration_log,
+                             faults=fleet.fault_log, makespan=report.makespan,
+                             lower_bound=report.lower_bound_s, meta=report.meta))
+        for key in outs[0]:
+            check(outs[0][key] == outs[1][key], f"{what} fleet: {key} differs card vs CPU: "
+                  f"{outs[1][key]} != {outs[0][key]}")
+        o = outs[1]
+        print(f"  smoke fleet [{what}] card == CPU: assignment {o['assignment']}, streams of "
+              f"{len(o['generated'])} requests, {len(o['steals'])} steals, {len(o['migrations'])} "
+              f"migrations, faults {json.dumps(o['faults'])}, makespan {o['makespan']} (scripted)", flush=True)
 
 
 def _leaves(tree):
@@ -1150,6 +1439,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     run_parity(torch, np)
+    run_fleet_parity(torch, np)
     phase("parity", t0)
 
     t0 = time.perf_counter()
@@ -1168,6 +1458,10 @@ def main() -> int:
         eng, launches[layout], by_variant[layout] = run_serve(torch, model, params, layout)
         del eng                       # free this layout's KV before the next one
         torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches["fleet"], by_variant["fleet"] = run_fleet(torch, model, params)
+    torch.cuda.empty_cache()
+    phase("fleet", t1)
     del model, params                 # free Qwen3-8B before RecurrentGemma-9B loads
     torch.cuda.empty_cache()
 

@@ -1,8 +1,8 @@
 # The paper's primary contribution: hybrid offline-online scheduling for
 # LLM inference under PD Competition (binpack + Algorithm 1 + Lagrangian
 # iteration rule). A copy of the reference package's framework-free modules
-# that the paged serving engine uses; the simulator, MIP, heterogeneous
-# fleet and RL policy modules are not part of the port yet (see ROADMAP.md).
+# that the serving engine and fleet use; the simulator, MIP and RL policy
+# modules are not part of the port yet (see ROADMAP.md).
 from .types import (
     Request,
     ClientState,
@@ -26,6 +26,17 @@ from .offline import (
     split_requests,
     request_weights,
     theoretical_lower_bound,
+)
+from .hetero import (
+    ReplicaSpec,
+    replica_request_weight,
+    hetero_weights,
+    hetero_lpt_assign,
+    hetero_local_search,
+    hetero_lp_lower_bound,
+    hetero_theoretical_lower_bound,
+    solve_hetero,
+    evaluate_hetero_assignment,
 )
 from .online import (
     RequestScheduler,

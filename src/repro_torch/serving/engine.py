@@ -29,9 +29,15 @@ Every stage synchronises the device before it reads the clock (before the
 dispatch, and through the host copy of its sampled tokens after it), so the
 online profiler fits device time, not launch latency.
 
-Not ported yet (see ROADMAP.md): stochastic sampling, page-copy migration
-(``export_slot``/``import_slot``), ``state_dict`` checkpoints and the
-observability hooks.
+A ``Fleet`` (``serving.fleet``) drives many engines' sessions interleaved
+in virtual time through ``begin_serve`` / ``serve_step`` / ``finish_serve``,
+the session clock (``clock`` / ``advance_clock``), live migration of a slot
+by KV page-copy (``export_slot`` / ``import_slot``, as a ``SlotCheckpoint``)
+and engine checkpoints (``state_dict`` / ``load_state_dict``, the cache as
+CPU tensors: numpy has no bf16).
+
+Not ported yet (see ROADMAP.md): stochastic sampling and the observability
+hooks.
 """
 from __future__ import annotations
 
@@ -127,6 +133,9 @@ class _ServeSession:
     t: float = 0.0
     bin_index: int = -1
     stages_run: int = 0
+    # adopt requests into the trace as the scheduler commits them (fleet
+    # dispatch and work stealing route requests in mid-serve)
+    track_requests: bool = False
 
 
 @dataclasses.dataclass
@@ -151,6 +160,39 @@ class _ChunkState:
     @property
     def remaining(self) -> int:
         return self.total - self.done
+
+
+@dataclasses.dataclass
+class SlotCheckpoint:
+    """Portable mid-request slot state for live KV migration by page-copy
+    (the reference's ``SlotCheckpoint``, field for field).
+
+    ``Engine.export_slot`` gathers what a destination engine needs to
+    continue the request with zero recomputed tokens: the slot's KV pages
+    (page-id agnostic), the pending token, the sampler cursor (``emitted``),
+    the generated prefix and, for a request migrated between prefill chunks,
+    its chunk progress. ``prefill_credit`` counts the prefill completions the
+    request performed on other traces (the importer records it in
+    ``ScheduleTrace.external_prefills``). ``checksum`` is the payload's
+    ``page_checksum``, verified at import; ``src_replica`` / ``src_epoch``
+    are the exporter's lease, stamped by the fleet."""
+
+    req: Request
+    kind: str                             # "bound" | "chunking"
+    emitted: int                          # sampler cursor (bound slots)
+    pending_token: int                    # next decode round's input token
+    kv_length: int                        # valid KV entries in the payload
+    k_pages: Any                          # (L, KV, n_pages, page_size, D)
+    v_pages: Any
+    n_pages: int
+    prefix: List[int]                     # every token generated so far
+    prefill_credit: int
+    chunk_done: int = 0                   # kind == "chunking" only
+    resume_emitted: int = 0
+    resume_pending: int = -1
+    checksum: Optional[int] = None
+    src_replica: int = -1
+    src_epoch: int = -1
 
 
 class Engine:
@@ -220,6 +262,8 @@ class Engine:
         self.preemption_events = 0
         self.offline_deferrals = 0
         self.recomputed_tokens = 0
+        self.migrations_in = 0
+        self.migrations_out = 0
         self.cache_hit_tokens = 0
         self._use_prefix_cache = (
             config.kv_layout == "paged" and config.prefix_cache
@@ -694,6 +738,51 @@ class Engine:
                 self.slots.release(slot)
                 clients[slot].current = None
 
+    def warm_serving_shapes(self) -> None:
+        """Run every paged serving dispatch shape the scheduler can reach —
+        mixed rounds and chunk rounds at each row bucket, fused decode at
+        each horizon bucket — once, as all-pad / all-inactive calls (writes
+        dropped, lengths untouched, nothing recorded), so the first stage of
+        each shape in a measured serve finds cuBLAS and the kernels ready.
+        A plain warm pass: nothing is captured."""
+        if self.cfg.kv_layout != "paged":
+            return
+        cfg = self.cfg
+        j = cfg.n_slots
+        c = cfg.prefill_chunk
+        dev = self.device
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+        off = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
+        row_buckets = sorted({
+            _bucket(rows, cfg.prefill_req_buckets) for rows in range(1, j + 1)
+        })
+        for r_pad in row_buckets:
+            pad = torch.full((r_pad,), j, dtype=torch.int32, device=dev)
+            if cfg.mixed_schedule:
+                self.model.mixed_step(
+                    self.params, zeros(j), self.slots.cache, zeros(r_pad, c),
+                    pad, zeros(r_pad), zeros(r_pad), sampler=self.sampler,
+                    dec_active=off(j), rids=zeros(j + r_pad) - 1,
+                    token_idx=zeros(j + r_pad), sample_rows=off(j + r_pad),
+                )
+            self.model.prefill_chunk(
+                self.params, zeros(r_pad, c), self.slots.cache, pad,
+                zeros(r_pad), zeros(r_pad),
+            )
+        k_cap = max(cfg.decode_horizon or cfg.max_decode_horizon, 1)
+        horizons = {k_cap}                 # a pinned K dispatches exactly
+        k = 1
+        while k <= k_cap:                  # plus the power-of-two buckets
+            horizons.add(k)
+            k *= 2
+        for k in sorted(horizons):
+            self.model.decode_steps(
+                self.params, zeros(j), self.slots.cache, num_steps=k,
+                sampler=self.sampler, active=off(j), budgets=zeros(j),
+                rids=zeros(j), token_idx0=zeros(j),
+            )
+        self._sync()
+
     # ------------------------------------------------------------------ #
     # Fused decode                                                        #
     # ------------------------------------------------------------------ #
@@ -784,9 +873,12 @@ class Engine:
         request_scheduler: RequestScheduler,
         iteration_policy: IterationPolicy,
         policy_name: str = "",
+        track_requests: bool = False,
     ) -> None:
         """Open a step-driven serve session (``serve_step`` runs stages one
-        at a time; ``finish_serve`` closes the trace)."""
+        at a time; ``finish_serve`` closes the trace). With
+        ``track_requests=True`` the trace adopts requests as the scheduler
+        commits them (a fleet routes them in while the serve runs)."""
         cfg = self.cfg
         if len(clients) != cfg.n_slots:
             raise ValueError("clients must match n_slots")
@@ -806,14 +898,41 @@ class Engine:
         self.offline_deferrals = 0
         self.peak_concurrency = 0
         self.recomputed_tokens = 0
+        self.migrations_in = 0
+        self.migrations_out = 0
         self.cache_hit_tokens = 0
         self._sv = _ServeSession(
             trace=trace, clients=clients, scheduler=request_scheduler,
-            policy=iteration_policy,
+            policy=iteration_policy, track_requests=track_requests,
         )
 
+    def has_work(self) -> bool:
+        """Anything to run now or later: a bound slot, an in-flight chunked
+        prefill, or a queued request."""
+        return (
+            bool(self.slots.active_slots)
+            or bool(self._chunking)
+            or self._sv.scheduler.has_pending()
+        )
+
+    @property
+    def clock(self) -> float:
+        """The open session's stage clock (virtual serve time)."""
+        return self._sv.t
+
+    def advance_clock(self, t: float) -> None:
+        """Fast-forward the session clock (fleet-level idle gaps)."""
+        if t > self._sv.t:
+            self._sv.t = t
+
     def _commit_pairs(self, pairs: List[Tuple[ClientState, Request]]) -> None:
-        self._sv.scheduler.commit_batch(pairs)
+        sv = self._sv
+        sv.scheduler.commit_batch(pairs)
+        if sv.track_requests:
+            # a preempted request is committed again on resume — adopt each
+            # request into the trace once
+            known = {r.rid for r in sv.trace.requests}
+            sv.trace.requests.extend(r for _, r in pairs if r.rid not in known)
 
     def queued_requests(self) -> Tuple[Request, ...]:
         """Not-yet-admitted requests of the open session (overload policies
@@ -821,6 +940,147 @@ class Engine:
         if self._sv is None:
             return ()
         return self._sv.scheduler.queued
+
+    def adopt_resume(self, req: Request, prefix: List[int]) -> None:
+        """Adopt a request recovered from another replica mid-decode: seed
+        its generated prefix and queue it for recompute-on-resume, the path
+        a locally preempted request takes."""
+        self.generated[req.rid] = list(prefix)
+        self._resume_rids.add(req.rid)
+        self._sv.scheduler.push(req)
+
+    # ------------------------------------------------------------------ #
+    # Live migration by page-copy (fleet drain / rebalancing / recovery)  #
+    # ------------------------------------------------------------------ #
+    def _local_prefill_completions(self, rid: int) -> int:
+        """Prefill completions for ``rid`` recorded in this session's trace
+        so far (``ScheduleTrace.validate``'s counting rule); an import
+        subtracts them from the checkpoint's credit."""
+        cnt = 0
+        for s in self._sv.trace.stages:
+            if s.kind is StageKind.PREFILL:
+                cnt += sum(1 for r in s.busy.values() if r == rid)
+            elif s.kind is StageKind.MIXED:
+                cnt += sum(1 for r in s.prefilled.values() if r == rid)
+        return cnt
+
+    def can_import(self, n_pages: int) -> bool:
+        """Whether this engine can host a migrated slot of ``n_pages`` now:
+        a truly free slot, and pool headroom beyond its own decoders' next
+        round (an import must never force a preemption here)."""
+        if self.cfg.kv_layout != "paged" or self._sv is None:
+            return False
+        if not any(s not in self._chunking for s in self.slots.free_slots):
+            return False
+        free = (
+            self.slots.allocator.num_free + self.slots.reclaimable_pages()
+            - self._decode_growth_pages(1)
+        )
+        return n_pages <= free
+
+    def slot_pages(self, slot: int) -> int:
+        """Pages ``slot`` currently owns (capacity probe for migration)."""
+        return len(self.slots.tables[slot])
+
+    def export_slot(self, slot: int) -> SlotCheckpoint:
+        """Extract ``slot``'s mid-request state as a ``SlotCheckpoint`` and
+        release the slot: gather its KV pages, capture the pending token,
+        sampler cursor, generated prefix (and chunk progress), free the
+        pages and drop the request from this trace."""
+        sv = self._sv
+        if slot in self._chunking:
+            st = self._chunking[slot]
+            req = st.req
+            kind = "chunking"
+            emitted = st.resume_emitted
+            pending = st.resume_pending
+            chunk_done = st.done
+            resume_emitted = st.resume_emitted
+            resume_pending = st.resume_pending
+            # the in-flight pass has not completed; earlier passes number
+            # exactly req.preemptions
+            credit = req.preemptions
+        elif self.slots.request_of[slot] is not None:
+            req = self.slots.request_of[slot]
+            kind = "bound"
+            emitted = self.slots.emitted[slot]
+            pending = int(self.pending_token[slot])
+            chunk_done = 0
+            resume_emitted = 0
+            resume_pending = -1
+            credit = 1 + req.preemptions
+        else:
+            raise RuntimeError(f"slot {slot} holds no in-flight request")
+        pages, k_pages, v_pages, kv_length, checksum = self.slots.export_pages(slot)
+        if kind == "chunking":
+            del self._chunking[slot]
+            self.slots.free_pages_of(slot)
+        else:
+            self.slots.release(slot)
+            sv.clients[slot].current = None
+        prefix = self.generated.pop(req.rid, [])
+        sv.trace.requests = [r for r in sv.trace.requests if r.rid != req.rid]
+        sv.trace.external_prefills.pop(req.rid, None)
+        self.migrations_out += 1
+        if self.debug_invariants:
+            self._check_invariants()
+        return SlotCheckpoint(
+            req=req, kind=kind, emitted=emitted, pending_token=pending,
+            kv_length=kv_length, k_pages=k_pages, v_pages=v_pages,
+            n_pages=len(pages), prefix=list(prefix), prefill_credit=credit,
+            chunk_done=chunk_done, resume_emitted=resume_emitted,
+            resume_pending=resume_pending, checksum=checksum,
+        )
+
+    def import_slot(self, ckpt: SlotCheckpoint) -> int:
+        """Land a migrated slot: allocate fresh pages, scatter the payload
+        (its checksum verified before any pool state changes) and rebind
+        the request where it left off. Returns the destination slot.
+        Callers gate on ``can_import`` first."""
+        sv = self._sv
+        free = [s for s in self.slots.free_slots if s not in self._chunking]
+        if not free:
+            raise RuntimeError("no free slot to import into")
+        slot = free[0]
+        self.slots.import_pages(
+            slot, ckpt.k_pages, ckpt.v_pages, ckpt.kv_length,
+            checksum=ckpt.checksum,
+        )
+        req = ckpt.req
+        if ckpt.prefix:
+            self.generated[req.rid] = list(ckpt.prefix)
+        if ckpt.kind == "bound":
+            self.slots.bind(slot, req)
+            self.slots.emitted[slot] = ckpt.emitted
+            self.pending_token[slot] = ckpt.pending_token
+            # the device copy of pending tokens predates this import
+            self._dev_pending = None
+            sv.clients[slot].current = req
+            req.decoded = ckpt.emitted
+        else:
+            prompt = self._prompt_tokens(req)
+            if ckpt.resume_emitted > 1:
+                prompt = np.concatenate(
+                    [prompt, np.asarray(ckpt.prefix[:-1], np.int32)]
+                )
+            self._chunking[slot] = _ChunkState(
+                slot=slot, req=req, prompt=prompt, done=ckpt.chunk_done,
+                resume_emitted=ckpt.resume_emitted,
+                resume_pending=ckpt.resume_pending,
+            )
+        req.client = slot
+        if req.rid not in {r.rid for r in sv.trace.requests}:
+            sv.trace.requests.append(req)
+        # credit only the completions this trace has not recorded itself (a
+        # request can leave and come back)
+        sv.trace.external_prefills[req.rid] = (
+            ckpt.prefill_credit - self._local_prefill_completions(req.rid)
+        )
+        self._note_concurrency()
+        self.migrations_in += 1
+        if self.debug_invariants:
+            self._check_invariants()
+        return slot
 
     def _check_invariants(self) -> None:
         """Allocator consistency, the host↔device block-table mirror and
@@ -1121,8 +1381,8 @@ class Engine:
             peak_concurrency=self.peak_concurrency,
             offline_deferrals=self.offline_deferrals,
             recomputed_tokens=self.recomputed_tokens,
-            migrations_in=0,
-            migrations_out=0,
+            migrations_in=self.migrations_in,
+            migrations_out=self.migrations_out,
             cached_prefill_tokens=self.cache_hit_tokens,
         )
         if self.cfg.kv_layout == "paged":
@@ -1154,3 +1414,90 @@ class Engine:
             if status == "idle":
                 raise RuntimeError("engine deadlock: pending but no candidate")
         return self.finish_serve()
+
+    # ------------------------------------------------------------------ #
+    # Checkpoint / restore                                                #
+    # ------------------------------------------------------------------ #
+    def state_dict(self) -> Dict[str, Any]:
+        """Engine state for a mid-serve checkpoint: the slot cache as CPU
+        tensor copies (numpy has no bf16), slot bindings, pending tokens,
+        straggler state, in-flight chunked prefills as fixed-shape per-slot
+        arrays and the rids awaiting recompute-on-resume."""
+        n = self.cfg.n_slots
+        chunk_rid = np.full(n, -1, np.int32)
+        chunk_done = np.zeros(n, np.int32)
+        chunk_resume = np.zeros(n, np.int32)
+        chunk_pending = np.full(n, -1, np.int32)
+        chunk_cached = np.zeros(n, np.int32)
+        for slot, st in self._chunking.items():
+            chunk_rid[slot] = st.req.rid
+            chunk_done[slot] = st.done
+            chunk_resume[slot] = st.resume_emitted
+            chunk_pending[slot] = st.resume_pending
+            chunk_cached[slot] = st.cached
+        return {
+            "cache": {
+                k: v.detach().to("cpu", copy=True)
+                for k, v in self.slots.cache.items()
+            },
+            "request_of": [
+                (r.rid if r is not None else -1) for r in self.slots.request_of
+            ],
+            "emitted": list(self.slots.emitted),
+            "pending_token": self.pending_token.copy(),
+            "budget_shift": self._budget_shift,
+            "straggler_events": self.straggler_events,
+            "chunk_rid": chunk_rid,
+            "chunk_done": chunk_done,
+            "chunk_resume": chunk_resume,
+            "chunk_pending": chunk_pending,
+            "chunk_cached": chunk_cached,
+            "resume_rids": np.asarray(sorted(self._resume_rids), np.int32),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any], requests_by_rid) -> None:
+        """Restore engine state. To resume serving afterwards, give the
+        request scheduler only the requests that had not started: restored
+        in-flight work continues from engine state."""
+        for k, v in state["cache"].items():
+            self.slots.cache[k].copy_(torch.as_tensor(v))
+        self.slots.request_of = [
+            (requests_by_rid[int(rid)] if int(rid) >= 0 else None)
+            for rid in state["request_of"]
+        ]
+        self.slots.emitted = [int(e) for e in state["emitted"]]
+        self.pending_token = np.array(state["pending_token"], dtype=np.int32)
+        self._dev_pending = None          # rebuilt from the restored host copy
+        self._budget_shift = int(state.get("budget_shift", 0))
+        self.straggler_events = int(state.get("straggler_events", 0))
+        self._resume_rids = {
+            int(r) for r in np.asarray(state.get("resume_rids", [])).ravel()
+        }
+        self._chunking = {}
+        chunk_rid = np.asarray(state.get("chunk_rid", []))
+        chunk_done = np.asarray(state.get("chunk_done", []))
+        chunk_resume = np.asarray(state.get("chunk_resume", []))
+        chunk_pending = np.asarray(state.get("chunk_pending", []))
+        chunk_cached = np.asarray(state.get("chunk_cached", []))
+        for slot, rid in enumerate(chunk_rid):
+            if rid >= 0:
+                req = requests_by_rid[int(rid)]
+                prompt = self._prompt_tokens(req)
+                re_cnt = int(chunk_resume[slot]) if chunk_resume.size else 0
+                re_pend = int(chunk_pending[slot]) if chunk_pending.size else -1
+                if re_cnt > 1:
+                    # the recompute prompt includes the generated prefix: the
+                    # caller restores ``generated`` before engine state
+                    prefix = list(self.generated.get(int(rid), ()))[:re_cnt]
+                    prompt = np.concatenate(
+                        [prompt, np.asarray(prefix[:-1], np.int32)]
+                    )
+                self._chunking[slot] = _ChunkState(
+                    slot=slot, req=req, prompt=prompt,
+                    done=int(chunk_done[slot]),
+                    resume_emitted=re_cnt, resume_pending=re_pend,
+                    cached=int(chunk_cached[slot]) if chunk_cached.size else 0,
+                )
+        if self.cfg.kv_layout == "paged":
+            # the device block table is the durable page-ownership record
+            self.slots.sync_from_device()

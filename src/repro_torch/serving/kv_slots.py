@@ -13,17 +13,43 @@ J slots ↔ the paper's J parallel clients. Two KV ownership models:
     from the reference; ``PagedSlotManager`` mirrors every block-table row
     it changes to the device pool.
 
-Page export/import for migration (with its checksum) is not ported yet (see
-ROADMAP.md).
+A slot's pages export and import by page-copy for live migration between
+engines (``export_pages`` / ``import_pages``), guarded by a CRC32 of the
+payload bytes (``page_checksum``) that equals the reference's on the same
+arrays.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.types import Request
+
+
+class PageIntegrityError(RuntimeError):
+    """A migrated KV payload failed its content checksum at import. The
+    destination pool is untouched when this raises — callers fall back to
+    recompute-on-resume (``Fleet.migrate_slot``) instead of continuing a
+    poisoned stream."""
+
+
+def _payload_bytes(x: torch.Tensor) -> np.ndarray:
+    """The raw bytes of ``x`` in row-major order, on the host (bf16 has no
+    numpy dtype: its bytes are read as uint8, as ``ml_dtypes`` lays them)."""
+    return x.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+
+
+def page_checksum(k_pages: torch.Tensor, v_pages: torch.Tensor, kv_length: int) -> int:
+    """Content checksum of a page-copy payload: CRC32 over the K and V
+    payload bytes plus the valid-KV length — the reference's checksum of the
+    same arrays. Computed at ``export_pages`` and verified at
+    ``import_pages``; the cost is one device-to-host copy of the payload."""
+    h = zlib.crc32(_payload_bytes(k_pages))
+    h = zlib.crc32(_payload_bytes(v_pages), h)
+    return zlib.crc32(str(int(kv_length)).encode(), h)
 
 
 def scatter_cache(
@@ -469,6 +495,7 @@ class PagedSlotManager:
         self.tables: List[List[int]] = [[] for _ in range(n_slots)]
         self.request_of: List[Optional[Request]] = [None] * n_slots
         self.emitted: List[int] = [0] * n_slots
+        self.peak_pages = 0
         self.shared_pages_peak = 0
         self.cow_copies = 0
 
@@ -500,7 +527,9 @@ class PagedSlotManager:
         short = n_pages - self.allocator.num_free
         if short > 0 and self.prefix_index is not None:
             self.prefix_index.reclaim(short)
-        return self.allocator.allocate(n_pages)
+        pages = self.allocator.allocate(n_pages)
+        self.peak_pages = max(self.peak_pages, self.allocator.num_used)
+        return pages
 
     def reserve(self, slot: int, n_tokens: int) -> None:
         """Give ``slot`` pages covering ``n_tokens`` and mirror its block
@@ -586,6 +615,10 @@ class PagedSlotManager:
             if self.prefix_index is not None else 0
         )
 
+    def owned_tokens(self, slot: int) -> int:
+        """Token capacity of the pages ``slot`` currently owns."""
+        return len(self.tables[slot]) * self.page_size
+
     def pages_to_cover(self, slot: int, n_tokens: int) -> int:
         """Additional pages ``slot`` needs to hold ``n_tokens`` KV entries
         (0 when its current pages already cover them)."""
@@ -621,6 +654,91 @@ class PagedSlotManager:
             self.tables[slot] = []
         self.cache["block_tables"][slot] = -1
         self.cache["length"][slot] = 0
+
+    # -- page-copy migration (live cross-engine slot transfer) ---------- #
+    def export_pages(
+        self, slot: int
+    ) -> Tuple[List[int], torch.Tensor, torch.Tensor, int, int]:
+        """Gather ``slot``'s KV pages out of the pool for migration.
+
+        Returns ``(pages, k_payload, v_payload, kv_length, checksum)``: the
+        payloads are ``(L, KV, n_pages, page_size, D)`` device tensors, an
+        ``index_select`` along the pool's page axis (independent of which
+        page ids the destination assigns), and ``checksum`` is their
+        ``page_checksum``. The caller frees the source pages afterwards
+        (``release`` / ``free_pages_of``)."""
+        pages = list(self.tables[slot])
+        if not pages:
+            raise RuntimeError(f"slot {slot} holds no pages to export")
+        idx = torch.tensor(pages, dtype=torch.long, device=self.cache["k"].device)
+        k = self.cache["k"].index_select(2, idx)
+        v = self.cache["v"].index_select(2, idx)
+        length = int(self.cache["length"][slot])
+        return pages, k, v, length, page_checksum(k, v, length)
+
+    def import_pages(
+        self,
+        slot: int,
+        k_pages: torch.Tensor,
+        v_pages: torch.Tensor,
+        kv_length: int,
+        checksum: Optional[int] = None,
+    ) -> List[int]:
+        """Land exported KV payloads in freshly allocated pages of this
+        pool: allocate, scatter, point ``slot``'s block-table row at the new
+        pages and restore its valid-KV length. Returns the new pages.
+
+        With ``checksum`` the received payload is re-hashed and verified
+        BEFORE any pool state changes; a mismatch raises
+        ``PageIntegrityError`` with the pool untouched."""
+        if self.tables[slot]:
+            raise RuntimeError(f"slot {slot} already holds pages")
+        if checksum is not None:
+            got = page_checksum(k_pages, v_pages, kv_length)
+            if got != checksum:
+                raise PageIntegrityError(
+                    f"slot {slot}: KV payload checksum {got:#010x} != "
+                    f"exported {checksum:#010x} — migration payload corrupt"
+                )
+        n = int(k_pages.shape[2])
+        pages = self._alloc(n)
+        pool_k, pool_v = self.cache["k"], self.cache["v"]
+        idx = torch.tensor(pages, dtype=torch.long, device=pool_k.device)
+        pool_k.index_copy_(2, idx, k_pages.to(pool_k.device, pool_k.dtype))
+        pool_v.index_copy_(2, idx, v_pages.to(pool_v.device, pool_v.dtype))
+        self.tables[slot] = pages
+        self._mirror_row(slot)
+        self.cache["length"][slot] = int(kv_length)
+        return pages
+
+    def sync_from_device(self) -> None:
+        """Rebuild host tables and allocator from the device block table
+        (checkpoint restore: the device array is the durable record).
+        Refcounts come from block-table multiplicity; the prefix index's
+        holds are not on the device, so the index restarts cold."""
+        bt = self.cache["block_tables"].cpu().numpy()
+        self.tables = [[int(p) for p in row if p >= 0] for row in bt]
+        self.allocator.reset([p for row in self.tables for p in row])
+        if self.prefix_index is not None:
+            self.prefix_index.invalidate()
+        self.peak_pages = max(self.peak_pages, self.allocator.num_used)
+
+    # -- accounting ---------------------------------------------------- #
+    def kv_bytes_in_use(self) -> int:
+        """Bytes of KV pool owned by slots right now."""
+        return self.allocator.num_used * (
+            self.kv_bytes_capacity() // self.allocator.num_pages
+        )
+
+    def kv_bytes_capacity(self) -> int:
+        k, v = self.cache["k"], self.cache["v"]
+        return k.numel() * k.element_size() + v.numel() * v.element_size()
+
+    def peak_kv_bytes(self) -> int:
+        """High-water mark of slot-owned KV bytes over the manager's life."""
+        if self.allocator.num_pages == 0:
+            return 0
+        return self.peak_pages * (self.kv_bytes_capacity() // self.allocator.num_pages)
 
     # -- invariants ------------------------------------------------------ #
     def check_block_table_mirror(self) -> None:

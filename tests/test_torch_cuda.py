@@ -399,3 +399,78 @@ def test_cuda_decode_plan_at_the_serving_shapes(card):
     for h, kv, d in ((32, 8, 128), (16, 1, 256)):
         p = da.plan(torch.bfloat16, 8, h, kv, 640, d, n_sms)
         assert p.body == da.TENSOR_CORES and p.split.parts == 1 and p.split.splits > 1
+
+
+# --------------------------------------------------------------------------- #
+# Page-copy migration and the fleet on the card                               #
+# --------------------------------------------------------------------------- #
+def _smoke_model(dtype, device):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import TransformerLM
+
+    return TransformerLM(dataclasses.replace(get_smoke_config("qwen3_8b"), dtype=dtype), device=device)
+
+
+def test_cuda_bf16_slot_export_import_crc_bit_exact(card):
+    """A bf16 slot's pages leave one pool and land in another on the card
+    with the same bytes: the CRC of the landed pages equals the export's,
+    and both equal the CRC of a host copy of the source pages."""
+    from repro_torch.serving.kv_slots import PagedSlotManager, page_checksum
+
+    model = _smoke_model("bfloat16", "cuda")
+    src, dst = PagedSlotManager(model, 2, 64, 16), PagedSlotManager(model, 2, 64, 16)
+    src.reserve(1, 64)
+    for key in ("k", "v"):
+        src.cache[key].copy_(torch.randn(src.cache[key].shape, device="cuda").bfloat16())
+    src.cache["length"][1] = 61
+    dst.reserve(0, 30)
+    idx = torch.tensor(src.tables[1], device="cuda")
+    host = [src.cache[key].index_select(2, idx).cpu() for key in ("k", "v")]
+    pages, k, v, length, crc = src.export_pages(1)
+    assert crc == page_checksum(host[0], host[1], 61)
+    new = dst.import_pages(1, k, v, length, checksum=crc)
+    didx = torch.tensor(new, device="cuda")
+    landed = [dst.cache[key].index_select(2, didx) for key in ("k", "v")]
+    assert torch.equal(landed[0].cpu(), host[0]) and torch.equal(landed[1].cpu(), host[1])
+    assert page_checksum(landed[0], landed[1], int(dst.cache["length"][1])) == crc
+    dst.check_block_table_mirror()
+
+
+def test_cuda_two_replica_fleet_shares_one_weight_set(card, monkeypatch):
+    """Two replicas of the float32 smoke model on the card: Fleet(...) adds
+    the two pools and no weights, every request is served once, and under a
+    scripted clock the card gives the CPU fleet's assignment and streams."""
+    from repro_torch.core import CostModel, Request
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving import EngineConfig, Fleet, FleetConfig, OnlineProfiler
+    from repro_torch.serving import engine as engine_mod
+    from torch_port_arrays import ScriptedClock
+
+    cm = CostModel(level_caps=(32, 64, 128))
+    ecfg = EngineConfig(n_slots=2, max_len=64, kv_layout="paged", page_size=16, prefill_chunk=16)
+    fcfg = FleetConfig(n_replicas=2, assign="lpt", work_stealing=True, steal_running=True)
+    cpu = _smoke_model("float32", "cpu")
+    params_cpu = cpu.init_params(seed=0)
+    card_model = _smoke_model("float32", "cuda")
+    params = tree_map(lambda x: x.cuda(), params_cpu)
+    torch.cuda.synchronize()
+    out = []
+    for m, p in ((cpu, params_cpu), (card_model, params)):
+        before = torch.cuda.memory_allocated()
+        fleet = Fleet(m, p, ecfg, fcfg, cost_model=cm, device=m.device,
+                      profiler_factory=lambda: OnlineProfiler(initial=cm, refit_every=10**9))
+        if m.device.type == "cuda":
+            pools = sum(t.numel() * t.element_size() for e in fleet.engines for t in e.slots.cache.values())
+            assert abs(torch.cuda.memory_allocated() - before - pools) <= 64 * 1024
+            assert all(e.params is p for e in fleet.engines)
+        reqs = [Request(rid=i, n_prefill=8 + 3 * i, n_decode=(24 if i % 2 else 5) + i) for i in range(6)]
+        monkeypatch.setattr(engine_mod, "time", ScriptedClock())
+        report = fleet.serve(reqs)
+        report.validate()
+        assert sorted(r.rid for t in report.traces for r in t.requests) == list(range(6))
+        gen = fleet.generated
+        assert all(len(gen[r.rid]) == r.n_decode for r in reqs)
+        out.append((fleet._offline_result.assignment, gen, fleet.steal_log, fleet.migration_log))
+    assert out[1] == out[0]

@@ -1,6 +1,7 @@
 """Numpy helpers of the PyTorch port's tests (``test_torch_*.py``) that feed
-the port and the reference identical inputs. They import no JAX, so the
-card's tests use them on a machine without it."""
+the port and the reference identical inputs, and the scripted clock the
+fleet tests stand in for the engines' wall clock. They import no JAX, so
+the card's tests use them on a machine without it."""
 import numpy as np
 import torch
 
@@ -25,3 +26,20 @@ def shuffled_tables(rng, n_rows, mb, n_pages, page_size, lengths):
         tables[i, :need] = perm[used : used + need]
         used += need
     return tables
+
+
+class ScriptedClock:
+    """Stands in for an engine module's ``time``: every ``perf_counter``
+    call advances 2**-10 s, so each stage lasts exactly that (over its
+    replica's speed factor) and no decision reads the wall clock. A power of
+    two keeps every clock reading exact, whatever the count of calls."""
+
+    STEP = 2.0 ** -10
+
+    def __init__(self):
+        self.calls = 0
+
+    def perf_counter(self):
+        self.calls += 1
+        return self.calls * self.STEP
+

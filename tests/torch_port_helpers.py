@@ -1,7 +1,9 @@
 """Shared set-up of the PyTorch port's parity tests (``test_torch_*.py``):
 the reference model and its parameters and the same parameters carried into
 the port. The numpy helpers that feed both sides identical inputs, which need
-no JAX, live in ``torch_port_arrays``."""
+no JAX, live in ``torch_port_arrays``. ``scripted_clock`` stands in for both
+engines' clocks, so the fleet tests' schedules read no wall clock."""
+import contextlib
 import dataclasses
 
 import jax
@@ -14,6 +16,7 @@ from repro.models.transformer import TransformerLM as RefLM
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import TransformerLM
+from torch_port_arrays import ScriptedClock
 
 # The float32 smoke configuration of Qwen3-8B: 2 layers, d_model 64, 4 query
 # and 2 KV heads (head_dim 16), qk-norm, vocab 256. Token parity across the
@@ -39,3 +42,17 @@ def port_model_and_params(ref_params, cfg=CFG, device="cpu"):
     tree = jax.tree_util.tree_map(np.asarray, ref_params)
     return TransformerLM(cfg, device=device), params_from_numpy(tree, cfg, device)
 
+
+@contextlib.contextmanager
+def scripted_clock():
+    """Both engines (the reference's and the port's) read a ScriptedClock
+    while the context is open."""
+    import repro.serving.engine as ref_engine
+    import repro_torch.serving.engine as port_engine
+
+    saved = ref_engine.time, port_engine.time
+    ref_engine.time, port_engine.time = ScriptedClock(), ScriptedClock()
+    try:
+        yield
+    finally:
+        ref_engine.time, port_engine.time = saved
