@@ -38,9 +38,15 @@ Phases, each printing its seconds on a line of its own:
              sliding-window config whose ring wraps, and the smoke
              RecurrentGemma (ragged prefill, then decode steps that wrap its
              window-8 ring); logits within 1e-4, identical greedy tokens;
-             and three smoke Qwen3 fleets under a scripted clock (a hard
-             kill, a 2-speed fleet with stealing, a migrate_slot), with the
-             same assignment, streams, steals, migrations and faults;
+             three smoke Qwen3 fleets under a scripted clock (a hard kill, a
+             2-speed fleet with stealing, a migrate_slot), with the same
+             assignment, streams, steals, migrations and faults; and top-p
+             sampling: threefry keys and bits at Qwen3-8B's (8, 151936)
+             equal to the CPU's bit for bit, the same categorical and top-p
+             draws, and the smoke Qwen3 served under TopPSampler(top_p=0.9)
+             with an Observation and the scripted clock on the paged and
+             the dense layout with the same streams, span kinds and
+             Observation state;
 5. serve   — full-size Qwen3-8B (36 layers, bf16, random weights from a seed)
              behind the port's Engine, twice on the same weights and the same
              16 GSM8K-shaped requests (outputs capped at 128) under hybrid
@@ -48,7 +54,13 @@ Phases, each printing its seconds on a line of its own:
              layout with whole-prompt prefill stages and fused decode; checks
              the trace, the budgets, the token ids and that each kernel ran
              exactly as often as each schedule implies, every flash launch
-             on the tensor-core body. Then the fleet on the same weights: two
+             on the tensor-core body, and that these greedy serves, run with
+             observe=None, made no obs callback (Observation.tripwire). Then
+             the paged serve again under TopPSampler(top_p=0.9) with an
+             Observation: the same gates, capacity conserved, one
+             first_token and one complete span a request, a Perfetto trace
+             that parses; its tok/s beside the greedy paged serve's. Then
+             the fleet on the same weights: two
              replicas of 8 slots (paged, mixed) over one weight set (the
              memory Fleet(...) adds must be the two pools), 32 GSM8K-shaped
              requests under the offline LPT partition, least-load dispatch
@@ -56,9 +68,12 @@ Phases, each printing its seconds on a line of its own:
              once, the makespan printed beside its lower bound (the paper
              prior's flat-pool bound, a model number: not a gate), launches exact
              summed over the replicas; then 8 requests
-             with replica 0 drained mid-decode by page-copy (zero drops,
-             zero recomputed tokens, each import's landed pages holding the
-             export's CRC32), page-copy times printed. Then, Qwen3 freed,
+             with replica 0 drained mid-decode by page-copy on a second
+             fleet that records into one Observation (zero drops, zero
+             recomputed tokens, each import's landed pages holding the
+             export's CRC32, each moved request's spans running migrate_out,
+             migrate_in on the other replica, complete; capacity conserved),
+             page-copy times printed. Then, Qwen3 freed,
              full-size RecurrentGemma-9B (38 layers, bf16, random weights)
              on the same 16 requests in two waves of 8 slots through its own
              prefill and decode_step (launch.generate; the Engine does not
@@ -777,12 +792,13 @@ def check_launches(path, launches, expect):
             check(n > 0, f"{path}: {name} was never launched on its path")
 
 
-def run_serve(torch, model, params, layout):
+def run_serve(torch, model, params, layout, sampler=None, obs=None):
     """Serve the GSM8K-shaped closed-loop workload through the port's Engine
     under hybrid scheduling as launch/serve.py sets it up, on the paged
     layout (mixed steps) or the dense layout (whole-prompt prefill stages),
-    and check the result. Returns (engine, launches per kernel, flash's
-    launches by body)."""
+    greedy or under ``sampler`` (seed 0), recording into ``obs`` when one
+    is given, and check the result. Returns (engine, launches per kernel,
+    flash's launches by body, tok/s and wall seconds)."""
     from repro_torch.core import (
         CostModel,
         LagrangianPolicy,
@@ -793,18 +809,21 @@ def run_serve(torch, model, params, layout):
     )
     from repro_torch.launch.profile_step import DENSE_BUCKETS, SERVE_LEN, serve_workload
     from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sampler import greedy
 
     cfg = model.cfg
+    path = layout if sampler is None else "top_p"
     reqs = serve_workload()
     cm = CostModel(level_caps=(32, 64, 128, 256))
     asn = solve_offline(reqs, 8, cm).assignment
     clients = build_clients(8, reqs, asn)
     if layout == "paged":
-        ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged", mixed_schedule=True)
+        ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged", mixed_schedule=True,
+                            sample_seed=0, observe=obs)
     else:
         ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="dense",
-                            prefill_seq_buckets=DENSE_BUCKETS)
-    eng = Engine(model, params, ecfg, device="cuda")
+                            prefill_seq_buckets=DENSE_BUCKETS, sample_seed=0, observe=obs)
+    eng = Engine(model, params, ecfg, sampler=sampler or greedy, device="cuda")
     eng.profiler.cost_model = cm
     warm(torch, model, params, eng)
     torch.cuda.reset_peak_memory_stats()
@@ -821,8 +840,8 @@ def run_serve(torch, model, params, layout):
     trace.validate()
     for r in reqs:
         got = eng.generated.get(r.rid, [])
-        check(len(got) == r.n_decode, f"{layout}: request {r.rid} emitted {len(got)} of {r.n_decode}")
-        check(all(0 <= t < cfg.vocab_size for t in got), f"{layout}: request {r.rid}: invalid token id")
+        check(len(got) == r.n_decode, f"{path}: request {r.rid} emitted {len(got)} of {r.n_decode}")
+        check(all(0 <= t < cfg.vocab_size for t in got), f"{path}: request {r.rid}: invalid token id")
     kinds = [s.kind for s in trace.stages]
     decode_rounds = sum(s.rounds for s in trace.stages if s.kind is StageKind.DECODE)
     mixed = kinds.count(StageKind.MIXED)
@@ -841,20 +860,51 @@ def run_serve(torch, model, params, layout):
             "decode_attention": cfg.n_layers * decode_rounds,
             "rglru_scan": 0,
         }
-    by_variant = check_flash_variants(layout, launches)
+    by_variant = check_flash_variants(path, launches)
     s = trace.summary()
     stall = trace.meta["prefill_stall_time_s"]
-    print(f"  {layout} serve: {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
+    print(f"  {path} serve ({layout}): {len(reqs)} requests, {sum(len(v) for v in eng.generated.values())} "
           f"output tokens, utilization {s['utilization']}, makespan {s['makespan_s']} s, "
           f"{s['generation_speed_tok_s']} tok/s, wall {wall:.4f} s", flush=True)
-    print(f"  {layout} stages: {prefills} prefill stages ({'chunk rounds' if layout == 'paged' else 'whole prompts'}), "
+    print(f"  {path} stages: {prefills} prefill stages ({'chunk rounds' if layout == 'paged' else 'whole prompts'}), "
           f"{mixed} mixed rounds, {kinds.count(StageKind.DECODE)} fused decode stages "
           f"({decode_rounds} rounds), decode dispatches {trace.meta['decode_dispatches']}, "
           f"prefill stall {stall} s")
-    print(f"  {layout} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check_launches(layout, launches, expect)
+    print(f"  {path} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_launches(path, launches, expect)
     if layout == "dense":
         check(stall > 0, "dense: no prefill stage ran while decoders were active")
+    return eng, launches, by_variant, dict(tok_s=s["generation_speed_tok_s"], wall=wall)
+
+
+def run_top_p_serve(torch, model, params, greedy_stats):
+    """The paged serve of ``run_serve`` under TopPSampler(top_p=0.9,
+    temperature=1.0) with an Observation: run_serve's gates, then capacity
+    conserved, one first_token and one complete span per request, and a
+    Perfetto trace that parses. Prints tok/s, the wall and the count of obs
+    records beside the greedy paged serve's of this run."""
+    import tempfile
+
+    from repro_torch.obs import Observation, check_capacity_conservation, write_trace
+    from repro_torch.serving.sampler import TopPSampler
+
+    obs = Observation()
+    eng, launches, by_variant, stats = run_serve(
+        torch, model, params, "paged", sampler=TopPSampler(top_p=0.9, temperature=1.0), obs=obs)
+    check(check_capacity_conservation(obs), "top_p: capacity not conserved")
+    for rid in eng.generated:
+        kinds = [e.kind for e in obs.spans.by_request(rid)]
+        check(kinds.count("first_token") == 1 and kinds.count("complete") == 1 and kinds[-1] == "complete",
+              f"top_p: request {rid} spans {kinds}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(write_trace(obs, str(Path(tmp) / "top_p.trace.json"))) as fh:
+            events = json.load(fh)["traceEvents"]
+    check(len(events) > 0, "top_p: empty Perfetto trace")
+    print(f"  top_p serve: {stats['tok_s']} tok/s, wall {stats['wall']:.4f} s; greedy paged serve of "
+          f"this run {greedy_stats['tok_s']} tok/s, wall {greedy_stats['wall']:.4f} s "
+          f"(top_p / greedy tok/s {stats['tok_s'] / greedy_stats['tok_s']:.4f}); obs records: "
+          f"{len(obs.spans.events)} spans, {len(obs.audit.records)} audit, "
+          f"{len(obs.capacity_samples)} capacity samples, {len(events)} trace events", flush=True)
     return eng, launches, by_variant
 
 
@@ -1032,10 +1082,14 @@ def run_fleet(torch, model, params):
     serves start from: a clean serve of 32 GSM8K-shaped requests under the
     offline LPT partition, least-load dispatch and work stealing (queued and
     running), then a serve of 8 requests that drains replica 0 mid-decode
-    by page-copy (after the same 8 served clean, which times the drain).
-    Returns the clean serve's launches and flash's launches by body."""
+    by page-copy (after the same 8 served clean, which times the drain), on
+    a second fleet of the same shape that records into one Observation:
+    every page-copied request's spans run migrate_out, migrate_in on the
+    other replica, then one complete, and capacity is conserved. Returns
+    the clean serve's launches and flash's launches by body."""
     from repro_torch.core import CostModel
     from repro_torch.launch.profile_step import SERVE_LEN
+    from repro_torch.obs import Observation, check_capacity_conservation
     from repro_torch.serving import EngineConfig, FaultPlan, Fleet, FleetConfig, ReplicaFault
 
     cfg = model.cfg
@@ -1095,6 +1149,12 @@ def run_fleet(torch, model, params):
     drain_reqs = lambda: fleet_workload(8, 1)
     clean = fleet.serve(drain_reqs())
     at_s = 0.5 * clean.traces[0].makespan
+    del fleet
+    torch.cuda.empty_cache()
+    obs = Observation()
+    fleet = Fleet(model, params, dataclasses.replace(ecfg, observe=obs), fcfg,
+                  cost_model=CostModel(level_caps=(32, 64, 128, 256)), device=model.device)
+    fleet.warm_serving_shapes()
     records = watch_page_copies(torch, fleet)
     for mod in kernels.values():
         mod.reset_launch_count()
@@ -1115,6 +1175,20 @@ def run_fleet(torch, model, params):
     check(entry["page_copy"] >= 1, "drain: replica 0 held nothing in flight at the drain")
     check(len(records) == fleet.migration_events and all(r.get("crc_verified") for r in records),
           "drain: a page-copy import went unverified")
+    check(check_capacity_conservation(obs), "drain: capacity not conserved")
+    for rec in records:
+        evs = obs.spans.by_request(rec["rid"])
+        kinds = [e.kind for e in evs]
+        check("migrate_out" in kinds and "migrate_in" in kinds, f"drain: request {rec['rid']} spans {kinds}")
+        i_out, i_in = kinds.index("migrate_out"), kinds.index("migrate_in")
+        check(i_out < i_in and evs[i_out].replica != evs[i_in].replica
+              and evs[i_in].parent == evs[i_out].event_id
+              and kinds[i_in:].count("complete") == 1 and kinds[-1] == "complete"
+              and obs.spans.chain(rec["rid"]) == evs,
+              f"drain: request {rec['rid']} spans {[(e.kind, e.replica) for e in evs]}")
+    print(f"  drain observed: {len(records)} page-copied requests each migrate_out -> migrate_in on the "
+          f"other replica -> complete; capacity conserved; {len(obs.spans.events)} spans, "
+          f"{len(obs.audit.records)} audit records", flush=True)
     check_launches("drain", drain_launches, fleet_expect(cfg, report))
     del fleet
     return launches, by_variant
@@ -1183,6 +1257,79 @@ def run_fleet_parity(torch, np):
         print(f"  smoke fleet [{what}] card == CPU: assignment {o['assignment']}, streams of "
               f"{len(o['generated'])} requests, {len(o['steals'])} steals, {len(o['migrations'])} "
               f"migrations, faults {json.dumps(o['faults'])}, makespan {o['makespan']} (scripted)", flush=True)
+
+
+def run_sampler_parity(torch, np):
+    """Top-p sampling on the card against the CPU: threefry keys folded from
+    (seed, rid, step) and their random bits at Qwen3-8B's (8, 151936) bit for
+    bit, then categorical and top-p draws on the same logits; then the
+    float32 smoke Qwen3 served under TopPSampler(top_p=0.9), sample_seed 0,
+    with an Observation and the scripted clock, on the paged (mixed) and the
+    dense layout: the same streams, each request's span kinds in the same
+    order and the same Observation state on both sides."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import (
+        CostModel, LagrangianPolicy, SortingPreemptiveScheduler, build_clients, solve_offline,
+    )
+    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+    from repro_torch.obs import Observation
+    from repro_torch.serving import Engine, EngineConfig, OnlineProfiler, TopPSampler, fold_row_keys, greedy
+    from repro_torch.serving.threefry import categorical, random_bits, seed_key
+
+    b, v = 8, 151936
+    rids = np.array([-1, 0, 1, 2, 3, 5, 8, 2**31 - 1], np.int32)
+    steps = np.arange(b, dtype=np.int32) * 17
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal((b, v)).astype(np.float32) * 4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys = fold_row_keys(seed_key(0, dev), torch.from_numpy(rids).to(dev), torch.from_numpy(steps).to(dev))
+        x = logits.to(dev)
+        out[dev] = [t.cpu() for t in (keys, random_bits(keys, (v,)), categorical(keys, x),
+                                       TopPSampler(top_p=0.9)(x, keys))]
+    for what, a, c in zip(("keys", "random bits", "categorical draws", "top-p draws"), out["cpu"], out["cuda"]):
+        check(bool(torch.equal(a, c)), f"sampler: {what} differ card vs CPU")
+    print(f"  threefry at ({b}, {v}): keys, bits, categorical and top-p draws card == CPU: True "
+          f"(top-p tokens {out['cuda'][3].tolist()})", flush=True)
+    # what one decode iteration's draw costs: its device kernels, its device
+    # time queued behind a sleep, and its time paced by the host's launches
+    # (the fused loop folds a horizon's keys once, outside the draw)
+    x, base = logits.cuda(), seed_key(0, "cuda")
+    r, st = torch.from_numpy(rids).cuda(), torch.from_numpy(steps).cuda()
+    keys = fold_row_keys(base, r, st)
+    horizon = st + torch.arange(8, dtype=st.dtype, device="cuda")[:, None]
+    for what, draw in ((f"top-p draw at ({b}, {v})", lambda: TopPSampler(top_p=0.9)(x, keys)),
+                       (f"greedy argmax at ({b}, {v})", lambda: greedy(x)),
+                       (f"key fold of a K = 8 horizon (8, {b})", lambda: fold_row_keys(base, r, horizon))):
+        n = len(device_kernels(torch, draw))
+        print(f"  sampler cost, {what}: {n} device kernels, device "
+              f"{time_warm_ms(torch, draw, batch=5, reps=10):.4f} ms (queued), host-paced "
+              f"{time_host_paced_ms(torch, draw, iters=20):.4f} ms", flush=True)
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
+    spec = WorkloadSpec(n_requests=10, input_mean=20, input_std=6, output_mean=12, output_std=5,
+                        output_max=16, input_max=40)
+    models = _card_and_cpu(torch, cfg)
+    for layout in ("paged", "dense"):
+        runs = []
+        for m, p in models:
+            cm = CostModel(level_caps=(32, 64, 128))
+            reqs = gsm8k_like_workload(spec, seed=3, known_lengths=True)
+            clients = build_clients(4, reqs, solve_offline(reqs, 4, cm).assignment)
+            obs = Observation()
+            eng = Engine(m, p, EngineConfig(n_slots=4, max_len=64, kv_layout=layout, prefill_chunk=16,
+                                            straggler_factor=1e9, sample_seed=0, observe=obs),
+                         profiler=OnlineProfiler(initial=cm, refit_every=10**9),
+                         sampler=TopPSampler(top_p=0.9), device=m.device)
+            with scripted_clock():
+                eng.serve(reqs, clients, SortingPreemptiveScheduler(clients), LagrangianPolicy())
+            spans = {rid: [e.kind for e in obs.spans.by_request(rid)] for rid in obs.spans.request_ids()}
+            runs.append((eng.generated, spans, obs.state_dict()))
+        (gen_cpu, spans_cpu, state_cpu), (gen, spans, state) = runs
+        check(gen == gen_cpu, f"smoke top-p {layout}: streams differ card vs CPU")
+        check(spans == spans_cpu, f"smoke top-p {layout}: span kinds differ card vs CPU")
+        check(state == state_cpu, f"smoke top-p {layout}: Observation state differs card vs CPU")
+        print(f"  smoke top-p {layout} serve card == CPU: streams of {len(gen)} requests, span kinds, "
+              f"Observation state ({sum(len(k) for k in spans.values())} request spans): True", flush=True)
 
 
 def _leaves(tree):
@@ -1440,6 +1587,7 @@ def main() -> int:
     t0 = time.perf_counter()
     run_parity(torch, np)
     run_fleet_parity(torch, np)
+    run_sampler_parity(torch, np)
     phase("parity", t0)
 
     t0 = time.perf_counter()
@@ -1453,11 +1601,26 @@ def main() -> int:
     print(f"  model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
           f"init {time.perf_counter() - t0:.2f} s", flush=True)
-    launches, by_variant = {}, {}
-    for layout in ("paged", "dense"):
-        eng, launches[layout], by_variant[layout] = run_serve(torch, model, params, layout)
-        del eng                       # free this layout's KV before the next one
-        torch.cuda.empty_cache()
+    from repro_torch.obs import Observation
+
+    launches, by_variant, stats = {}, {}, {}
+    # the greedy serves run with observe=None: the tripwire counts every
+    # obs callback, and there must be none
+    calls = []
+    Observation.tripwire = staticmethod(lambda: calls.append(1))
+    try:
+        for layout in ("paged", "dense"):
+            eng, launches[layout], by_variant[layout], stats[layout] = run_serve(
+                torch, model, params, layout)
+            del eng                   # free this layout's KV before the next one
+            torch.cuda.empty_cache()
+    finally:
+        Observation.tripwire = None
+    print(f"  tripwire: the greedy paged and dense serves ran {len(calls)} obs callbacks", flush=True)
+    check(not calls, f"observe=None serves ran {len(calls)} obs callbacks")
+    eng, launches["top_p"], by_variant["top_p"] = run_top_p_serve(torch, model, params, stats["paged"])
+    del eng
+    torch.cuda.empty_cache()
     t1 = time.perf_counter()
     launches["fleet"], by_variant["fleet"] = run_fleet(torch, model, params)
     torch.cuda.empty_cache()

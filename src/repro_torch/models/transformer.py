@@ -37,6 +37,7 @@ from ..configs.base import ArchConfig
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import paged_chunk_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
+from ..serving.sampler import fold_row_keys
 from .attention import attention_any
 from .cache import (
     chunk_write_plan,
@@ -344,17 +345,17 @@ class TransformerLM:
         rids: torch.Tensor,                  # (J+R,) int32 — request ids
         token_idx: torch.Tensor,             # (J+R,) int32 — sampled token index
         sample_rows: torch.Tensor,           # (J+R,) bool — rows that sample
+        base_key: Optional[torch.Tensor] = None,  # (2,) threefry key
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One mixed batch — a decode round over all J slots plus R ragged
         prefill-chunk rows — in one pass over the layers. The sub-batches own
         disjoint slots, so the round equals the chunk round followed by the
         decode round. Decode lanes sample first, then chunk rows (a prompt's
-        final chunk emits its first token here). Returns ``(sampled (J+R,)
-        int32 with -1 on non-sampling rows, pool)``. ``rids`` / ``token_idx``
-        key stochastic samplers in the reference; greedy sampling ignores
-        them."""
-        if getattr(sampler, "stochastic", False):
-            raise NotImplementedError("stochastic samplers are not ported yet")
+        final chunk emits its first token here). A stochastic sampler draws
+        each row from keys folded from ``(base_key, rids, token_idx)``, so
+        streams stay a pure function of (seed, rid, token index) whatever
+        the batch holds. Returns ``(sampled (J+R,) int32 with -1 on
+        non-sampling rows, pool)``."""
         cfg = self.cfg
         self._check_paged_supported()
         r, c = chunk_tokens.shape
@@ -396,7 +397,11 @@ class TransformerLM:
         h_last = torch.cat(
             [h_d[:, 0], h_c[rows, (chunk_lens.long() - 1).clamp(min=0)]]
         )
-        nxt = sampler(self._logits(h_last, params))
+        logits = self._logits(h_last, params)
+        if base_key is None:
+            nxt = sampler(logits)
+        else:
+            nxt = sampler(logits, fold_row_keys(base_key, rids, token_idx))
         sampled = torch.where(sample_rows, nxt, -1)
         # decode lanes grow their slot by one; chunk rows set start+len
         # (disjoint slots; pad rows are masked out)
@@ -505,23 +510,34 @@ class TransformerLM:
         budgets: torch.Tensor,               # (B,) int32 — max tokens to emit
         rids: torch.Tensor,                  # (B,) int32 — request ids
         token_idx0: torch.Tensor,            # (B,) int32 — next token's index
+        base_key: Optional[torch.Tensor] = None,  # (2,) threefry key
         eos_id: Optional[int] = None,
     ):
         """K decode iterations queued back to back on the device: attention,
-        KV append and greedy sampling all stay there, and no iteration reads
-        a device value on the host. A slot stops after ``budgets[b]`` tokens
-        or on ``eos_id`` and is a no-op from then on (masked KV write, frozen
-        length). Returns ``(token_block (K, B) int32 with -1 where a slot
-        emitted nothing, emitted (B,) int32, active_out (B,) bool,
-        last_token (B,) int32, pool)``."""
-        if getattr(sampler, "stochastic", False):
-            raise NotImplementedError("stochastic samplers are not ported yet")
+        KV append and sampling all stay there, and no iteration reads a
+        device value on the host. A stochastic sampler draws each row from
+        keys folded from ``(base_key, rids, token_idx0 + emitted so far)``,
+        so a stream does not depend on the horizon K. A slot stops after
+        ``budgets[b]`` tokens or on ``eos_id`` and is a no-op from then on
+        (masked KV write, frozen length). Returns ``(token_block (K, B)
+        int32 with -1 where a slot emitted nothing, emitted (B,) int32,
+        active_out (B,) bool, last_token (B,) int32, pool)``."""
         cur, act = tokens, active
         counts = torch.zeros_like(tokens)
         block = []
-        for _ in range(num_steps):
+        keys = None
+        if base_key is not None:
+            # a slot that samples at iteration i has been active at every
+            # iteration before it, so its count is i: the K iterations' keys
+            # are folded up front, in one batch, and equal the reference's
+            # per-iteration fold on every row whose draw is kept
+            steps = token_idx0 + torch.arange(num_steps, dtype=token_idx0.dtype,
+                                              device=token_idx0.device)[:, None]
+            keys = fold_row_keys(base_key, rids, steps)
+        for i in range(num_steps):
             logits, cache = self.decode_step(params, cur, cache, active=act)
-            nxt = torch.where(act, sampler(logits), cur)   # frozen slots keep theirs
+            nxt = sampler(logits) if keys is None else sampler(logits, keys[i])
+            nxt = torch.where(act, nxt, cur)      # frozen slots keep theirs
             counts = counts + act.to(torch.int32)
             new_act = act & (counts < budgets)
             if eos_id is not None:

@@ -27,4 +27,11 @@ from .kv_slots import (
 )
 from .overload import OverloadPolicy, SLOAwareOverloadPolicy
 from .profiler import OnlineProfiler
-from .sampler import GreedySampler, Sampler, greedy
+from .sampler import (
+    GreedySampler,
+    Sampler,
+    TopPSampler,
+    fold_row_keys,
+    greedy,
+    sample_top_p,
+)

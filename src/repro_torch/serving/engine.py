@@ -36,8 +36,10 @@ by KV page-copy (``export_slot`` / ``import_slot``, as a ``SlotCheckpoint``)
 and engine checkpoints (``state_dict`` / ``load_state_dict``, the cache as
 CPU tensors: numpy has no bf16).
 
-Not ported yet (see ROADMAP.md): stochastic sampling and the observability
-hooks.
+Stochastic samplers (``serving.sampler.TopPSampler``) draw from threefry
+keys folded from ``(sample_seed, rid, token index)``, JAX's streams. With
+``EngineConfig.observe`` set to a ``repro_torch.obs.Observation`` the serve
+records the reference's spans, capacity samples, audit records and metrics.
 """
 from __future__ import annotations
 
@@ -62,7 +64,8 @@ from ..core.types import (
 from .kv_slots import PagedSlotManager, SlotManager
 from .overload import OverloadPolicy
 from .profiler import OnlineProfiler
-from .sampler import greedy
+from .sampler import fold_row_keys, greedy
+from .threefry import seed_key
 
 Tree = Any
 
@@ -88,11 +91,51 @@ class EngineConfig:
     decode_horizon: Optional[int] = None
     mixed_schedule: bool = True
     mixed_token_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256)
+    # PRNG seed for stochastic samplers. Token streams are reproducible as a
+    # pure function of (seed, request id, token index) — independent of
+    # horizon grouping, slot placement, batch composition, or KV layout.
     sample_seed: int = 0
     debug_invariants: Optional[bool] = None
     prefix_cache: bool = False
     cache_aware_pricing: bool = True
+    # Observability sink (a ``repro_torch.obs.Observation``). None — the
+    # default — is the zero-cost path: every emission site guards on a
+    # single ``is not None``, so a disabled serve executes zero obs
+    # callbacks. A Fleet shares the instance across its replicas.
     observe: Optional[Any] = None
+
+
+# Declarations for the typed metrics registry mirroring the engine's
+# ``trace.meta`` counters (units + help text; keys not listed here default
+# to unit-less counters) — the reference's table.
+_METRIC_SPECS: Dict[str, Tuple[str, str, str]] = {
+    "mixed_rounds": ("counter", "", "mixed prefill+decode rounds dispatched"),
+    "prefill_stall_time_s": (
+        "counter", "s",
+        "wall-clock decoders spent frozen behind preempting prefill stages",
+    ),
+    "decode_dispatches": ("counter", "", "fused decode dispatches"),
+    "preemption_events": ("counter", "", "slots preempted by page eviction"),
+    "peak_concurrency": (
+        "gauge", "", "peak simultaneously in-flight requests on one replica",
+    ),
+    "offline_deferrals": (
+        "counter", "", "offline admissions deferred by overload control",
+    ),
+    "recomputed_tokens": (
+        "counter", "tokens", "tokens re-prefilled on recompute-on-resume",
+    ),
+    "migrations_in": ("counter", "", "slots imported by page-copy migration"),
+    "migrations_out": ("counter", "", "slots exported by page-copy migration"),
+    "cached_prefill_tokens": (
+        "counter", "tokens", "prompt tokens served from the prefix cache",
+    ),
+    "shared_pages_peak": (
+        "gauge", "pages", "peak KV pages shared read-only across slots",
+    ),
+    "cow_copies": ("counter", "pages", "copy-on-write page copies"),
+    "decoded_tokens": ("counter", "tokens", "tokens decoded"),
+}
 
 
 def _bucket(x: int, buckets: Sequence[int]) -> int:
@@ -212,15 +255,6 @@ class Engine:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for {self.device}"
             )
-        if config.observe is not None:
-            raise NotImplementedError(
-                "EngineConfig.observe: the observability hooks are not ported "
-                "yet (see ROADMAP.md)"
-            )
-        if getattr(sampler, "stochastic", False):
-            raise NotImplementedError(
-                "stochastic samplers wait for a threefry port (see ROADMAP.md)"
-            )
         if config.page_reserve not in ("ondemand", "upfront"):
             raise ValueError(f"unknown page_reserve {config.page_reserve!r}")
         if speed_factor <= 0:
@@ -247,6 +281,12 @@ class Engine:
             self.slots = SlotManager(model, config.n_slots, config.max_len)
         else:
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
+        # stochastic samplers draw per-row keys folded from this base key;
+        # greedy engines carry no key (None skips the key plumbing)
+        self._base_key = (
+            seed_key(config.sample_seed, self.device)
+            if getattr(sampler, "stochastic", False) else None
+        )
         self.pending_token = np.zeros(config.n_slots, dtype=np.int32)
         # device copy of pending tokens carried between consecutive decode
         # stages (None → stale, rebuilt from the host array)
@@ -274,6 +314,15 @@ class Engine:
             else os.environ.get("REPRO_DEBUG_INVARIANTS", "") == "1"
         )
         self.peak_concurrency = 0
+        # observability (repro_torch.obs.Observation); None keeps every
+        # emission site dead. A Fleet sets obs_replica after construction.
+        self.obs = config.observe
+        self.obs_replica = 0
+        if config.kv_layout == "paged":
+            self.slots.obs = self.obs
+        # migrated-in slots awaiting their first post-import dispatch —
+        # capacity attribution classifies that wait as "migration"
+        self._mig_pending: set = set()
         # rid -> every token this engine sampled for it
         self.generated: Dict[int, List[int]] = {}
         self._sv: Optional[_ServeSession] = None
@@ -288,6 +337,21 @@ class Engine:
 
     def _prompt_tokens(self, req: Request) -> np.ndarray:
         return prompt_tokens(req, self._vocab())
+
+    def _sample_first(self, logits: torch.Tensor, rids: Sequence[int]) -> torch.Tensor:
+        """Sample each prefill row's first token (token index 0 of its
+        request): the fused loop's key derivation at index 0, so the stream
+        is seamless. Pad rows are keyed by rid -1."""
+        if self._base_key is None:
+            return self.sampler(logits)
+        n_pad = logits.shape[0]
+        rid_vec = np.full(n_pad, -1, np.int32)
+        rid_vec[: len(rids)] = rids
+        keys = fold_row_keys(
+            self._base_key, self._tensor(rid_vec),
+            torch.zeros(n_pad, dtype=torch.int32, device=self.device),
+        )
+        return self.sampler(logits, keys)
 
     def _observe_prefill(self, total_tokens: int, dt: float) -> None:
         """Feed the profiler and run straggler mitigation."""
@@ -317,7 +381,8 @@ class Engine:
         self._sync()
         t0 = time.perf_counter()
         logits, pref_cache = self.model.prefill(self.params, args[0], cache, lengths=args[1])
-        first = self.sampler(logits).cpu().numpy()   # the stage's host sync
+        # the stage's host sync
+        first = self._sample_first(logits, [r.rid for r in reqs]).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
         self._dev_pending = None          # prefill rewrites pending tokens
         # scatter only the real rows (the batch was padded to a bucket)
@@ -449,6 +514,12 @@ class Engine:
             self.slots.release(slot)
             sv.clients[slot].current = None
         self.preemption_events += 1
+        self._mig_pending.discard(slot)
+        if self.obs is not None:
+            self.obs.span(
+                req.rid, "preempt", sv.t, replica=self.obs_replica,
+                slot=slot, reason="page_pressure",
+            )
         sv.scheduler.push(req)
 
     def _ensure_decode_capacity(self, k: int, allow_shrink: bool = False) -> int:
@@ -486,6 +557,81 @@ class Engine:
             req.t_first_token = t
             if self.overload is not None and req.ttft_slo_s is not None:
                 self.overload.record_ttft(t - req.arrival, req.ttft_slo_s)
+            if self.obs is not None:
+                self.obs.span(
+                    req.rid, "first_token", t, replica=self.obs_replica,
+                    slot=req.client, ttft_s=round(t - req.arrival, 6),
+                )
+
+    # ------------------------------------------------------------------ #
+    # Observability emission (every call site guards on self.obs)         #
+    # ------------------------------------------------------------------ #
+    def _obs_admit(
+        self, req: Request, t: float, slot: int, resumed: bool, cached: int
+    ) -> None:
+        """Admission span; a request's first-ever event is its arrival."""
+        if not self.obs.spans.has(req.rid):
+            self.obs.span(
+                req.rid, "arrival", max(req.arrival, 0.0),
+                replica=self.obs_replica,
+            )
+        self.obs.span(
+            req.rid, "resume" if resumed else "admit", t,
+            replica=self.obs_replica, slot=slot,
+            cached_tokens=cached, prefill_tokens=req.n_prefill,
+        )
+
+    def _obs_complete(self, req: Request, t: float, slot: int) -> None:
+        self.obs.span(
+            req.rid, "complete", t, replica=self.obs_replica, slot=slot,
+            decoded=req.decoded,
+        )
+
+    def _capacity_classes(
+        self, busy: Dict[int, int], busy_partial: Dict[int, int], dt: float
+    ) -> Dict[str, float]:
+        """Classify every slot's share of one stage: each of ``n_slots``
+        slots contributes exactly ``dt`` to exactly one class, so the sample
+        sums to ``dt × n_slots`` by construction."""
+        cls: Dict[str, float] = {}
+        for s in range(self.cfg.n_slots):
+            if s in busy or s in busy_partial:
+                st = self._chunking.get(s)
+                if st is not None and st.resume_emitted > 0:
+                    c = "preempted"        # recomputing an evicted request
+                elif st is not None and st.cached > 0:
+                    c = "cache_hit"        # prefill riding adopted pages
+                else:
+                    c = "busy"
+                self._mig_pending.discard(s)
+            elif s in self._mig_pending:
+                c = "migration"            # imported, not yet dispatched
+            elif self.slots.request_of[s] is not None or s in self._chunking:
+                c = "stall"                # holds work but was not dispatched
+            else:
+                c = "idle_gap"             # free slot during the stage
+            cls[c] = cls.get(c, 0.0) + dt
+        return cls
+
+    def _obs_finish(self, trace: ScheduleTrace) -> None:
+        """Mirror the trace's meta counters into the typed registry and
+        record this replica's capacity denominator."""
+        obs = self.obs
+        for k, v in trace.meta.items():
+            kind, unit, help_ = _METRIC_SPECS.get(
+                k, ("counter", "", "engine meta counter")
+            )
+            obs.declare(k, kind, unit=unit, help=help_)
+            if kind == "counter":
+                obs.inc(k, float(v))
+            else:
+                # per-replica peaks: the registry keeps the max across
+                # replicas
+                obs.set(k, max(obs.registry.value(k), float(v)))
+        kind, unit, help_ = _METRIC_SPECS["decoded_tokens"]
+        obs.declare("decoded_tokens", kind, unit=unit, help=help_)
+        obs.inc("decoded_tokens", float(self.decoded_tokens))
+        obs.finish_replica(self.obs_replica, trace.makespan, self.cfg.n_slots)
 
     # ------------------------------------------------------------------ #
     # Chunked prefill                                                     #
@@ -522,6 +668,8 @@ class Engine:
                 self.recomputed_tokens += len(prompt) - cached
             req.cached_prefill = min(cached, req.n_prefill)
             self.cache_hit_tokens += cached
+            if self.obs is not None:
+                self._obs_admit(req, now, client.cid, resumed, cached)
             self._chunking[client.cid] = _ChunkState(
                 slot=client.cid, req=req, prompt=prompt, done=cached,
                 resume_emitted=resume_emitted, resume_pending=resume_pending,
@@ -577,7 +725,8 @@ class Engine:
         logits, self.slots.cache = self.model.prefill_chunk(
             self.params, args[0], self.slots.cache, *args[1:]
         )
-        first = self.sampler(logits).cpu().numpy()   # the stage's host sync
+        # the stage's host sync
+        first = self._sample_first(logits, [st.req.rid for st in states]).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
         self._dev_pending = None          # prefill rewrites pending tokens
         busy: Dict[int, int] = {}
@@ -678,7 +827,7 @@ class Engine:
         sampled, self.slots.cache = self.model.mixed_step(
             self.params, pending, self.slots.cache, *dev[:4],
             sampler=self.sampler, dec_active=dev[4], rids=dev[5],
-            token_idx=dev[6], sample_rows=dev[7],
+            token_idx=dev[6], sample_rows=dev[7], base_key=self._base_key,
         )
         sampled = sampled.cpu().numpy()    # the ONE host sync for this round
         dt = (time.perf_counter() - t0) / self.speed_factor
@@ -731,12 +880,19 @@ class Engine:
             clients[slot].current = req
             req.t_prefill_end = t
             req.decoded = self.slots.emitted[slot]
+            if self.obs is not None:
+                self.obs.span(
+                    req.rid, "prefill_done", t, replica=self.obs_replica,
+                    slot=slot,
+                )
             self._note_first_token(req, t)
             # requests with n_decode == 1 finish at prefill
             if self.cfg.eos_id is None and req.n_decode <= 1:
                 req.t_done = t
                 self.slots.release(slot)
                 clients[slot].current = None
+                if self.obs is not None:
+                    self._obs_complete(req, t, slot)
 
     def warm_serving_shapes(self) -> None:
         """Run every paged serving dispatch shape the scheduler can reach —
@@ -764,6 +920,7 @@ class Engine:
                     pad, zeros(r_pad), zeros(r_pad), sampler=self.sampler,
                     dec_active=off(j), rids=zeros(j + r_pad) - 1,
                     token_idx=zeros(j + r_pad), sample_rows=off(j + r_pad),
+                    base_key=self._base_key,
                 )
             self.model.prefill_chunk(
                 self.params, zeros(r_pad, c), self.slots.cache, pad,
@@ -779,7 +936,7 @@ class Engine:
             self.model.decode_steps(
                 self.params, zeros(j), self.slots.cache, num_steps=k,
                 sampler=self.sampler, active=off(j), budgets=zeros(j),
-                rids=zeros(j), token_idx0=zeros(j),
+                rids=zeros(j), token_idx0=zeros(j), base_key=self._base_key,
             )
         self._sync()
 
@@ -832,7 +989,7 @@ class Engine:
                 self.params, pending, self.slots.cache,
                 num_steps=k, sampler=self.sampler, active=dev[0],
                 budgets=dev[1], rids=dev[2], token_idx0=dev[3],
-                eos_id=cfg.eos_id,
+                base_key=self._base_key, eos_id=cfg.eos_id,
             )
         )
         # the ONE host sync for this horizon: everything the scheduler needs
@@ -901,6 +1058,7 @@ class Engine:
         self.migrations_in = 0
         self.migrations_out = 0
         self.cache_hit_tokens = 0
+        self._mig_pending = set()
         self._sv = _ServeSession(
             trace=trace, clients=clients, scheduler=request_scheduler,
             policy=iteration_policy, track_requests=track_requests,
@@ -1022,6 +1180,12 @@ class Engine:
         sv.trace.requests = [r for r in sv.trace.requests if r.rid != req.rid]
         sv.trace.external_prefills.pop(req.rid, None)
         self.migrations_out += 1
+        self._mig_pending.discard(slot)
+        if self.obs is not None:
+            self.obs.span(
+                req.rid, "migrate_out", sv.t, replica=self.obs_replica,
+                slot=slot, pages=len(pages), state=kind,
+            )
         if self.debug_invariants:
             self._check_invariants()
         return SlotCheckpoint(
@@ -1078,6 +1242,12 @@ class Engine:
         )
         self._note_concurrency()
         self.migrations_in += 1
+        self._mig_pending.add(slot)
+        if self.obs is not None:
+            self.obs.span(
+                req.rid, "migrate_in", sv.t, replica=self.obs_replica,
+                slot=slot, pages=ckpt.n_pages, state=ckpt.kind,
+            )
         if self.debug_invariants:
             self._check_invariants()
         return slot
@@ -1142,6 +1312,10 @@ class Engine:
             if sv.stages_run >= cfg.max_stages:
                 raise RuntimeError("max_stages exceeded")
             t = sv.t
+            if self.obs is not None and paged:
+                # COW copies fire inside reserve_with_prefix; stamp them
+                # with the current virtual time
+                self.slots.obs_now = t
             max_cap = max(
                 self.profiler.cost_model.max_level.cap_tokens >> self._budget_shift,
                 self.profiler.cost_model.level_caps[0],
@@ -1209,14 +1383,24 @@ class Engine:
                     min(cfg.prefill_chunk, r.n_prefill) for _, r in pairs
                 )
                 mixed_budget = min(avail, cfg.mixed_token_buckets[-1])
+            explain = (
+                {} if (self.obs is not None and mixed_budget is not None)
+                else None
+            )
             t0 = time.perf_counter()
             decision = iteration_policy.decide(
                 snap, self.profiler.cost_model,
                 k_max=cfg.decode_horizon or cfg.max_decode_horizon,
                 mixed_budget=mixed_budget,
+                explain=explain,
             )
             do_prefill = decision.prefill
             trace.decision_times_ms.append((time.perf_counter() - t0) * 1e3)
+            if explain:
+                self.obs.audit_record(
+                    "prefill_share", t, self.obs_replica, explain,
+                    explain.get("share", decision.chunk_tokens),
+                )
 
             if mixed and decision.chunk_tokens > 0 and active:
                 # quantize the priced share down to the bucket table
@@ -1260,11 +1444,18 @@ class Engine:
                     )
                 )
                 sv.t = t + dt
+                if self.obs is not None:
+                    self.obs.capacity(
+                        self.obs_replica, t, sv.t,
+                        self._capacity_classes(busy, busy_partial, dt),
+                    )
                 self._finish_prefills(fin_chunks, clients, sv.t)
                 for slot in fin_decode:
                     req = self.slots.release(slot)
                     req.t_done = sv.t
                     clients[slot].current = None
+                    if self.obs is not None:
+                        self._obs_complete(req, sv.t, slot)
             elif (
                 candidate and paged
                 and (do_prefill or (mixed and decision.chunk_tokens > 0))
@@ -1290,6 +1481,11 @@ class Engine:
                     )
                 )
                 sv.t = t + dt
+                if self.obs is not None:
+                    self.obs.capacity(
+                        self.obs_replica, t, sv.t,
+                        self._capacity_classes(busy, busy_partial, dt),
+                    )
                 self._finish_prefills(finished, clients, sv.t)
             elif do_prefill and candidate:
                 # dense layout: one whole-prompt prefill stage, preempting
@@ -1306,6 +1502,8 @@ class Engine:
                     req.t_prefill_start = t
                     req.t_prefill_end = t + dt
                     req.decoded = 1
+                    if self.obs is not None:
+                        self._obs_admit(req, t, client.cid, False, 0)
                     self._note_first_token(req, t + dt)
                     busy[client.cid] = req.rid
                 trace.stages.append(
@@ -1319,12 +1517,19 @@ class Engine:
                     )
                 )
                 sv.t = t + dt
+                if self.obs is not None:
+                    self.obs.capacity(
+                        self.obs_replica, t, sv.t,
+                        self._capacity_classes(busy, {}, dt),
+                    )
                 # requests with n_decode == 1 finish at prefill
                 for client, req in pairs:
                     if self.cfg.eos_id is None and req.n_decode <= 1:
                         req.t_done = sv.t
                         self.slots.release(client.cid)
                         client.current = None
+                        if self.obs is not None:
+                            self._obs_complete(req, sv.t, client.cid)
             elif active:
                 k = self._choose_horizon(decision.horizon)
                 if paged and cfg.page_reserve != "upfront":
@@ -1348,10 +1553,17 @@ class Engine:
                     )
                 )
                 sv.t = t + dt
+                if self.obs is not None:
+                    self.obs.capacity(
+                        self.obs_replica, t, sv.t,
+                        self._capacity_classes(busy, {}, dt),
+                    )
                 for slot in finished:
                     req = self.slots.release(slot)
                     req.t_done = sv.t
                     clients[slot].current = None
+                    if self.obs is not None:
+                        self._obs_complete(req, sv.t, slot)
             else:
                 if candidate:
                     continue  # policy refused but nothing to decode: retry
@@ -1390,6 +1602,8 @@ class Engine:
                 shared_pages_peak=self.slots.shared_pages_peak,
                 cow_copies=self.slots.cow_copies,
             )
+        if self.obs is not None:
+            self._obs_finish(trace)
         if validate:
             trace.validate()
         return trace

@@ -1,7 +1,6 @@
 """Fleet-scale serving: N ``Engine`` replicas under the paper's hybrid
 offline-online scheduler, lifted one level up (counterpart of
-``repro.serving.fleet``; its observability hooks wait for the port of
-``repro.obs``).
+``repro.serving.fleet``).
 
 The paper's hybrid assigns an offline backlog across *clients* (Minimizing
 Makespan Bin Packing, Eqs. 26–30) and then runs online sorting/preemptive
@@ -350,6 +349,14 @@ class Fleet:
             )
             for spec in self.specs
         ]
+        # shared observability sink (repro_torch.obs.Observation), threaded
+        # from EngineConfig.observe: ONE instance across all replicas, so a
+        # request's span chain stays causal as it migrates between them
+        self.obs = engine_config.observe
+        for i, eng in enumerate(self.engines):
+            eng.obs_replica = i
+            if engine_config.kv_layout == "paged":
+                eng.slots.obs_replica = i
         self.dispatcher: ReplicaDispatchPolicy = (
             DISPATCH_POLICIES[self.cfg.dispatch]()
         )
@@ -384,6 +391,8 @@ class Fleet:
             ReplicaHealthMonitor(self.cfg.n_replicas, self.cfg.health)
             if self.cfg.health is not None else None
         )
+        if self.monitor is not None:
+            self.monitor.obs = self.obs
         # per-serve frozen prediction models for the gray-failure signal:
         # the live profiler keeps refitting to *measured* stages, so a ×4
         # slowdown would be normalized into the very model it is judged
@@ -600,6 +609,8 @@ class Fleet:
         # keeps them instead, which is satellite-tested)
         if self.monitor is not None:
             self.monitor.reset()
+            # reset() re-runs __init__, which drops the obs attribute
+            self.monitor.obs = self.obs
         self._health_cms = [
             eng.profiler.cost_model if eng.profiler.full_fits > 0 else None
             for eng in self.engines
@@ -688,6 +699,22 @@ class Fleet:
         while self._central and self._central[0].arrival <= now:
             req = self._central.pop(0)
             i = self.dispatcher.choose(self, req)
+            if self.obs is not None:
+                # the priced inputs the dispatcher chose over: every
+                # candidate's estimated outstanding work at this instant
+                self.obs.audit_record(
+                    "dispatch", now, i,
+                    {
+                        "rid": req.rid,
+                        "arrival": round(req.arrival, 6),
+                        "policy": self.dispatcher.name,
+                        "loads_s": {
+                            str(j): round(self.estimated_load_s(j), 6)
+                            for j in self.dispatchable_replicas
+                        },
+                    },
+                    i,
+                )
             self._grant_lease(req.rid, i)
             self.engines[i]._sv.scheduler.push(req)
 
@@ -719,6 +746,7 @@ class Fleet:
 
     def _steal_improves(
         self, thief: int, donor: int, victim: Request,
+        explain: Optional[dict] = None,
     ) -> bool:
         """The R||Cmax steal gate: the move is taken only when BOTH
 
@@ -741,7 +769,15 @@ class Fleet:
         w_donor = self._request_weight_s(victim, est, cms[donor])
         thief_finish = self.engines[thief].clock + w_thief
         donor_finish = self._earliest_slot_free_s(donor) + w_donor
+        if explain is not None:
+            explain.update(
+                rid=victim.rid, thief=thief, donor=donor,
+                thief_finish_s=round(thief_finish, 6),
+                donor_finish_s=round(donor_finish, 6),
+            )
         if thief_finish >= donor_finish:
+            if explain is not None:
+                explain["rejected_by"] = "finish_time"
             return False
         n = self.engine_cfg.n_slots
         thief_done = self.engines[thief].clock + self.estimated_load_s(thief)
@@ -749,10 +785,18 @@ class Fleet:
         before = max(thief_done, donor_done)
         after = max(thief_done + w_thief / n, donor_done - w_donor / n)
         ok = after < before - 1e-12
+        if explain is not None:
+            explain.update(
+                makespan_before_s=round(before, 6),
+                makespan_after_s=round(after, 6),
+            )
+            if not ok:
+                explain["rejected_by"] = "pair_makespan"
         return ok
 
     def _migration_improves(
         self, thief: int, donor: int, victim: Request, remaining: int,
+        explain: Optional[dict] = None,
     ) -> bool:
         """The in-flight analogue of ``_steal_improves``, priced decode-only
         (``replica_resume_weight`` — a page-copy import re-pays no prefill).
@@ -768,13 +812,29 @@ class Fleet:
         w_donor = replica_resume_weight(victim, cms[donor], n, remaining)
         thief_finish = self.engines[thief].clock + w_thief
         donor_finish = self.engines[donor].clock + w_donor
+        if explain is not None:
+            explain.update(
+                rid=victim.rid, thief=thief, donor=donor,
+                remaining_decode=remaining,
+                thief_finish_s=round(thief_finish, 6),
+                donor_finish_s=round(donor_finish, 6),
+            )
         if thief_finish >= donor_finish:
+            if explain is not None:
+                explain["rejected_by"] = "finish_time"
             return False
         thief_done = self.engines[thief].clock + self.estimated_load_s(thief)
         donor_done = self.engines[donor].clock + self.estimated_load_s(donor)
         before = max(thief_done, donor_done)
         after = max(thief_done + w_thief / n, donor_done - w_donor / n)
         ok = after < before - 1e-12
+        if explain is not None:
+            explain.update(
+                makespan_before_s=round(before, 6),
+                makespan_after_s=round(after, 6),
+            )
+            if not ok:
+                explain["rejected_by"] = "pair_makespan"
         return ok
 
     def _try_steal_running(self, thief: int) -> bool:
@@ -808,13 +868,26 @@ class Fleet:
             if best is None:
                 continue
             rem, slot, req = best
-            if not self._migration_improves(thief, j, req, rem):
+            now = self.engines[thief].clock
+            explain = {} if self.obs is not None else None
+            improved = self._migration_improves(thief, j, req, rem, explain)
+            if explain is not None:
+                self.obs.audit_record(
+                    "migration_gate", now, thief, explain,
+                    "migrate" if improved else "reject",
+                )
+            if not improved:
                 continue
             if not self.migrate_slot(j, slot, thief):
                 continue
             self.steal_log.append(
                 {"rid": req.rid, "from": j, "to": thief, "running": 1}
             )
+            if self.obs is not None:
+                self.obs.instant(
+                    "steal", now, replica=thief, rid=req.rid,
+                    donor=j, running=1,
+                )
             return True
         return False
 
@@ -861,7 +934,14 @@ class Fleet:
                 victim = donor_sched.peek_longest()
                 if victim is None:
                     continue
-                if not self._steal_improves(i, j, victim):
+                explain = {} if self.obs is not None else None
+                improved = self._steal_improves(i, j, victim, explain)
+                if explain is not None:
+                    self.obs.audit_record(
+                        "steal_gate", self.engines[i].clock, i, explain,
+                        "steal" if improved else "reject",
+                    )
+                if not improved:
                     continue
                 stolen = donor_sched.steal_longest()
                 assert stolen is victim
@@ -869,6 +949,11 @@ class Fleet:
                 self._grant_lease(stolen.rid, i)
                 self.steal_events += 1
                 self.steal_log.append({"rid": stolen.rid, "from": j, "to": i})
+                if self.obs is not None:
+                    self.obs.instant(
+                        "steal", self.engines[i].clock, replica=i,
+                        rid=stolen.rid, donor=j, running=0,
+                    )
                 stole = True
                 break
             if not stole and self.cfg.steal_running:
@@ -913,6 +998,11 @@ class Fleet:
                     "kind": "hang", "replica": f.replica, "at_s": f.at_s,
                     "applied_at_s": now, "until_s": f.until_s,
                 })
+                if self.obs is not None:
+                    self.obs.instant(
+                        "injected_fault", now, replica=f.replica,
+                        fault="hang", until_s=f.until_s,
+                    )
             elif f.kind == "degrade":
                 eng = self.engines[f.replica]
                 prev = eng.speed_factor
@@ -927,6 +1017,11 @@ class Fleet:
                     "applied_at_s": now, "speed_factor": eng.speed_factor,
                     "until_s": f.until_s,
                 })
+                if self.obs is not None:
+                    self.obs.instant(
+                        "injected_fault", now, replica=f.replica,
+                        fault="degrade", speed_factor=eng.speed_factor,
+                    )
             else:
                 eng = self.engines[f.replica]
                 eng.speed_factor = eng.speed_factor * f.speed_factor
@@ -934,6 +1029,11 @@ class Fleet:
                     "kind": "slow", "replica": f.replica, "at_s": f.at_s,
                     "applied_at_s": now, "speed_factor": eng.speed_factor,
                 })
+                if self.obs is not None:
+                    self.obs.instant(
+                        "fault", now, replica=f.replica, fault="slow",
+                        speed_factor=eng.speed_factor,
+                    )
             fired += 1
         return fired
 
@@ -1010,6 +1110,11 @@ class Fleet:
                 "rid": rid, "n_tokens": len(tokens), "at_s": now,
                 "reason": reason,
             })
+            if self.obs is not None:
+                self.obs.instant(
+                    "fenced", now, replica=replica, rid=rid,
+                    epoch=epoch, reason=reason,
+                )
             return False
         self.engines[replica].generated[rid] = list(tokens)
         return True
@@ -1050,6 +1155,20 @@ class Fleet:
         for req in eng._sv.scheduler.queued:
             ghost_work.append((req.rid, list(eng.generated.get(req.rid, []))))
         self._ghosts[i] = {"epoch": old_epoch, "work": ghost_work}
+        if self.obs is not None:
+            self.obs.instant(
+                "condemn", now, replica=i, reason=reason,
+                fenced_epoch=old_epoch,
+            )
+            self.obs.audit_record(
+                "condemn", now, i,
+                {
+                    "reason": reason,
+                    "fenced_epoch": old_epoch,
+                    "ghost_work": len(ghost_work),
+                },
+                "evacuate",
+            )
         entry = self._evacuate_replica(i, now, pool_readable=True, kind="condemn")
         entry["reason"] = reason
         entry["fenced_epoch"] = old_epoch
@@ -1076,10 +1195,28 @@ class Fleet:
         candidates: Sequence[int],
         req: Request,
         in_flight: bool,
+        now: float,
+        context: str,
     ) -> int:
-        """Pick the cheapest-completion survivor for a displaced request."""
+        """Pick the cheapest-completion survivor for a displaced request
+        and, when observing, audit the full comparison — every candidate's
+        priced completion time next to the one chosen."""
         costs = {j: self._placement_cost(j, req, in_flight) for j in candidates}
-        return min(candidates, key=lambda j: (costs[j], j))
+        chosen = min(candidates, key=lambda j: (costs[j], j))
+        if self.obs is not None:
+            self.obs.audit_record(
+                "placement", now, chosen,
+                {
+                    "rid": req.rid,
+                    "context": context,
+                    "in_flight": bool(in_flight),
+                    "costs_s": {
+                        str(j): round(costs[j], 6) for j in sorted(costs)
+                    },
+                },
+                chosen,
+            )
+        return chosen
 
     def migrate_slot(
         self, src: int, slot: int, dst: int, src_epoch: Optional[int] = None
@@ -1143,6 +1280,11 @@ class Fleet:
             "rid": req.rid, "from": src, "to": dst,
             "pages": ckpt.n_pages, "kind": ckpt.kind,
         })
+        if self.obs is not None:
+            self.obs.instant(
+                "migration", self.engines[dst].clock, replica=dst,
+                rid=req.rid, src=src, pages=ckpt.n_pages, state=ckpt.kind,
+            )
         return "page_copy"
 
     def drain_replica(self, i: int, now: Optional[float] = None) -> Dict[str, Any]:
@@ -1227,7 +1369,9 @@ class Fleet:
                     if self.engines[j].can_import(n_pages)
                 ]
                 if cands:
-                    dst = self._choose_placement(cands, req, bound)
+                    dst = self._choose_placement(
+                        cands, req, bound, now, f"evacuate:{kind}"
+                    )
                     res = self.migrate_slot(i, slot, dst)
                     if res == "page_copy":
                         page_copied += 1
@@ -1264,7 +1408,8 @@ class Fleet:
             req.client = None
             if kind in ("drain", "condemn"):
                 tgt_i = self._choose_placement(
-                    self.healthy_replicas, req, False
+                    self.healthy_replicas, req, False, now,
+                    f"evacuate:{kind}",
                 )
             else:
                 tgt_i = self.dispatcher.choose(self, req)
@@ -1283,6 +1428,12 @@ class Fleet:
             "moved_queued": moved_queued,
         }
         self.fault_log.append(entry)
+        if self.obs is not None:
+            self.obs.instant(
+                "fault", now, replica=i, fault=kind,
+                recovered=len(displaced), page_copy=page_copied,
+                recompute=n_recompute + integrity_fb,
+            )
         if displaced:
             self._recovery_watch.append(
                 {"entry": entry, "t0": now, "pending": dict(displaced)}
@@ -1478,7 +1629,9 @@ class Fleet:
                 if not (waited_out or deadline_pressed):
                     continue
                 sched.commit(None, req)      # pop from the suspect queue
-                j = self._choose_placement(targets, req, False)
+                j = self._choose_placement(
+                    targets, req, False, now, "redispatch"
+                )
                 self.engines[j]._sv.scheduler.push(req)
                 self._grant_lease(req.rid, j)
                 req.redispatches += 1
@@ -1586,6 +1739,35 @@ class Fleet:
             report.meta["integrity_rejections"] = float(
                 self.integrity_rejections
             )
+        if self.obs is not None:
+            obs = self.obs
+            # fleet counters join the typed registry next to the per-engine
+            # meta counters `_obs_finish` already recorded
+            for name, value, help_ in (
+                ("steal_events", self.steal_events,
+                 "queued steals + running migrations committed"),
+                ("migration_events", self.migration_events,
+                 "live page-copy slot migrations"),
+                ("fenced_stale_completions", self.fenced_completions,
+                 "zombie completions discarded by the epoch fence"),
+                ("fenced_stale_exports", self.fenced_exports,
+                 "stale-epoch slot exports discarded"),
+                ("recovered_requests", self.recovered_requests,
+                 "requests displaced by faults and re-admitted"),
+            ):
+                obs.declare(name, "counter", help=help_)
+                obs.inc(name, float(value))
+            # structured logs ride the typed side-channel, never summary()
+            obs.set_log("fault_log", self.fault_log)
+            obs.set_log("fenced_log", self.fenced_log)
+            obs.set_log("steal_log", self.steal_log)
+            obs.set_log("migration_log", self.migration_log)
+            obs.set_log("redispatch_log", self.redispatch_log)
+            obs.set_log("injected_log", self.injected_log)
+            if self.monitor is not None:
+                obs.set_log(
+                    "health_transitions", list(self.monitor.transitions)
+                )
         if not self._resumed:
             report.validate()
         return report
@@ -1683,6 +1865,9 @@ class Fleet:
             "health": (
                 self.monitor.state_dict() if self.monitor is not None else ""
             ),
+            # observability state rides the checkpoint the same way: one
+            # JSON-string leaf, so span chains survive a restore mid-serve
+            "obs": self.obs.state_dict() if self.obs is not None else "",
         }
 
     def load_state_dict(
@@ -1751,6 +1936,12 @@ class Fleet:
                     "restoring Fleet with the same health config"
                 )
             self.monitor.load_state_dict(raw_health)
+            self.monitor.obs = self.obs
+        raw_obs = state.get("obs", "")
+        if not isinstance(raw_obs, str):
+            raw_obs = str(np.asarray(raw_obs))
+        if raw_obs and self.obs is not None:
+            self.obs.load_state_dict(raw_obs)
         # undeclared-injection state is per serve (like _pending_faults, it
         # is not checkpointed): a restored fleet starts with a clean layer
         self._hangs = {}

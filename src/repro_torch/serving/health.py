@@ -1,6 +1,6 @@
 """Failure detection without an oracle: heartbeat/suspicion health monitoring
 (counterpart of ``repro.serving.health``, numpy-free and copied near
-verbatim; the observability hooks wait for the port of ``repro.obs``).
+verbatim).
 
 Everything the fleet knew about failures through PR 7 came from a fault
 *plan*: ``Fleet._apply_due_faults`` fired each ``ReplicaFault`` at its
@@ -132,6 +132,9 @@ class ReplicaHealthMonitor:
         self.condemned_events = 0
         self.degraded_events = 0
         self.transitions: List[Dict[str, Any]] = []
+        # observability sink (repro_torch.obs.Observation), set by the fleet
+        # when a serve opts in; None executes zero obs callbacks
+        self.obs = None
 
     # ------------------------------------------------------------------ #
     # Observation                                                        #
@@ -313,10 +316,20 @@ class ReplicaHealthMonitor:
         r.suspect_reason = reason
 
     def _transition(self, i: int, state: str, now: float, reason: str) -> None:
+        prev = self.replicas[i].state
         self.replicas[i].state = state
         self.transitions.append(
             {"replica": i, "state": state, "at_s": now, "reason": reason}
         )
+        if self.obs is not None:
+            self.obs.instant(
+                "health_transition", now, replica=i,
+                state=state, prev=prev, reason=reason,
+            )
+            self.obs.audit_record(
+                "health_transition", now, i,
+                {"prev": prev, "reason": reason}, state,
+            )
 
     def condemn(self, i: int, now: float, reason: str = "external") -> None:
         """Force-condemn (fleet-initiated, e.g. an operator decision)."""

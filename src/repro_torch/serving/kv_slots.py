@@ -498,6 +498,12 @@ class PagedSlotManager:
         self.peak_pages = 0
         self.shared_pages_peak = 0
         self.cow_copies = 0
+        # observability hooks, set by the owning engine when a serve opts
+        # in (EngineConfig.observe); obs_now is refreshed each serve step
+        # so COW instants land at the engine's current virtual time
+        self.obs = None
+        self.obs_replica = 0
+        self.obs_now = 0.0
 
     @property
     def free_slots(self) -> List[int]:
@@ -557,6 +563,11 @@ class PagedSlotManager:
         self.cache["k"][:, :, dst] = self.cache["k"][:, :, src]
         self.cache["v"][:, :, dst] = self.cache["v"][:, :, src]
         self.cow_copies += 1
+        if self.obs is not None:
+            self.obs.instant(
+                "cow_copy", self.obs_now, replica=self.obs_replica,
+                src_page=src, dst_page=dst,
+            )
 
     def reserve_with_prefix(
         self, slot: int, prompt: np.ndarray, n_tokens: int

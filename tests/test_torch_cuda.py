@@ -474,3 +474,26 @@ def test_cuda_two_replica_fleet_shares_one_weight_set(card, monkeypatch):
         assert all(len(gen[r.rid]) == r.n_decode for r in reqs)
         out.append((fleet._offline_result.assignment, gen, fleet.steal_log, fleet.migration_log))
     assert out[1] == out[0]
+
+
+def test_cuda_threefry_and_top_p_draw_equal_the_cpu(card):
+    """The sampler is integer threefry work plus float32 ops: on the card
+    it gives the CPU's keys and bits exactly, and the same tokens for the
+    same logits at Qwen3-8B's vocabulary."""
+    from repro_torch.serving import TopPSampler, fold_row_keys
+    from repro_torch.serving.threefry import random_bits, seed_key
+
+    b, v = 8, 151936
+    rids = torch.tensor([-1, 0, 3, 7, 2**31 - 1, 11, 12, 13], dtype=torch.int32)
+    steps = torch.arange(b, dtype=torch.int32) * 5
+    keys = {
+        dev: fold_row_keys(seed_key(0, dev), rids.to(dev), steps.to(dev))
+        for dev in ("cpu", "cuda")
+    }
+    assert torch.equal(keys["cuda"].cpu(), keys["cpu"])
+    bits = random_bits(keys["cuda"], (v,))
+    assert torch.equal(bits.cpu(), random_bits(keys["cpu"], (v,)))
+    logits = torch.randn(b, v, generator=torch.Generator().manual_seed(0)) * 4
+    sampler = TopPSampler(top_p=0.9)
+    got = sampler(logits.cuda(), keys["cuda"]).cpu()
+    assert torch.equal(got, sampler(logits, keys["cpu"]))

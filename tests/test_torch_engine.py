@@ -26,8 +26,10 @@ from repro_torch.core import (
     solve_offline,
 )
 from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+from repro_torch.obs import Observation
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.profiler import OnlineProfiler
+from repro_torch.serving.sampler import TopPSampler
 from torch_port_helpers import port_model_and_params, ref_model_and_params
 
 SPEC = dict(
@@ -100,7 +102,15 @@ def test_engine_rejects_what_the_port_does_not_serve():
         Engine(model, params, EngineConfig(kv_layout="dense", prefix_cache=True), device="cpu")
     with pytest.raises(ValueError, match="unknown kv_layout"):
         Engine(model, params, EngineConfig(kv_layout="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="observ"):
-        Engine(model, params, EngineConfig(observe=object()), device="cpu")
+    # top-p sampling and observability serve on both layouts: the engine
+    # keys a stochastic sampler from its seed and hands the sink to its slots
+    for layout in ("dense", "paged"):
+        obs = Observation()
+        eng = Engine(
+            model, params, EngineConfig(kv_layout=layout, observe=obs),
+            sampler=TopPSampler(), device="cpu",
+        )
+        assert eng.obs is obs and eng._base_key.tolist() == [0, 0]
+        assert getattr(eng.slots, "obs", None) is (obs if layout == "paged" else None)
     with pytest.raises(ValueError, match="model lives on"):
         Engine(model, params, EngineConfig(), device="meta")

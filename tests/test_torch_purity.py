@@ -38,6 +38,7 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.models.recurrentgemma import RecurrentGemma\n"
         "import repro_torch.launch.serve, repro_torch.launch.generate, repro_torch.kernels.build\n"
         "import repro_torch.kernels.rglru, repro_torch.launch.profile_step\n"
+        "import repro_torch.obs, repro_torch.serving.sampler, repro_torch.serving.threefry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
