@@ -30,7 +30,10 @@ Phases, each printing its seconds on a line of its own:
              tile; check that one call of paged decode, and of dense decode
              at each shape and dtype, runs one device kernel (the splits
              merge in the same launch) and that two calls give the same
-             bits;
+             bits; then kernels 1, 2 (both entries) and 3 (bf16 and float32)
+             at the other decoders' (H, KV) at head_dim 128 — (64, 64),
+             (36, 4), (48, 8), (28, 4), (16, 16) — timed at LLaMA-65B's and
+             StarCoder2-7B's;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -38,6 +41,11 @@ Phases, each printing its seconds on a line of its own:
              sliding-window config whose ring wraps, and the smoke
              RecurrentGemma (ragged prefill, then decode steps that wrap its
              window-8 ring); logits within 1e-4, identical greedy tokens;
+             the smoke Granite, LLaMA-65B, StarCoder2 (head widened to
+             16, which the kernels take), Nemotron, OLMoE, Mixtral (window
+             8, the ring wraps) and Qwen2-VL (prefill with patch
+             embeddings), every weight perturbed off its init, on the dense
+             path and (all but Mixtral) the paged path;
              three smoke Qwen3 fleets under a scripted clock (a hard kill, a
              2-speed fleet with stealing, a migrate_slot), with the same
              assignment, streams, steals, migrations and faults; and top-p
@@ -79,11 +87,25 @@ Phases, each printing its seconds on a line of its own:
              prefill and decode_step (launch.generate; the Engine does not
              take it); checks the budgets, the token ids and that the scan
              ran in each of the 26 recurrent layers and kernels 2 and 3 in
-             each of the 12 attention layers of every prefill and step.
+             each of the 12 attention layers of every prefill and step;
+6. family  — the other decoders the reference's Engine serves, at their
+             published widths (random bf16 weights from seed 0):
+             Granite-3-8B, StarCoder2-7B, Nemotron-4-15B, Qwen2-VL-7B and
+             OLMoE-1B-7B whole, LLaMA-65B cut to 32 of 80 layers and
+             Mixtral-8x22B to 12 of 56 (each cut printed), one at a time,
+             each freed before the next: 8 GSM8K-shaped requests (outputs
+             capped at 64) through the serve phase's gates on the dense
+             layout, and on the paged mixed one for LLaMA, StarCoder2 and
+             OLMoE; each serve's tok/s, utilization, makespan, decode
+             rounds, ms a decode round beside the weight-read floor, peak
+             memory; then one fused decode stage under the profiler, whose
+             device busy share says whether the device or the host paces
+             it.
 
 Then one JSON line naming every ported kernel (kernel 2 once per entry, and
-kernels 2 and 3 again at RecurrentGemma's shapes) with its launches on each
-path (flash's also by device body) and this run's times, and, last,
+kernels 2 and 3 again at RecurrentGemma's shapes, kernels 1-3 again at
+LLaMA-65B's and StarCoder2-7B's) with its launches on each path (flash's
+also by device body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
@@ -104,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -392,32 +415,50 @@ def sdpa_inputs(q, k_pages, v_pages, tables):
     return q.transpose(1, 2), expand(kc), expand(vc)
 
 
-def run_kernel_checks(torch, np):
-    import torch.nn.functional as F
+# The other decoders' attention shapes at head_dim 128, by (H, KV): kernels
+# 1-3 are held against their plain versions at each, and timed at LLaMA-65B's
+# MHA and StarCoder2-7B's g = 9.
+FAMILY_GROUPS = (
+    ("llama-65b", (64, 64)),                      # g = 1 (MHA)
+    ("starcoder2-7b", (36, 4)),                   # g = 9
+    ("nemotron-4-15b, mixtral-8x22b", (48, 8)),   # g = 6
+    ("qwen2-vl-7b", (28, 4)),                     # g = 7
+    ("olmoe-1b-7b", (16, 16)),                    # g = 1
+)
+TIMED_FAMILY = ("llama-65b", "starcoder2-7b")
 
+
+def check_attention_kernels(torch, np, F, flush, label, h, kv, d, timed=True):
+    """Kernel 3 (bf16 and float32, the strided cache view, ragged lengths
+    with an idle lane), kernel 2's dense entry (at the dense prefill's shape,
+    then under windows and without the causal mask) and paged-chunk entry,
+    and kernel 1, at (h, kv, d) against their plain versions, with one device
+    kernel a call and equal bits on a second call for kernels 1 and 3.
+    Where ``timed``, each is timed with its plain version and one SDPA call
+    on the same inputs, beside its bound (and flash's tensor-core tiles at
+    head_dim >= 64). Returns the timed results by (kernel, label)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len
     from repro_torch.models.cache import paged_key_positions
 
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
-    for label, (h, kv, d) in (("qwen3-8b", (32, 8, 128)), ("smoke", (4, 2, 16))):
-        # kernel 3: dense decode attention, both dtypes; timed in bf16
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt, SERVE_LEN)
-            check(not k.is_contiguous(), "decode case must be the strided cache view")
-            out = da.decode_attention(q, k, v, lengths)
-            torch.cuda.synchronize()
-            name = str(dt).split(".")[1]
-            err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
-            check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
-            kname = check_one_kernel_and_repeat(
-                torch, f"decode_attention [{label}] {name}", lambda: da.decode_attention(q, k, v, lengths), out)
-            print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}, {dense_plan(torch, da, q, k)}, "
-                  f"one call, one device kernel ({kname[:60]}), two calls equal", flush=True)
-        g = h // kv
+    # kernel 3: dense decode attention, both dtypes; timed in bf16
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, dt, SERVE_LEN)
+        check(not k.is_contiguous(), "decode case must be the strided cache view")
+        out = da.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL[name])
+        check(bool((out[-1] == 0).all()), "decode_attention: a zero-length row is not 0")
+        kname = check_one_kernel_and_repeat(
+            torch, f"decode_attention [{label}] {name}", lambda: da.decode_attention(q, k, v, lengths), out)
+        print(f"  decode_attention [{label}] {name}: max_abs_err={err:.4g}, {dense_plan(torch, da, q, k)}, "
+              f"one call, one device kernel ({kname[:60]}), two calls equal", flush=True)
+    g = h // kv
+    if timed:
         qs = q[:, :, None]
         ks, vs = (x.repeat_interleave(g, dim=1).contiguous() for x in (k, v))
         mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None]
@@ -429,12 +470,14 @@ def run_kernel_checks(torch, np):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
         )
-        # kernel 2, dense entry, at the dense prefill's shape: 8 prompts of
-        # the largest bucket the serve uses, causal
-        q, k, v = dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len())
-        out = fa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=True), KERNEL_TOL["bfloat16"])
+    # kernel 2, dense entry, at the dense prefill's shape: 8 prompts of
+    # the largest bucket the serve uses, causal
+    q, k, v = dense_prefill_case(torch, h, kv, d, 8, dense_prefill_len())
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=True), KERNEL_TOL["bfloat16"])
+    print(f"  flash_attention dense [{label}] at the dense prefill's shape: max_abs_err={err:.4g}")
+    if timed:
         qs = q.contiguous()
         ks, vs = (x.repeat_interleave(g, dim=1).contiguous() for x in (k, v))
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), flush)
@@ -447,12 +490,18 @@ def run_kernel_checks(torch, np):
             ms_by_tile=time_tiles(torch, flush, lambda t: fa._launch_dense(
                 q, k, v, True, 0, d ** -0.5, t), d) if d >= 64 else None,
         )
-        # kernel 1: paged decode attention
-        q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
-        out = pda.paged_decode_attention(q, k, v, tables, lengths)
-        torch.cuda.synchronize()
-        err = max_err(torch, out, pda.paged_decode_attention_plain(q, k, v, tables, lengths),
-                      KERNEL_TOL["bfloat16"])
+    # kernel 1: paged decode attention
+    q, k, v, tables, lengths = decode_case(torch, np, h, kv, d)
+    out = pda.paged_decode_attention(q, k, v, tables, lengths)
+    torch.cuda.synchronize()
+    err = max_err(torch, out, pda.paged_decode_attention_plain(q, k, v, tables, lengths),
+                  KERNEL_TOL["bfloat16"])
+    kname = check_one_kernel_and_repeat(
+        torch, "paged_decode_attention", lambda: pda.paged_decode_attention(q, k, v, tables, lengths), out)
+    plan = pda.decode_plan(q.shape[0], h, kv, tables.shape[1], k.shape[2], n_sms(torch))
+    print(f"  paged_decode_attention [{label}] {plan}: max_abs_err={err:.4g}, one call, one device "
+          f"kernel ({kname[:60]}), two calls equal")
+    if timed:
         mask = (paged_key_positions(tables, lengths, k.shape[2]) >= 0)[:, None, None, :]
         qs, ks, vs = sdpa_inputs(q, k, v, tables)
         ms = time_ms(torch, lambda: pda.paged_decode_attention(q, k, v, tables, lengths), flush)
@@ -460,22 +509,19 @@ def run_kernel_checks(torch, np):
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask), flush)
         bound_ms, bound_by = decode_bound(q, k, tables, lengths)
-        kname = check_one_kernel_and_repeat(
-            torch, "paged_decode_attention", lambda: pda.paged_decode_attention(q, k, v, tables, lengths), out)
-        plan = pda.decode_plan(q.shape[0], h, kv, tables.shape[1], k.shape[2], n_sms(torch))
-        print(f"  paged_decode_attention [{label}] {plan}: one call, one device kernel ({kname[:60]}), "
-              f"two calls equal")
         results[("paged_decode_attention", label)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bound_ms, bound_by=bound_by,
         )
-        # kernel 2: flash attention, paged chunk entry
-        q, k, v, tables, starts, valid, chunk_lens = chunk_case(torch, np, h, kv, d)
-        out = fa.paged_chunk_attention(q, k, v, tables, starts, valid)
-        torch.cuda.synchronize()
-        ref = fa.paged_chunk_attention_plain(q, k, v, tables, starts, valid)
-        err = max_err(torch, out, ref, KERNEL_TOL["bfloat16"])
-        check(bool((out[-1] == 0).all()), "pad chunk row is not zero")
+    # kernel 2: flash attention, paged chunk entry
+    q, k, v, tables, starts, valid, chunk_lens = chunk_case(torch, np, h, kv, d)
+    out = fa.paged_chunk_attention(q, k, v, tables, starts, valid)
+    torch.cuda.synchronize()
+    ref = fa.paged_chunk_attention_plain(q, k, v, tables, starts, valid)
+    err = max_err(torch, out, ref, KERNEL_TOL["bfloat16"])
+    check(bool((out[-1] == 0).all()), "pad chunk row is not zero")
+    print(f"  flash_attention paged chunk [{label}]: max_abs_err={err:.4g}")
+    if timed:
         kpos = paged_key_positions(tables, valid, k.shape[2])
         qpos = starts.long()[:, None] + torch.arange(q.shape[1], device="cuda")[None, :]
         mask = ((kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None]))[:, None]
@@ -492,19 +538,32 @@ def run_kernel_checks(torch, np):
             ms_by_tile=time_tiles(torch, flush, lambda t: fa._launch_paged(
                 q, k, v, tables, starts, valid, d ** -0.5, t), d) if d >= 64 else None,
         )
-        # the dense entry of kernel 2 under windows and without the causal
-        # mask, against its plain version
-        g = torch.Generator(device="cuda").manual_seed(2)
-        dq = torch.randn(2, h, 256, d, device="cuda", generator=g).bfloat16()
-        dk = torch.randn(2, kv, 256, d, device="cuda", generator=g).bfloat16()
-        dv = torch.randn(2, kv, 256, d, device="cuda", generator=g).bfloat16()
-        for causal, window in ((True, 0), (True, 64), (False, 0)):
-            out = fa.flash_attention(dq, dk, dv, causal=causal, window=window)
-            torch.cuda.synchronize()
-            derr = max_err(torch, out, fa.flash_attention_plain(
-                dq, dk, dv, causal=causal, window=window), KERNEL_TOL["bfloat16"])
-            print(f"  flash_attention dense {label} causal={causal} window={window}: "
-                  f"max_abs_err={derr:.3g}")
+    # the dense entry of kernel 2 under windows and without the causal
+    # mask, against its plain version
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dq = torch.randn(2, h, 256, d, device="cuda", generator=g).bfloat16()
+    dk = torch.randn(2, kv, 256, d, device="cuda", generator=g).bfloat16()
+    dv = torch.randn(2, kv, 256, d, device="cuda", generator=g).bfloat16()
+    for causal, window in ((True, 0), (True, 64), (False, 0)):
+        out = fa.flash_attention(dq, dk, dv, causal=causal, window=window)
+        torch.cuda.synchronize()
+        derr = max_err(torch, out, fa.flash_attention_plain(
+            dq, dk, dv, causal=causal, window=window), KERNEL_TOL["bfloat16"])
+        print(f"  flash_attention dense {label} causal={causal} window={window}: "
+              f"max_abs_err={derr:.3g}")
+    return results
+
+
+def run_kernel_checks(torch, np):
+    import torch.nn.functional as F
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for label, (h, kv, d) in (("qwen3-8b", (32, 8, 128)), ("smoke", (4, 2, 16))):
+        results.update(check_attention_kernels(torch, np, F, flush, label, h, kv, d))
+    for label, (h, kv) in FAMILY_GROUPS:
+        results.update(check_attention_kernels(torch, np, F, flush, label, h, kv, 128,
+                                               timed=label in TIMED_FAMILY))
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -611,13 +670,24 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
 # --------------------------------------------------------------------------- #
 # Small-model parity: kernels on the card against plain versions on the CPU   #
 # --------------------------------------------------------------------------- #
-def _card_and_cpu(torch, cfg):
-    """The same float32 model and weights on the CPU and on the card."""
+def _card_and_cpu(torch, cfg, perturb=False):
+    """The same float32 model and weights on the CPU and on the card; with
+    ``perturb``, every leaf plus seeded noise (0.1 x its spread, 0.1 for a
+    constant leaf), so zero biases and unit scales leave their init."""
     from repro_torch.models.layers import tree_map
     from repro_torch.models.transformer import TransformerLM
 
     cpu = TransformerLM(cfg, device="cpu")
     params_cpu = cpu.init_params(seed=0)
+    if perturb:
+        gen = torch.Generator().manual_seed(1)
+
+        def bump(x):
+            spread = float(x.float().std()) if x.numel() > 1 else 0.0
+            noise = torch.randn(x.shape, generator=gen)
+            return (x.float() + 0.1 * (spread or 1.0) * noise).to(x.dtype)
+
+        params_cpu = tree_map(bump, params_cpu)
     return (cpu, params_cpu), (TransformerLM(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))
 
 
@@ -632,9 +702,10 @@ def _compare(torch, outs, what):
     print(f"  {what} float32 fused decode tokens card == CPU: True", flush=True)
 
 
-def run_dense_parity(torch, np, cfg, what, k_steps=8):
-    """Whole-prompt prefill of ragged prompts into the dense slot cache, one
-    decode step, then a fused horizon of ``k_steps``."""
+def run_dense_parity(torch, np, cfg, what, k_steps=8, models=None):
+    """Whole-prompt prefill of ragged prompts into the dense slot cache (a
+    VLM config's prefix replaced by seeded ``patch_embeds``), one decode
+    step, then a fused horizon of ``k_steps``."""
     from repro_torch.serving.sampler import greedy
 
     n, s, max_len = 4, 32, 64
@@ -642,12 +713,15 @@ def run_dense_parity(torch, np, cfg, what, k_steps=8):
     rng = np.random.default_rng(1)
     tokens = rng.integers(1, cfg.vocab_size, size=(n, s)).astype(np.int32)
     tokens[np.arange(s)[None, :] >= lengths[:, None]] = 0
+    patches = (rng.standard_normal((n, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32)
+               if cfg.num_patch_tokens else None)
     outs = []
-    for m, p in _card_and_cpu(torch, cfg):
+    for m, p in models or _card_and_cpu(torch, cfg):
         dev = m.device
         t = lambda x: torch.from_numpy(x).to(dev)
         cache = m.cache_init(n, max_len)
-        logits, cache = m.prefill(p, t(tokens), cache, lengths=t(lengths))
+        logits, cache = m.prefill(p, t(tokens), cache, None if patches is None else t(patches),
+                                  lengths=t(lengths))
         dec, cache = m.decode_step(p, greedy(logits), cache)
         on = torch.ones(n, dtype=torch.bool, device=dev)
         block = m.decode_steps(p, greedy(dec), cache, num_steps=k_steps, sampler=greedy, active=on,
@@ -657,13 +731,12 @@ def run_dense_parity(torch, np, cfg, what, k_steps=8):
     _compare(torch, outs, what)
 
 
-def run_parity(torch, np):
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.configs.base import ArchConfig
+def run_paged_parity(torch, np, cfg, what, models=None):
+    """Chunked prefill of ragged prompts (and a pad row) into the paged pool,
+    one decode step with an idle lane, then a fused horizon of 4."""
     from repro_torch.serving.sampler import greedy
 
-    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
-    models = _card_and_cpu(torch, cfg)
+    models = models or _card_and_cpu(torch, cfg)
     n_slots, page, mb = 4, 16, 8
     rng = np.random.default_rng(0)
     tables = rng.permutation(n_slots * mb).astype(np.int32).reshape(n_slots, mb)
@@ -687,14 +760,48 @@ def run_parity(torch, np):
                                budgets=t(np.full(4, 4, np.int32)), rids=t(np.arange(4, dtype=np.int32)),
                                token_idx0=t(np.zeros(4, np.int32)))[0]
         outs.append((logits[:3].cpu(), dec[:3].cpu(), block[:, :3].cpu()))
-    _compare(torch, outs, "smoke paged")
-    run_dense_parity(torch, np, cfg, "smoke dense")
+    _compare(torch, outs, what)
+
+
+# The other decoders' smoke configs on the card against the CPU. StarCoder2's
+# smoke config has head_dim 12, for which no kernel has a variant, so its
+# card check widens the head to 16 (d_model, heads, biases, layernorm and GELU
+# as in the smoke config). Mixtral's window of 8 wraps its ring.
+FAMILY_PARITY = ("granite_3_8b", "llama_65b", "starcoder2_7b", "nemotron_4_15b",
+                 "olmoe_1b_7b", "mixtral_8x22b", "qwen2_vl_7b")
+
+
+def run_family_parity(torch, np):
+    """Each other decoder's float32 smoke config, every weight perturbed off
+    its init: the dense path (a VLM's prefill with patch embeddings) and,
+    where the reference has it, the paged path, card against CPU."""
+    from repro_torch.configs import get_smoke_config
+
+    for arch in FAMILY_PARITY:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if cfg.resolved_head_dim == 12:
+            cfg = dataclasses.replace(cfg, head_dim=16)
+        models = _card_and_cpu(torch, cfg, perturb=True)
+        run_dense_parity(torch, np, cfg, f"smoke {arch} dense", models=models)
+        if cfg.sliding_window == 0:
+            run_paged_parity(torch, np, cfg, f"smoke {arch} paged", models=models)
+
+
+def run_parity(torch, np):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ArchConfig
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
+    models = _card_and_cpu(torch, cfg)
+    run_paged_parity(torch, np, cfg, "smoke paged", models=models)
+    run_dense_parity(torch, np, cfg, "smoke dense", models=models)
     # tests/test_fused_decode.py:126: W = 24, so prompts of 30 and 24 tokens
     # and the decode steps after them wrap the ring
     swa = ArchConfig(name="swa", family="dense", n_layers=2, d_model=64, n_heads=4,
                      n_kv_heads=2, d_ff=128, vocab_size=256, sliding_window=24,
                      dtype="float32")
     run_dense_parity(torch, np, swa, "sliding-window ring")
+    run_family_parity(torch, np)
     run_recurrentgemma_parity(torch, np)
 
 
@@ -792,13 +899,15 @@ def check_launches(path, launches, expect):
             check(n > 0, f"{path}: {name} was never launched on its path")
 
 
-def run_serve(torch, model, params, layout, sampler=None, obs=None):
-    """Serve the GSM8K-shaped closed-loop workload through the port's Engine
+def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, path=None):
+    """Serve the GSM8K-shaped closed-loop workload (``reqs``, by default the
+    16 requests of ``profile_step.serve_workload``) through the port's Engine
     under hybrid scheduling as launch/serve.py sets it up, on the paged
     layout (mixed steps) or the dense layout (whole-prompt prefill stages),
     greedy or under ``sampler`` (seed 0), recording into ``obs`` when one
     is given, and check the result. Returns (engine, launches per kernel,
-    flash's launches by body, tok/s and wall seconds)."""
+    flash's launches by body, serve stats: tok/s, wall seconds, decode
+    rounds and the wall ms a decode round)."""
     from repro_torch.core import (
         CostModel,
         LagrangianPolicy,
@@ -812,8 +921,8 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None):
     from repro_torch.serving.sampler import greedy
 
     cfg = model.cfg
-    path = layout if sampler is None else "top_p"
-    reqs = serve_workload()
+    path = path or (layout if sampler is None else "top_p")
+    reqs = reqs or serve_workload()
     cm = CostModel(level_caps=(32, 64, 128, 256))
     asn = solve_offline(reqs, 8, cm).assignment
     clients = build_clients(8, reqs, asn)
@@ -872,9 +981,14 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None):
           f"prefill stall {stall} s")
     print(f"  {path} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_launches(path, launches, expect)
-    if layout == "dense":
+    if layout == "dense" and len(reqs) > ecfg.n_slots:
         check(stall > 0, "dense: no prefill stage ran while decoders were active")
-    return eng, launches, by_variant, dict(tok_s=s["generation_speed_tok_s"], wall=wall)
+    decode_s = sum(st.t_end - st.t_start for st in trace.stages if st.kind is StageKind.DECODE)
+    return eng, launches, by_variant, dict(
+        tok_s=s["generation_speed_tok_s"], wall=wall, utilization=s["utilization"],
+        makespan=s["makespan_s"], decode_rounds=decode_rounds, mixed_rounds=mixed,
+        ms_per_decode_round=1e3 * decode_s / max(decode_rounds, 1),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def run_top_p_serve(torch, model, params, greedy_stats):
@@ -951,6 +1065,122 @@ def run_recurrentgemma_serve(torch, model, params):
     print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     by_variant = check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
+    return launches, by_variant
+
+
+# --------------------------------------------------------------------------- #
+# The other decoders at full width                                            #
+# --------------------------------------------------------------------------- #
+# (arch, layers kept — None keeps them all —, also served paged with mixed
+# steps). Every width is the published one; LLaMA-65B (121.6 GiB in bf16) and
+# Mixtral-8x22B (262 GiB) are cut to depth only, to fit one 80 GB card with
+# about 10 GiB to spare. Paged: LLaMA's MHA, StarCoder2's g = 9 with biases
+# and OLMoE's experts in mixed rounds; the reference refuses Mixtral's window
+# on the paged layout.
+FAMILY_SERVES = (
+    ("granite_3_8b", None, False),
+    ("starcoder2_7b", None, True),
+    ("nemotron_4_15b", None, False),
+    ("qwen2_vl_7b", None, False),
+    ("olmoe_1b_7b", None, True),
+    ("llama_65b", 32, True),
+    ("mixtral_8x22b", 12, False),
+)
+
+
+def family_workload():
+    """8 GSM8K-shaped requests, outputs capped at 64, seed 0."""
+    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+
+    return gsm8k_like_workload(WorkloadSpec(n_requests=8, output_max=64), seed=0, known_lengths=True)
+
+
+def weight_read_floor_ms(params, cfg):
+    """The least time a decode round can take: the weights the round reads,
+    each once, at the card's memory rate — every weight but the embedding
+    table (a round gathers only its tokens' rows of it, unless it is tied to
+    the unembedding); an MoE layer reads every expert, since the capacity
+    buffers run each expert each round."""
+    nbytes = tree_bytes(params)
+    if not cfg.tie_embeddings:
+        nbytes -= tree_bytes({"e": params["embed"]["embedding"]})
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def decode_stage_profile(torch, model, params):
+    """One fused decode stage (K = 8) of 8 slots on the dense layout after a
+    prefill of 8 prompts at the serve's largest bucket, under torch.profiler
+    (``profile_step._measure``): wall, device time, busy share, kernels."""
+    from repro_torch.launch.profile_step import SERVE_LEN, _measure, dense_prefill_len
+    from repro_torch.serving.sampler import greedy
+
+    j = 8
+    cache = model.cache_init(j, SERVE_LEN)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(1, model.cfg.vocab_size, (j, dense_prefill_len()), generator=g,
+                            device="cuda").int()
+    model.prefill(params, prompts, cache)
+    z = torch.zeros(j, dtype=torch.int32, device="cuda")
+    on = torch.ones(j, dtype=torch.bool, device="cuda")
+    big = torch.full((j,), 10**6, dtype=torch.int32, device="cuda")
+    return _measure("dense fused decode, K = 8", lambda: model.decode_steps(
+        params, z, cache, num_steps=8, sampler=greedy, active=on, budgets=big, rids=z,
+        token_idx0=z), iters=1)
+
+
+def run_family_serves(torch):
+    """Each of FAMILY_SERVES at full width (random bf16 weights, seed 0):
+    the 8 requests of ``family_workload`` through ``run_serve``'s gates on the
+    dense layout and, where marked, the paged mixed one; then one fused
+    decode stage under the profiler, whose device busy share says whether
+    the device or the host paces a decode round. Each model is freed before
+    the next loads. Returns launches and flash's launches by body, by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+
+    launches, by_variant = {}, {}
+    reqs = family_workload()
+    for arch, keep, paged in FAMILY_SERVES:
+        # what earlier phases left in reference cycles (an engine and its
+        # slot manager hold each other) goes before the next model loads
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full if keep is None else dataclasses.replace(full, n_layers=keep)
+        model = TransformerLM(cfg, device="cuda")
+        params = model.init_params(seed=0)
+        torch.cuda.synchronize()
+        floor = weight_read_floor_ms(params, cfg)
+        print(f"  model {cfg.name}: {cfg.n_layers} layers kept of {full.n_layers}, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {model.hd}, "
+              f"{f'{cfg.n_experts} experts top-{cfg.experts_per_token}, ' if cfg.is_moe else ''}"
+              f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters, "
+              f"{tree_bytes(params) / 2**30:.3f} GiB ({cfg.dtype}), init {time.perf_counter() - t0:.2f} s "
+              f"({held:.3f} GiB allocated before it loaded); weight-read floor of a decode round "
+              f"{floor:.3f} ms", flush=True)
+        for layout in ("dense", "paged") if paged else ("dense",):
+            path = f"{arch} {layout}"
+            eng, launches[path], by_variant[path], st = run_serve(
+                torch, model, params, layout, reqs=reqs, path=path)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"  {path}: {st['tok_s']} tok/s, wall {st['wall']:.4f} s, utilization "
+                  f"{st['utilization']}, makespan {st['makespan']} s, {st['decode_rounds']} decode "
+                  f"rounds, {st['mixed_rounds']} mixed rounds, {st['ms_per_decode_round']:.3f} ms a "
+                  f"decode round against the weight-read floor {floor:.3f} ms "
+                  f"({st['ms_per_decode_round'] / floor:.2f}x), peak {st['peak_gib']:.3f} GiB", flush=True)
+        prof = decode_stage_profile(torch, model, params)
+        busy = prof["device_busy_share"]
+        print(f"  {cfg.name} fused decode stage (8 slots, K = 8, dense): wall {prof['traced_wall_ms']:.3f} ms, "
+              f"device {prof['device_ms']:.3f} ms ({prof['device_ms'] / 8:.3f} ms a step against the floor "
+              f"{floor:.3f} ms), busy share {busy:.3f}, {prof['kernels_launched']} kernels: "
+              f"{'device' if busy >= 0.8 else 'host'}-paced; top {json.dumps(prof['top_kernels'][:4])}")
+        del model, params
+        torch.cuda.empty_cache()
+        print(f"  {cfg.name}: {time.perf_counter() - t0:.3f} s", flush=True)
     return launches, by_variant
 
 
@@ -1341,28 +1571,39 @@ def _leaves(tree):
 
 
 KERNELS = (
-    # (row name, launch-count name, path that runs it, source, TPU kernel,
-    #  shapes the row's times were taken at)
-    ("paged_decode_attention", "paged_decode_attention", "paged",
-     "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-     "src/repro/kernels/paged_decode_attention.py:136", "qwen3-8b"),
-    ("flash_attention", "flash_attention", "paged",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
-     "qwen3-8b"),
-    ("flash_attention_dense", "flash_attention", "dense",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
-     "qwen3-8b"),
-    ("decode_attention", "decode_attention", "dense",
-     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111",
-     "qwen3-8b"),
-    ("flash_attention_dense_recurrentgemma", "flash_attention", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131",
-     "recurrentgemma-9b"),
-    ("decode_attention_recurrentgemma", "decode_attention", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111",
-     "recurrentgemma-9b"),
-    ("rglru_scan", "rglru_scan", "recurrentgemma",
-     "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81", "recurrentgemma-9b"),
+    # (row name, result key, shapes the row's times were taken at, launch-count
+    #  name, path that runs it, source, TPU kernel)
+    ("paged_decode_attention", "paged_decode_attention", "qwen3-8b", "paged_decode_attention",
+     "paged", "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+     "src/repro/kernels/paged_decode_attention.py:136"),
+    ("flash_attention", "flash_attention", "qwen3-8b", "flash_attention", "paged",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    ("flash_attention_dense", "flash_attention_dense", "qwen3-8b", "flash_attention", "dense",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    ("decode_attention", "decode_attention", "qwen3-8b", "decode_attention", "dense",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
+    ("flash_attention_dense_recurrentgemma", "flash_attention_dense", "recurrentgemma-9b",
+     "flash_attention", "recurrentgemma",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    ("decode_attention_recurrentgemma", "decode_attention", "recurrentgemma-9b", "decode_attention",
+     "recurrentgemma",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
+    ("rglru_scan", "rglru_scan", "recurrentgemma-9b", "rglru_scan", "recurrentgemma",
+     "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81"),
+) + tuple(
+    (f"{name}_{arch.split('_')[0]}", name, label, count, f"{arch} {layout}", f"src/repro_torch/kernels/csrc/{src}.cu",
+     replaces)
+    for arch, label in (("llama_65b", "llama-65b"), ("starcoder2_7b", "starcoder2-7b"))
+    for name, count, layout, src, replaces in (
+        ("paged_decode_attention", "paged_decode_attention", "paged", "paged_decode_attention",
+         "src/repro/kernels/paged_decode_attention.py:136"),
+        ("flash_attention", "flash_attention", "paged", "flash_attention",
+         "src/repro/kernels/flash_attention.py:131"),
+        ("flash_attention_dense", "flash_attention", "dense", "flash_attention",
+         "src/repro/kernels/flash_attention.py:131"),
+        ("decode_attention", "decode_attention", "dense", "decode_attention",
+         "src/repro/kernels/decode_attention.py:111"),
+    )
 )
 
 
@@ -1645,9 +1886,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("serve", t0)
 
+    t0 = time.perf_counter()
+    family_launches, family_by_variant = run_family_serves(torch)
+    launches.update(family_launches)
+    by_variant.update(family_by_variant)
+    phase("family", t0)
+
     kernels = []
-    for kname, count, layout, source, replaces, label in KERNELS:
-        r = kres[(kname.replace("_recurrentgemma", ""), label)]
+    for kname, key, label, count, layout, source, replaces in KERNELS:
+        r = kres[(key, label)]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[layout][count],

@@ -21,7 +21,8 @@ slot's splits from its length on the device. The splits' scratch is
 ``decode_split.workspace``, shared with kernel 1.
 
 The wrapper checks device, dtype, shape, strides and alignment and raises on
-what the kernel does not take. For a CUDA tensor it launches the kernel on
+what the kernel does not take (a head_dim it has no variant for, only before
+a launch). For a CUDA tensor it launches the kernel on
 the current stream (``launch_count`` counts those launches); for a CPU tensor
 it runs the plain PyTorch version in this module, and only then.
 """
@@ -34,14 +35,14 @@ import torch
 
 from . import build
 from .decode_split import DecodePlan, cta_group, split_plan, workspace
-from .flash_attention import _sm_count, check_vector_aligned, masked_attention
+from .flash_attention import _sm_count, check_head_dim, check_vector_aligned, masked_attention
 
 #: launches of the CUDA kernel since the last reset
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 128, 256)
-_GROUPS = (1, 2, 4, 8, 16)
+_MAX_GROUP = 16
 
 #: the kernel's two bodies, by the code the launcher takes
 CUDA_CORES, TENSOR_CORES = 0, 1
@@ -133,14 +134,12 @@ def decode_attention(
             f"decode_attention takes float32 or bfloat16 q/k/v of one dtype, "
             f"got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if kb != b or kd != d or d not in _HEAD_DIMS:
+    if kb != b or kd != d:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if kv <= 0 or h % kv or h // kv > _MAX_GROUP:
         raise ValueError(
-            f"decode_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}; "
-            f"head_dim must be one of {_HEAD_DIMS}"
-        )
-    if kv <= 0 or h % kv or h // kv not in _GROUPS:
-        raise ValueError(
-            f"decode_attention: H={h} over KV={kv} must give a group of {_GROUPS}"
+            f"decode_attention: H={h} must be a multiple of KV={kv} "
+            f"with at most {_MAX_GROUP} query heads per KV head"
         )
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,) or not lengths.is_contiguous():
         raise ValueError(f"decode_attention: lengths must be contiguous int32 ({b},)")
@@ -151,6 +150,7 @@ def decode_attention(
     scale = scale if scale is not None else d ** -0.5
     if dev.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, scale=scale)
+    check_head_dim("decode_attention", d, _HEAD_DIMS)
     for t in (k, v):
         check_vector_aligned("decode_attention", t, t.stride()[:3])
     return _launch(q, k, v, lengths, scale, plan(q.dtype, b, h, kv, s, d, _sm_count(dev.index)))

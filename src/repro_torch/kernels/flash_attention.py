@@ -16,7 +16,8 @@ bf16 at head_dim 64/128/256, a CUDA-core body for the rest; ``variant``).
   through the block table. A row with ``valid_lens == 0`` (a pad row) gives 0.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
-the kernel does not take. For a CUDA tensor it launches the kernel on the
+the kernel does not take (a head_dim it has no variant for, only before a
+launch: ``check_head_dim``). For a CUDA tensor it launches the kernel on the
 current stream (``launch_count`` counts those launches, and
 ``launch_count_by_variant`` which device body served each: ``variant``
 is the dispatch table, and the kernel serves the body and tile it is
@@ -174,14 +175,20 @@ def _check_common(q, k, v, h, kv, d, tensors):
             f"flash_attention takes float32 or bfloat16 q/k/v of one dtype, "
             f"got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {_HEAD_DIMS}")
     if kv <= 0 or h % kv:
         raise ValueError(f"flash_attention: H={h} not divisible by KV={kv}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head_dim axis must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
+
+
+def check_head_dim(what: str, d: int, head_dims) -> None:
+    """The head_dims a kernel has variants for; checked before a launch only,
+    since the plain version a CPU tensor takes computes any head_dim (the
+    smoke StarCoder2's 12 among them)."""
+    if d not in head_dims:
+        raise ValueError(f"{what}: head_dim {d} not in {head_dims}")
 
 
 def check_vector_aligned(what: str, t: torch.Tensor, strides) -> None:
@@ -236,6 +243,7 @@ def flash_attention(
     scale = scale if scale is not None else d ** -0.5
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    check_head_dim("flash_attention", d, _HEAD_DIMS)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
     tile = plan(q.dtype, b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
@@ -296,6 +304,7 @@ def paged_chunk_attention(
         return paged_chunk_attention_plain(
             q, k_pages, v_pages, block_tables, starts, valid_lens, scale=scale
         )
+    check_head_dim("paged_chunk_attention", d, _HEAD_DIMS)
     for t in (q, k_pages, v_pages):
         check_vector_aligned("paged_chunk_attention", t, t.stride()[:3])
     tile = plan(q.dtype, r * kv, c * (h // kv), block_tables.shape[1] * bs, d,

@@ -16,7 +16,8 @@ CTA from shapes alone (never from ``lengths``, which live on the device);
 device and grown only when a larger plan needs more.
 
 The wrapper checks device, dtype, shape and contiguity and raises on what
-the kernel does not take. For a CUDA tensor it launches the kernel on the
+the kernel does not take (a head_dim it has no variant for, only before a
+launch). For a CUDA tensor it launches the kernel on the
 current stream (``launch_count`` counts those launches); for a CPU tensor it
 runs the plain PyTorch version in this module, and only then.
 """
@@ -37,7 +38,7 @@ from .decode_split import (  # noqa: F401  (kernel 1's plan names, shared with k
     split_plan,
     workspace,
 )
-from .flash_attention import _sm_count, check_vector_aligned, masked_attention
+from .flash_attention import _sm_count, check_head_dim, check_vector_aligned, masked_attention
 
 #: launches of the CUDA kernel since the last reset
 launch_count = 0
@@ -108,8 +109,8 @@ def paged_decode_attention(
             f"paged_decode_attention takes float32 or bfloat16 q/pages of one "
             f"dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
         )
-    if kd != d or d not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head_dim {d} (pool {kd}) not in {_HEAD_DIMS}")
+    if kd != d:
+        raise ValueError(f"paged_decode_attention: head_dim {d} vs pool {kd}")
     if kv <= 0 or h % kv or h // kv > _MAX_GROUP:
         raise ValueError(
             f"paged_decode_attention: H={h} must be a multiple of KV={kv} "
@@ -135,6 +136,7 @@ def paged_decode_attention(
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_tables, lengths, scale=scale
         )
+    check_head_dim("paged_decode_attention", d, _HEAD_DIMS)
     for t in (k_pages, v_pages):
         check_vector_aligned("paged_decode_attention", t, t.stride()[:3])
     plan = decode_plan(b, h, kv, block_tables.shape[1], bs, _sm_count(dev.index))

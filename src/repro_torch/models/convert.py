@@ -6,7 +6,8 @@ tree (``init_params`` output) with every leaf already a numpy array —
 returns the port's tree: the same nesting, shapes and dtypes, as tensors on
 ``device``. The tree to expect comes from the port's model of ``cfg``
 (``registry.get_model``), and each leaf keeps its own dtype (RecurrentGemma's
-float32 ``lam`` in a bf16 tree stays float32). Both packages then compute the
+float32 ``lam`` and an MoE's float32 ``router`` in a bf16 tree stay
+float32). Both packages then compute the
 same function. bfloat16 leaves (numpy's ``bfloat16`` extension dtype) move
 bit for bit.
 """

@@ -7,8 +7,9 @@ the two packages (``models.convert.params_from_numpy``). ``init_params``
 draws them from a seeded ``torch.Generator`` directly on the target device.
 
 Functions take and return tensors in the reference's layouts (``bshk`` for
-per-head activations) and keep its dtype discipline: norms, RoPE and the
-SwiGLU gate compute in float32 and cast back to the activation dtype.
+per-head activations) and keep its dtype discipline: norms, RoPE (and
+M-RoPE) and the MLP activations compute in float32 and cast back to the
+activation dtype.
 """
 from __future__ import annotations
 
@@ -98,17 +99,27 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return F.rms_norm(x.float(), (x.shape[-1],), weight.float(), eps).to(x.dtype)
 
 
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float = 1e-5
+) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * weight (+ bias) in float32, cast back
+    to x's dtype."""
+    b = None if bias is None else bias.float()
+    return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), b, eps).to(x.dtype)
+
+
 def apply_norm(x, p: Dict[str, torch.Tensor], kind: str, eps: float) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm kind {kind!r} is not ported yet (see ROADMAP.md)"
-        )
-    return rms_norm(x, p["scale"], eps)
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"], eps)
+    return layer_norm(x, p["scale"], p.get("bias"), eps)
 
 
-def norm_defs(d_model: int, dtype, layers: Optional[int] = None):
+def norm_defs(d_model: int, kind: str, dtype, layers: Optional[int] = None):
     lead = (layers,) if layers else ()
-    return {"scale": ParamDef(lead + (d_model,), dtype, "ones")}
+    defs = {"scale": ParamDef(lead + (d_model,), dtype, "ones")}
+    if kind == "layernorm":
+        defs["bias"] = ParamDef(lead + (d_model,), dtype, "zeros")
+    return defs
 
 
 # --------------------------------------------------------------------------- #
@@ -141,6 +152,24 @@ def apply_rope_tables(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> 
     return (xf * cos + torch.cat([-x2, x1], dim=-1) * sin).to(x.dtype)
 
 
+def m_rope_tables(
+    positions: torch.Tensor, head_dim: int, theta: float, sections: Tuple[int, int, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE's (Qwen2-VL) counterpart of ``rope_tables``: ``positions`` is
+    (b, s, 3) (t, h, w) triples, and the head_dim/2 frequency slots are split
+    into (temporal, height, width) sections, each rotated by its own
+    position. Returns cos / sin, (b, s, 1, head_dim) f32."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to head_dim/2={head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions.device)        # (hd/2,)
+    sel = torch.cat([torch.full((n,), i, dtype=torch.long, device=positions.device)
+                     for i, n in enumerate(sections)])
+    pos = positions.float()[..., sel]                          # (b, s, hd/2)
+    angles = pos * inv
+    angles = torch.cat([angles, angles], dim=-1)[..., None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
 def apply_rope(
     x: torch.Tensor,             # (..., seq, heads, head_dim)
     positions: torch.Tensor,     # (..., seq) int32
@@ -149,31 +178,64 @@ def apply_rope(
     return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def apply_m_rope(
+    x: torch.Tensor,             # (batch, seq, heads, head_dim)
+    positions: torch.Tensor,     # (batch, seq, 3) int32 — (t, h, w) triples
+    sections: Tuple[int, int, int],
+    theta: float = 1_000_000.0,
+) -> torch.Tensor:
+    return apply_rope_tables(x, *m_rope_tables(positions, x.shape[-1], theta, sections))
+
+
 # --------------------------------------------------------------------------- #
 # MLP                                                                         #
 # --------------------------------------------------------------------------- #
-def mlp_defs(d_model: int, d_ff: int, kind: str, dtype, layers: Optional[int] = None):
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp kind {kind!r} is not ported yet (see ROADMAP.md)"
-        )
+def mlp_defs(
+    d_model: int, d_ff: int, kind: str, dtype, layers: Optional[int] = None,
+    use_bias: bool = False,
+):
     lead = (layers,) if layers else ()
-    return {
-        "w_gate": ParamDef(lead + (d_model, d_ff), dtype),
+    if kind == "swiglu":
+        return {
+            "w_gate": ParamDef(lead + (d_model, d_ff), dtype),
+            "w_up": ParamDef(lead + (d_model, d_ff), dtype),
+            "w_down": ParamDef(lead + (d_ff, d_model), dtype),
+        }
+    # squared_relu | gelu
+    defs = {
         "w_up": ParamDef(lead + (d_model, d_ff), dtype),
         "w_down": ParamDef(lead + (d_ff, d_model), dtype),
     }
+    if use_bias:
+        defs["b_up"] = ParamDef(lead + (d_ff,), dtype, "zeros")
+        defs["b_down"] = ParamDef(lead + (d_model,), dtype, "zeros")
+    return defs
+
+
+def mlp_activation(h: torch.Tensor, kind: str, dtype: torch.dtype) -> torch.Tensor:
+    """The non-gated activations in float32, cast to ``dtype``: squared ReLU,
+    or GELU in the tanh form (``jax.nn.gelu``'s default)."""
+    if kind == "squared_relu":
+        return torch.square(torch.relu(h.float())).to(dtype)
+    if kind == "gelu":
+        return F.gelu(h.float(), approximate="tanh").to(dtype)
+    raise ValueError(f"unknown mlp kind {kind!r}")
 
 
 def mlp_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp kind {kind!r} is not ported yet (see ROADMAP.md)"
-        )
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
-    h = F.silu(gate.float()).to(x.dtype) * up
-    return h @ p["w_down"]
+    if kind == "swiglu":
+        gate = x @ p["w_gate"]
+        up = x @ p["w_up"]
+        h = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = x @ p["w_up"]
+        if "b_up" in p:
+            h = h + p["b_up"]
+        h = mlp_activation(h, kind, x.dtype)
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
 
 
 # --------------------------------------------------------------------------- #

@@ -122,7 +122,7 @@ class RecurrentGemma:
         cfg, dt, r = self.cfg, self.dtype, self.rnn
         d = cfg.d_model
         return {
-            "norm": norm_defs(d, dt, layers=n),
+            "norm": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "w_x": ParamDef((n, d, r), dt),
             "w_gate": ParamDef((n, d, r), dt),
             "conv_k": ParamDef((n, cfg.conv1d_width, r), dt),
@@ -130,7 +130,7 @@ class RecurrentGemma:
             "w_igate": ParamDef((n, r, r), dt),
             "lam": ParamDef((n, r), torch.float32, "normal", 0.5),
             "w_out": ParamDef((n, r, d), dt),
-            "norm_mlp": norm_defs(d, dt, layers=n),
+            "norm_mlp": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "mlp": mlp_defs(d, cfg.d_ff, cfg.mlp_kind, dt, layers=n),
         }
 
@@ -138,12 +138,12 @@ class RecurrentGemma:
         cfg, dt, hd = self.cfg, self.dtype, self.hd
         d = cfg.d_model
         return {
-            "norm": norm_defs(d, dt, layers=n),
+            "norm": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "wq": ParamDef((n, d, cfg.n_heads, hd), dt),
             "wk": ParamDef((n, d, cfg.n_kv_heads, hd), dt),
             "wv": ParamDef((n, d, cfg.n_kv_heads, hd), dt),
             "wo": ParamDef((n, cfg.n_heads, hd, d), dt),
-            "norm_mlp": norm_defs(d, dt, layers=n),
+            "norm_mlp": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "mlp": mlp_defs(d, cfg.d_ff, cfg.mlp_kind, dt, layers=n),
         }
 
@@ -155,7 +155,7 @@ class RecurrentGemma:
             "rec_a": self._rec_defs(self.n_periods),
             "rec_b": self._rec_defs(self.n_periods),
             "attn": self._attn_defs(self.n_periods),
-            "norm_final": norm_defs(cfg.d_model, self.dtype),
+            "norm_final": norm_defs(cfg.d_model, cfg.norm_kind, self.dtype),
         }
         if self.n_tail_rec:
             defs["rec_tail"] = self._rec_defs(self.n_tail_rec)

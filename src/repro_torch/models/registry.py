@@ -9,7 +9,7 @@ from ..configs.base import ArchConfig
 def get_model(cfg: ArchConfig, device="cuda") -> Any:
     """The port's model for ``cfg`` on ``device`` (default the CUDA device;
     ``device="cpu"`` runs the kernels' plain versions)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from .transformer import TransformerLM
 
         return TransformerLM(cfg, device=device)

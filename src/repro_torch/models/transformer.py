@@ -1,8 +1,15 @@
-"""Decoder-only transformer LM, serving paths (counterpart of the dense
-family's serving methods in ``repro.models.transformer``).
+"""Decoder-only transformer LM, serving paths (counterpart of the serving
+methods of ``repro.models.transformer``, which serves the dense, MoE and VLM
+families).
 
 * Parameters keep the reference's tree and stacked ``(L, ...)`` layout; the
   reference's ``lax.scan`` over layers becomes a loop over layer slices.
+* The block options follow the config as in the reference: RMSNorm or
+  layernorm (with its bias), q/k/v and output biases, SwiGLU, squared-ReLU
+  or GELU MLPs (with biases), a top-k MoE in place of the MLP
+  (``models.moe``), qk-norm, sliding windows (dense ring cache only) and
+  M-RoPE, whose serving positions are the 1-D positions broadcast to three
+  streams (text only; ``prefill`` merges ``patch_embeds`` into the prefix).
 * Two KV layouts, as in the reference: the dense slot cache (full rows, or
   rings of W for sliding-window configs; ``cache_init`` / ``prefill`` /
   ``decode_step``) and the paged pool (``paged_cache_init`` /
@@ -64,6 +71,7 @@ from .layers import (
     embed_defs,
     embed_tokens,
     init_params,
+    m_rope_tables,
     mlp_apply,
     mlp_defs,
     norm_defs,
@@ -71,6 +79,7 @@ from .layers import (
     rope_tables,
     unembed,
 )
+from .moe import moe_apply, moe_defs
 
 Params = Dict[str, Any]
 
@@ -87,23 +96,17 @@ def scatter_lengths(
 
 
 class TransformerLM:
-    """Dense decoder LM on ``device`` (default the CUDA device; raises if
-    there is none — pass ``device="cpu"`` for the plain path)."""
+    """Decoder LM (dense, MoE or VLM backbone) on ``device`` (default the
+    CUDA device; raises if there is none — pass ``device="cpu"`` for the
+    plain path)."""
+
+    FAMILIES = ("dense", "moe", "vlm")
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        unsupported = {
-            "family": cfg.family != "dense",
-            "moe": cfg.is_moe,
-            "m_rope": cfg.m_rope,
-            "use_bias": cfg.use_bias,
-            "norm_kind": cfg.norm_kind != "rmsnorm",
-            "mlp_kind": cfg.mlp_kind != "swiglu",
-        }
-        missing = [k for k, v in unsupported.items() if v]
-        if missing:
+        if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: {missing} not ported yet — the port serves dense "
-                f"RMSNorm/SwiGLU decoders (see ROADMAP.md)"
+                f"{cfg.name}: family {cfg.family!r} is not a TransformerLM family "
+                f"{self.FAMILIES} (see models.registry)"
             )
         self.cfg = cfg
         self.hd = cfg.resolved_head_dim
@@ -119,21 +122,30 @@ class TransformerLM:
         cfg, hd, dt = self.cfg, self.hd, self.dtype
         L = cfg.n_layers
         block: Params = {
-            "norm_attn": norm_defs(cfg.d_model, dt, layers=L),
-            "norm_mlp": norm_defs(cfg.d_model, dt, layers=L),
+            "norm_attn": norm_defs(cfg.d_model, cfg.norm_kind, dt, layers=L),
+            "norm_mlp": norm_defs(cfg.d_model, cfg.norm_kind, dt, layers=L),
             "wq": ParamDef((L, cfg.d_model, cfg.n_heads, hd), dt),
             "wk": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt),
             "wv": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt),
             "wo": ParamDef((L, cfg.n_heads, hd, cfg.d_model), dt),
-            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt, layers=L),
         }
+        if cfg.use_bias:
+            block["bq"] = ParamDef((L, cfg.n_heads, hd), dt, "zeros")
+            block["bk"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros")
+            block["bv"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros")
+            block["bo"] = ParamDef((L, cfg.d_model), dt, "zeros")
         if cfg.qk_norm:
             block["q_norm"] = ParamDef((L, hd), dt, "ones")
             block["k_norm"] = ParamDef((L, hd), dt, "ones")
+        if cfg.is_moe:
+            block["moe"] = moe_defs(L, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.mlp_kind, dt)
+        else:
+            block["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dt, layers=L,
+                                    use_bias=cfg.use_bias)
         return {
             "embed": embed_defs(cfg.vocab_size, cfg.d_model, dt, tie=cfg.tie_embeddings),
             "blocks": block,
-            "norm_final": norm_defs(cfg.d_model, dt),
+            "norm_final": norm_defs(cfg.d_model, cfg.norm_kind, dt),
         }
 
     def init_params(self, seed: int = 0) -> Params:
@@ -144,23 +156,28 @@ class TransformerLM:
 
     def _layer_params(self, params: Params) -> List[Params]:
         """Per-layer views of the stacked block weights, with the projection
-        matrices flattened to 2-D (cached for the last parameter tree)."""
+        matrices flattened to 2-D and the norm parameters in float32 (cached
+        for the last parameter tree)."""
         blocks = params["blocks"]
         if self._layers_src is not blocks:
             cfg, hd = self.cfg, self.hd
             d = cfg.d_model
             layers = []
             f32 = lambda x: x.float()
+            ffn = "moe" if cfg.is_moe else "mlp"
             for l in range(cfg.n_layers):
                 lp: Params = {
-                    "norm_attn": {"scale": f32(blocks["norm_attn"]["scale"][l])},
-                    "norm_mlp": {"scale": f32(blocks["norm_mlp"]["scale"][l])},
+                    "norm_attn": {k: f32(w[l]) for k, w in blocks["norm_attn"].items()},
+                    "norm_mlp": {k: f32(w[l]) for k, w in blocks["norm_mlp"].items()},
                     "wq": blocks["wq"][l].reshape(d, cfg.n_heads * hd),
                     "wk": blocks["wk"][l].reshape(d, cfg.n_kv_heads * hd),
                     "wv": blocks["wv"][l].reshape(d, cfg.n_kv_heads * hd),
                     "wo": blocks["wo"][l].reshape(cfg.n_heads * hd, d),
-                    "mlp": {k: w[l] for k, w in blocks["mlp"].items()},
+                    ffn: {k: w[l] for k, w in blocks[ffn].items()},
                 }
+                if cfg.use_bias:
+                    for name in ("bq", "bk", "bv", "bo"):
+                        lp[name] = blocks[name][l]
                 if cfg.qk_norm:
                     lp["q_norm"] = f32(blocks["q_norm"][l])
                     lp["k_norm"] = f32(blocks["k_norm"][l])
@@ -211,13 +228,26 @@ class TransformerLM:
     # ------------------------------------------------------------------ #
     # Block pieces                                                        #
     # ------------------------------------------------------------------ #
+    def _rope(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A step's rotation tables for ``positions`` (..., seq): RoPE, or
+        M-RoPE over the positions broadcast to three (t, h, w) streams, as
+        the reference's serving paths broadcast them."""
+        cfg = self.cfg
+        if cfg.m_rope:
+            pos3 = positions[..., None].expand(*positions.shape, 3)
+            return m_rope_tables(pos3, self.hd, cfg.rope_theta, cfg.m_rope_sections)
+        return rope_tables(positions, self.hd, cfg.rope_theta)
+
     def _qkv_block(self, x: torch.Tensor, lp: Params):
-        """q/k/v projection + qk-norm: (B, S, D) → three ``bshk`` tensors."""
+        """q/k/v projection (+ biases) + qk-norm: (B, S, D) → three ``bshk``
+        tensors."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = (x @ lp["wq"]).view(b, s, cfg.n_heads, self.hd)
         k = (x @ lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
         v = (x @ lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
+        if cfg.use_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
             k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -225,12 +255,25 @@ class TransformerLM:
 
     def _attn_out(self, attn: torch.Tensor, lp: Params) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return attn.reshape(b, s, -1) @ lp["wo"]
+        out = attn.reshape(b, s, -1) @ lp["wo"]
+        if self.cfg.use_bias:
+            out = out + lp["bo"]
+        return out
 
     def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
+        """Norm and MLP (or MoE, whose groups and capacity follow ``h``'s
+        shape, as in the reference) with the residual."""
         cfg = self.cfg
         x = apply_norm(h, lp["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
-        return h + mlp_apply(x, lp["mlp"], cfg.mlp_kind)
+        if cfg.is_moe:
+            out, _ = moe_apply(
+                x, lp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
+                mlp_kind=cfg.mlp_kind, capacity_factor=cfg.moe_capacity_factor,
+                group_size=cfg.moe_group_size,
+            )
+        else:
+            out = mlp_apply(x, lp["mlp"], cfg.mlp_kind)
+        return h + out
 
     def _embed(self, tokens: torch.Tensor, params: Params) -> torch.Tensor:
         return embed_tokens(tokens, params["embed"]).to(self.dtype)
@@ -249,17 +292,20 @@ class TransformerLM:
         params: Params,
         tokens: torch.Tensor,                # (B, S) int32, right-padded
         cache: Dict[str, torch.Tensor],      # dense cache of B rows, updated in place
+        patch_embeds: Optional[torch.Tensor] = None,  # (B, P, D) VLM stub input
         lengths: Optional[torch.Tensor] = None,   # (B,) true prompt lengths
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Process the right-padded prompts, fill the cache and return the
         logits at each prompt's last real token. ``lengths`` defaults to the
         full padded width. Pad positions are computed and written like the
-        reference writes them; ``length`` masks them from every later read."""
+        reference writes them; ``length`` masks them from every later read.
+        A VLM config (``num_patch_tokens > 0``) takes ``patch_embeds`` in
+        place of the first P token embeddings."""
         cfg = self.cfg
         b, s = tokens.shape
         dev = tokens.device
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-        rope = rope_tables(positions, self.hd, cfg.rope_theta)
+        rope = self._rope(positions)
         len_vec = (
             torch.full((b,), s, dtype=torch.int32, device=dev) if lengths is None
             else lengths.to(torch.int32)
@@ -268,6 +314,12 @@ class TransformerLM:
         if ring:
             pos_map = ring_positions_prefill(b, cache["k"].shape[2], len_vec)
         h = self._embed(tokens, params)
+        if patch_embeds is not None and cfg.num_patch_tokens > 0:
+            p = patch_embeds.shape[1]
+            is_patch = (torch.arange(s, device=dev) < p)[None, :, None]
+            merged = torch.zeros_like(h)
+            merged[:, :p] = patch_embeds.to(self.dtype)
+            h = torch.where(is_patch, merged, h)
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
@@ -309,7 +361,7 @@ class TransformerLM:
         positions = starts[:, None] + torch.arange(c, dtype=torch.int32, device=tokens.device)
         tables = cache["block_tables"][slot_ids.long().clamp(0, n_slots - 1)]
         new_lens = starts + chunk_lens
-        rope = rope_tables(positions, self.hd, cfg.rope_theta)
+        rope = self._rope(positions)
         plan = chunk_write_plan(tables, starts, chunk_lens, cache["k"].shape[3], c)
         h = self._embed(tokens, params)
         for l, lp in enumerate(self._layer_params(params)):
@@ -370,8 +422,8 @@ class TransformerLM:
         ch_tables = cache["block_tables"][chunk_slots.long().clamp(0, n_slots - 1)]
         ch_new_lens = chunk_starts + chunk_lens
         page_size = cache["k"].shape[3]
-        rope_d = rope_tables(dec_pos, self.hd, cfg.rope_theta)
-        rope_c = rope_tables(ch_pos, self.hd, cfg.rope_theta)
+        rope_d = self._rope(dec_pos)
+        rope_c = self._rope(ch_pos)
         plan_c = chunk_write_plan(ch_tables, chunk_starts, chunk_lens, page_size, c)
         plan_d = token_write_plan(dec_tables, lengths, dec_active, page_size)
 
@@ -435,7 +487,7 @@ class TransformerLM:
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
         new_lens = lengths + active.to(torch.int32)
-        rope = rope_tables(lengths[:, None], self.hd, cfg.rope_theta)
+        rope = self._rope(lengths[:, None])
         ring = "pos" in cache
         if ring:
             # the ring fills slot p mod W in order, so its valid entries are
@@ -480,7 +532,7 @@ class TransformerLM:
         if active is None:
             active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
         new_lens = lengths + active.to(torch.int32)
-        rope = rope_tables(lengths[:, None], self.hd, cfg.rope_theta)
+        rope = self._rope(lengths[:, None])
         plan = token_write_plan(tables, lengths, active, cache["k"].shape[3])
         h = self._embed(tokens[:, None], params)
         for l, lp in enumerate(self._layer_params(params)):

@@ -402,6 +402,96 @@ def test_cuda_decode_plan_at_the_serving_shapes(card):
 
 
 # --------------------------------------------------------------------------- #
+# Every GQA group of up to 16 (the decoders' (H, KV) at head_dim 128)         #
+# --------------------------------------------------------------------------- #
+# g = 6 (Nemotron-4-15B, Mixtral-8x22B), 7 (Qwen2-VL-7B), 9 (StarCoder2-7B),
+# 1 (LLaMA-65B, OLMoE-1B-7B), and every other g from 1 to 16 on 16 query heads
+# or fewer
+GROUPS = [(48, 8), (28, 4), (36, 4), (64, 64), (16, 16)] + [(g, 1) for g in (3, 5, 10, 11, 12, 13, 14, 15)]
+
+
+@pytest.mark.parametrize("splits", ["one", "plan", "most"])
+@pytest.mark.parametrize("dtype,body", [("float32", da.CUDA_CORES), ("bfloat16", da.TENSOR_CORES)])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_cuda_decode_any_group(card, h, kv, dtype, body, splits):
+    """Kernel 3 at groups that are not powers of two (the CUDA-core body
+    rounds a CTA's heads up to 8 and, at g = 9 to 15, runs a second part of
+    1 to 7 heads; the tensor-core body holds the whole group of up to 16
+    rows), unsplit, at the plan's split count and at the most splits;
+    through the wrapper as well; ragged lengths with an idle lane."""
+    b, s, d = 6, 640, 128
+    g = h // kv
+    group, parts = (g, 1) if body == da.TENSOR_CORES else cta_group(g)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = {"one": 1, "most": s // 32,
+         "plan": da.plan(TDT[dtype], b, h, kv, s, d, n_sms).split.splits}[splits]
+    plan = da.Plan(body, plan_with_splits(n, s, group, parts))
+    gen = torch.Generator(device="cuda").manual_seed(h * kv + n)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(TDT[dtype])
+    k = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    lens = torch.tensor([0, 1, 95, 330, 640, 513], dtype=torch.int32, device="cuda")
+    out = da._launch(q, k, v, lens, d ** -0.5, plan)
+    wrapped = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_plain(q, k, v, lens)
+    for x in (out, wrapped):
+        torch.testing.assert_close(x.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+        assert torch.equal(x[0], torch.zeros_like(x[0]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_cuda_paged_decode_any_group(card, h, kv, dtype):
+    """Kernel 1 at the same groups over shuffled pages, an idle lane."""
+    rng = np.random.default_rng(h * kv)
+    b, d, bs, mb = 6, 128, 16, 40
+    lengths = np.array([0, 1, 95, 330, 640, 513], np.int32)
+    p = b * mb
+    tables = torch.from_numpy(shuffled_tables(rng, b, mb, p, bs, lengths)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(h * kv)
+    q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(TDT[dtype])
+    k = torch.randn(kv, p, bs, d, device="cuda", generator=g).to(TDT[dtype])
+    v = torch.randn(kv, p, bs, d, device="cuda", generator=g).to(TDT[dtype])
+    lens = torch.from_numpy(lengths).cuda()
+    out = pda.paged_decode_attention(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    ref = pda.paged_decode_attention_plain(q, k, v, tables, lens)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_cuda_flash_entries_any_group(card, h, kv, dtype):
+    """Kernel 2 at the same groups: the dense entry on bshk views (causal,
+    and windowed), and the paged chunk entry with a pad row."""
+    rng = np.random.default_rng(h + kv)
+    d = 128
+    g = torch.Generator(device="cuda").manual_seed(h + kv)
+    q, k, v = (_bshk(2, 160, n, d, dtype, g) for n in (h, kv, kv))
+    for window in (0, 48):
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        ref = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       causal=True, window=window)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    r, c, bs, mb = 4, 32, 16, 20
+    p = r * mb
+    starts = np.array([0, 64, 256, 0], np.int32)
+    valid = starts + np.array([32, 17, 5, 0], np.int32)
+    tables = shuffled_tables(rng, r - 1, mb, p, bs, valid[:-1])
+    tables = np.concatenate([tables, tables[-1:]])
+    args = [torch.randn(*shape, device="cuda", generator=g).to(TDT[dtype])
+            for shape in ((r, c, h, d), (kv, p, bs, d), (kv, p, bs, d))]
+    args += [torch.from_numpy(x).cuda() for x in (tables, starts, valid)]
+    out = fa.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    ref = fa.paged_chunk_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+
+
+# --------------------------------------------------------------------------- #
 # Page-copy migration and the fleet on the card                               #
 # --------------------------------------------------------------------------- #
 def _smoke_model(dtype, device):

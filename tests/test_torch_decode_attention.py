@@ -15,6 +15,7 @@ import torch
 from repro.kernels.ops import decode_attention as ref_decode
 from repro.kernels.ref import decode_attention_ref
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels.flash_attention import check_head_dim
 from torch_port_arrays import to_np
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -130,11 +131,12 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         da.decode_attention(q.half(), k.half(), k.half(), lengths)
     with pytest.raises(ValueError):                     # lengths not int32
         da.decode_attention(q, k, k, lengths.long())
-    with pytest.raises(ValueError):                     # head_dim 32 not served
-        da.decode_attention(torch.zeros(2, 4, 32), torch.zeros(2, 2, 8, 32),
-                            torch.zeros(2, 2, 8, 32), lengths)
-    with pytest.raises(ValueError):                     # group of 3
-        da.decode_attention(torch.zeros(2, 6, 16), k, k, lengths)
+    with pytest.raises(ValueError):                     # head_dim 32: no variant
+        check_head_dim("decode_attention", 32, da._HEAD_DIMS)
+    with pytest.raises(ValueError):                     # group of 17
+        da.decode_attention(torch.zeros(2, 34, 16), k, k, lengths)
+    with pytest.raises(ValueError):                     # H not a multiple of KV
+        da.decode_attention(torch.zeros(2, 5, 16), k, k, lengths)
     with pytest.raises(ValueError):                     # head_dim not contiguous
         da.decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), k, lengths)
     with pytest.raises(ValueError):                     # batch mismatch

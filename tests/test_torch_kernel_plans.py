@@ -171,7 +171,44 @@ DENSE_SHAPES = [
     (torch.bfloat16, 0, 32, 8, 640, 128),     # no slot at all
     (torch.bfloat16, 8, 32, 8, 4096, 128),    # 4096 keys
     (torch.bfloat16, 2, 8, 8, 1, 64),         # one key a row
+    (torch.bfloat16, 8, 64, 64, 640, 128),    # LLaMA-65B (MHA, g = 1)
+    (torch.bfloat16, 8, 48, 8, 640, 128),     # Nemotron-4-15B, Mixtral-8x22B (g = 6)
+    (torch.bfloat16, 8, 28, 4, 640, 128),     # Qwen2-VL-7B (g = 7)
+    (torch.bfloat16, 8, 36, 4, 640, 128),     # StarCoder2-7B (g = 9)
+    (torch.float32, 8, 36, 4, 640, 128),      # the same in float32: two head parts
 ]
+
+
+@pytest.mark.parametrize("h,kv", [(48, 8), (28, 4), (36, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_decode_plan_at_groups_that_are_not_powers_of_two(h, kv, dtype):
+    """g = 6, 7 and 9 at head_dim 128: the tensor-core body holds the whole
+    group in one CTA; the CUDA-core body rounds a CTA up to 8 heads, in one
+    part for g = 6 and 7 and two for g = 9 (the second holding one head).
+    The split scratch holds a (D + 2)-float partial for every head slot of
+    every part: B x KV x parts x splits x group x (D + 2) floats and one
+    ticket a (slot, KV head, part)."""
+    from repro_torch.kernels import decode_attention as da
+
+    b, s, d, g = 8, 640, 128, h // kv
+    p = da.plan(dtype, b, h, kv, s, d, H100_SMS)
+    sp = p.split
+    if dtype == torch.bfloat16:
+        assert p.body == da.TENSOR_CORES and (sp.group, sp.parts) == (g, 1)
+    else:
+        assert p.body == da.CUDA_CORES and sp.group == 8 and sp.parts == (1 if g <= 8 else 2)
+    assert sp.group * sp.parts >= g > sp.group * (sp.parts - 1)
+    floats, tickets = sp.scratch(b, kv, d)
+    if sp.splits == 1:
+        assert (floats, tickets) == (0, 0)
+    else:
+        assert floats == b * kv * sp.parts * sp.splits * sp.group * (d + 2)
+        assert tickets == b * kv * sp.parts
+    # forced split counts size the scratch the same way
+    for n in (2, 5, 20):
+        forced = pda.plan_with_splits(n, s, sp.group, sp.parts)
+        assert forced.scratch(b, kv, d) == (b * kv * sp.parts * n * sp.group * (d + 2),
+                                            b * kv * sp.parts)
 
 
 @pytest.mark.parametrize("dtype,b,h,kv,s,d", DENSE_SHAPES)

@@ -170,9 +170,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         pda.paged_decode_attention(q.half(), pool.half(), pool.half(), tables, lengths)
     with pytest.raises(ValueError):
         pda.paged_decode_attention(q, pool, pool, tables.long(), lengths)
-    with pytest.raises(ValueError):
-        pda.paged_decode_attention(torch.zeros(2, 1, 4, 24), torch.zeros(2, 6, 4, 24),
-                                   torch.zeros(2, 6, 4, 24), tables, lengths)
+    with pytest.raises(ValueError):   # head_dim 24: no variant
+        fa.check_head_dim("paged_decode_attention", 24, pda._HEAD_DIMS)
+    with pytest.raises(ValueError):   # pool head_dim differs from q's
+        pda.paged_decode_attention(torch.zeros(2, 1, 4, 24), pool, pool, tables, lengths)
     with pytest.raises(ValueError):   # non-contiguous pages
         pda.paged_decode_attention(q, pool.transpose(2, 3), pool, tables, lengths)
     with pytest.raises(ValueError):

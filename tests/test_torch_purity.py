@@ -67,17 +67,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_serve_launcher_offers_only_the_archs_the_engine_serves(capsys):
-    """RecurrentGemma has no fused ``decode_steps``: the Engine's launcher
-    refuses it (the reference's offers it and crashes at the first decode
-    stage); ``generate_waves`` serves it."""
-    from repro_torch.configs import ARCH_IDS
+    """The reference launcher's archs (``repro/launch/serve.py:53``) less what
+    the port's Engine cannot take: RecurrentGemma has no fused
+    ``decode_steps``, so the Engine's launcher refuses it (the reference's
+    offers it and crashes at the first decode stage; ``generate_waves``
+    serves it), and xLSTM is not ported. LLaMA-65B is off both lists."""
+    from repro_torch.configs import ARCH_IDS, EXTRA_IDS
     from repro_torch.launch import serve
 
-    assert "recurrentgemma_9b" in ARCH_IDS
-    assert serve.ENGINE_ARCHS == ("qwen3_8b",)
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "recurrentgemma_9b", "--device", "cpu"])
-    assert "invalid choice" in capsys.readouterr().err
+    assert "recurrentgemma_9b" in ARCH_IDS and EXTRA_IDS == ["llama_65b"]
+    assert serve.ENGINE_ARCHS == ("mixtral_8x22b", "olmoe_1b_7b", "qwen3_8b", "starcoder2_7b",
+                                  "granite_3_8b", "nemotron_4_15b", "qwen2_vl_7b")
+    for arch in ("recurrentgemma_9b", "llama_65b"):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", arch, "--device", "cpu"])
+        assert "invalid choice" in capsys.readouterr().err
 
 
 def test_kernels_build_for_sm90a_from_the_checkout():

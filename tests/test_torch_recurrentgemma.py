@@ -150,10 +150,17 @@ def test_full_size_config_and_parameter_count():
 
 
 def test_registry_maps_families():
+    """hybrid → RecurrentGemma; dense, moe and vlm → TransformerLM, as in the
+    reference; the families still unported (ssm, audio) raise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import TransformerLM
+
     assert isinstance(get_model(CFG, device="cpu"), RecurrentGemma)
-    moe = dataclasses.replace(CFG, family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(moe, device="cpu")
+    for arch in ("qwen3_8b", "olmoe_1b_7b", "qwen2_vl_7b"):
+        assert isinstance(get_model(get_smoke_config(arch), device="cpu"), TransformerLM)
+    for family in ("ssm", "audio"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(dataclasses.replace(CFG, family=family), device="cpu")
 
 
 def test_prefill_matches_reference(runs):
