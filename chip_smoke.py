@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --sweep    # kernel plans and L2 states, timed
+    python3 chip_smoke.py --train    # the training path's kernels and phase train alone
 
 Phases, each printing its seconds on a line of its own:
 
@@ -33,7 +34,15 @@ Phases, each printing its seconds on a line of its own:
              bits; then kernels 1, 2 (both entries) and 3 (bf16 and float32)
              at the other decoders' (H, KV) at head_dim 128 — (64, 64),
              (36, 4), (48, 8), (28, 4), (16, 16) — timed at LLaMA-65B's and
-             StarCoder2-7B's;
+             StarCoder2-7B's; and the training path's kernels: kernel 2's
+             forward with its log-sum-exp and the backward kernel
+             (flash_attention_bwd.cu) at Qwen3-8B's attention (B 2, 32/8
+             heads, S 2048, head_dim 128, bf16, causal; timed on both
+             bodies, beside its bound, its plain version and one SDPA
+             forward + backward), a window of 256, LLaMA-65B's 64/64 heads
+             and float32 at the smoke shape, against the plain versions,
+             one device kernel a forward and two a backward (dQ, dK/dV),
+             two calls bit-equal;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -100,14 +109,32 @@ Phases, each printing its seconds on a line of its own:
              rounds, ms a decode round beside the weight-read floor, peak
              memory; then one fused decode stage under the profiler, whose
              device busy share says whether the device or the host paces
-             it.
+             it;
+7. train   — the training path (repro_torch.train, its kernels checked
+             in phase kernels): the float32 smoke Qwen3, OLMoE, Qwen2-VL and Mixtral, card
+             against CPU: loss and every gradient leaf, one AdamW step on
+             identical gradients, three train() steps (two microbatches,
+             remat) from one step-0 checkpoint, flash launches exact; the
+             smoke Qwen3 trained 60 steps on the card (loss drops >= 0.3)
+             and 9 steps against 6 + save + resume for 3; then Qwen3-8B at
+             its published widths cut to 12 of 36 layers (AdamW's float32
+             moments must fit in 80 GB), bf16, batch 2 x 2048, two
+             microbatches, remat, 8 steps of train(): losses finite,
+             grad_norm > 0, count 8, parameters changed, launches exact;
+             step ms, tokens/s, model-FLOPs utilisation, peak memory and
+             the device busy share of one profiled step, beside the card.
 
-Then one JSON line naming every ported kernel (kernel 2 once per entry, and
-kernels 2 and 3 again at RecurrentGemma's shapes, kernels 1-3 again at
-LLaMA-65B's and StarCoder2-7B's) with its launches on each path (flash's
-also by device body) and this run's times, and, last,
+Then one JSON line of the train phase's numbers, one JSON line naming every
+ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
+RecurrentGemma's shapes, kernels 1-3 again at LLaMA-65B's and
+StarCoder2-7B's, the flash backward at the training shape) with its
+launches on each path (flash's also by device body) and this run's times,
+and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
+
+``--train`` builds the kernels and runs the training path's kernel checks
+and phase 7 (train) alone, printing their numbers as one JSON line.
 
 ``--sweep`` builds the kernels and times, each checked against its plain
 version: paged decode attention at the Qwen3-8B serving shape at every
@@ -143,6 +170,12 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 RGLRU_TOL = 1e-5                 # the scan vs its plain version (float32)
 LOGITS_TOL = 1e-4                                   # float32 model logits, card vs CPU
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # a kernel vs its plain version
+# float32 smoke training, card vs CPU: each gradient leaf within this much of
+# the leaf's largest magnitude. Without qk-norm the smoke configs' gradients
+# are ill-conditioned enough that the reference and the port's CPU path
+# themselves disagree by up to 1e-4 on these inputs
+# (tests/test_torch_train.py::test_float32_disagreement_on_the_card_checks_inputs).
+TRAIN_GRAD_TOL = 5e-4
 # The serve (slot length, dense prefill buckets, requests) is defined once, in
 # repro_torch.launch.profile_step, which profiles its stages.
 
@@ -565,6 +598,7 @@ def run_kernel_checks(torch, np):
         results.update(check_attention_kernels(torch, np, F, flush, label, h, kv, 128,
                                                timed=label in TIMED_FAMILY))
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
+    results[("flash_attention_backward", "qwen3-8b train")] = run_train_kernel_checks(torch, np, F)
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         tiles = r.get("ms_by_tile")
@@ -870,11 +904,12 @@ def kernel_modules():
     """Each ported kernel's wrapper module by launch-count name."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import paged_decode_attention as pda
     from repro_torch.kernels import rglru
 
     return {"paged_decode_attention": pda, "flash_attention": fa, "decode_attention": da,
-            "rglru_scan": rglru}
+            "rglru_scan": rglru, "flash_attention_backward": fb}
 
 
 def check_flash_variants(path, launches):
@@ -890,12 +925,14 @@ def check_flash_variants(path, launches):
 
 
 def check_launches(path, launches, expect):
-    """Every kernel launched exactly as often as the path implies, and each
-    kernel of the path at least once."""
+    """Every kernel launched exactly as often as the path implies (a kernel
+    that ``expect`` does not name, as the training backward on a serving
+    path, exactly 0 times), and each kernel of the path at least once."""
     print(f"  {path} launches: {json.dumps(launches)} (expected {json.dumps(expect)})", flush=True)
     for name, n in launches.items():
-        check(n == expect[name], f"{path}: {name}: {n} launches, the path implies {expect[name]}")
-        if expect[name]:
+        want = expect.get(name, 0)
+        check(n == want, f"{path}: {name}: {n} launches, the path implies {want}")
+        if want:
             check(n > 0, f"{path}: {name} was never launched on its path")
 
 
@@ -1590,6 +1627,10 @@ KERNELS = (
      "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
     ("rglru_scan", "rglru_scan", "recurrentgemma-9b", "rglru_scan", "recurrentgemma",
      "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81"),
+    ("flash_attention_backward", "flash_attention_backward", "qwen3-8b train", "flash_attention_backward",
+     "train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
+     "(the gradient of kernel 2's function; no Pallas kernel)"),
 ) + tuple(
     (f"{name}_{arch.split('_')[0]}", name, label, count, f"{arch} {layout}", f"src/repro_torch/kernels/csrc/{src}.cu",
      replaces)
@@ -1778,10 +1819,430 @@ def run_sweep(torch, np):
             "l2_states": l2}
 
 
+# --------------------------------------------------------------------------- #
+# Training                                                                    #
+# --------------------------------------------------------------------------- #
+# The backward kernel's shapes: Qwen3-8B's attention at the train run's
+# sequence (timed), a sliding window, LLaMA-65B's MHA, and float32 at the
+# smoke shape.
+TRAIN_KERNEL_CASES = (
+    ("qwen3-8b", dict(b=2, h=32, kv=8, s=2048, d=128, window=0, dtype="bfloat16")),
+    ("window 256", dict(b=2, h=32, kv=8, s=1024, d=128, window=256, dtype="bfloat16")),
+    ("llama-65b", dict(b=1, h=64, kv=64, s=2048, d=128, window=0, dtype="bfloat16")),
+    ("smoke", dict(b=2, h=4, kv=2, s=64, d=16, window=0, dtype="float32")),
+)
+TRAIN_LAYERS = 12                 # full-width Qwen3-8B cut to 12 of its 36 layers
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 2, 2048, 2
+TRAIN_PARITY = ("qwen3_8b", "olmoe_1b_7b", "qwen2_vl_7b", "mixtral_8x22b")
+
+
+def attention_pairs(s, window):
+    """(query, key) pairs a causal (windowed) self-attention of length s sees."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+
+
+def flash_backward_bound(q, k, window):
+    """Five products of the visible pairs (S, dP, dV, dQ, dK: 10 D flops a
+    pair and head) against reading q, k, v, o, dO and lse once and writing
+    dq, dk and dv once."""
+    b, h, s, d = q.shape
+    e = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * e + b * h * s * 4
+    flops = 10 * d * h * b * attention_pairs(s, window)
+    peak = F32_FLOPS_PER_S if e == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(torch, out, ref, tol, what):
+    """Largest error relative to the reference's largest magnitude (a
+    gradient's scale is set by the whole tensor, and bf16 inputs round at
+    other places in the plain version's float32 einsums)."""
+    out, ref = out.float(), ref.float()
+    check(bool(torch.isfinite(out).all()), f"{what}: not finite")
+    err = float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    check(err <= tol, f"{what}: relative error {err:.3g} over {tol}")
+    return err
+
+
+def run_train_kernel_checks(torch, np, F):
+    """Kernel 2's forward with the log-sum-exp and the backward kernel at
+    TRAIN_KERNEL_CASES against their plain versions, one device kernel a
+    forward and one a backward pass (dQ, then dK/dV) a call, two calls equal
+    bit for bit; at Qwen3-8B's shape the cold-L2 times of the backward, its
+    plain version, the forward with the log-sum-exp, and one SDPA forward
+    plus backward on the same inputs (the yardstick, never called by the
+    port). Returns the timed row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    row = None
+    for label, c in TRAIN_KERNEL_CASES:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        dt = getattr(torch, c["dtype"])
+        mk = lambda n: torch.randn(c["b"], c["s"], n, c["d"], device="cuda", generator=g).to(dt).transpose(1, 2)
+        q, k, v, do = mk(c["h"]), mk(c["kv"]), mk(c["kv"]), mk(c["h"])
+        w = c["window"]
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=w, return_lse=True)
+        grads = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL[c["dtype"]]
+        ref_lse = fa.flash_attention_lse_plain(q, k, causal=True, window=w)
+        err_lse = float((lse - ref_lse).abs().max())
+        check(err_lse <= KERNEL_TOL["float32"] * (1 + float(ref_lse.abs().max())),
+              f"flash lse [{label}]: max err {err_lse:.3g}")
+        refs = fb.flash_attention_backward_plain(q, k, v, out, ref_lse, do, causal=True, window=w)
+        errs = {f"d{n}": rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] d{n}")
+                for n, a, b in zip("qkv", grads, refs)}
+        del refs
+        fwd_names = device_kernels(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=w, return_lse=True))
+        bwd_names = device_kernels(torch, lambda: fb.flash_attention_backward(
+            q, k, v, out, lse, do, causal=True, window=w))
+        check(len(fwd_names) == 1, f"flash forward [{label}] ran {fwd_names}")
+        check(len(bwd_names) == 2 and "dq" in bwd_names[0] and "dkv" in bwd_names[1],
+              f"flash backward [{label}] ran {bwd_names}")
+        again = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(grads, again)),
+              f"flash backward [{label}]: two calls differ")
+        print(f"  flash_attention_backward [{label}] {tuple(q.shape)} kv {c['kv']} window {w} {c['dtype']}: "
+              f"lse max err {err_lse:.3g}, rel err {json.dumps(errs)} (tol {tol}), forward one device "
+              f"kernel, backward two ({bwd_names[0][:40]}, {bwd_names[1][:40]}), two calls equal", flush=True)
+        if label == "qwen3-8b":
+            qs, ks, vs, dos = (x.detach().clone() for x in (q, k, v, do))
+            leaves = [x.requires_grad_(True) for x in (qs, ks, vs)]
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+                return torch.autograd.grad(o, leaves, dos)
+
+            def ours_fwd_bwd():
+                o, l = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+                return fb.flash_attention_backward(q, k, v, o, l, do, causal=True)
+
+            bound_ms, bound_by = flash_backward_bound(q, k, w)
+            row = dict(
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(grads, fb.flash_attention_backward_plain(
+                                    q, k, v, out, ref_lse, do, causal=True))),
+                rel_err=max(errs.values()),
+                ms=time_ms(torch, lambda: fb.flash_attention_backward(q, k, v, out, lse, do, causal=True),
+                           flush, iters=10, warmup=2),
+                plain_ms=time_ms(torch, lambda: fb.flash_attention_backward_plain(
+                    q, k, v, out, lse, do, causal=True), flush, iters=5, warmup=1),
+                forward_lse_ms=time_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, causal=True, return_lse=True), flush, iters=10, warmup=2),
+                forward_backward_ms=time_ms(torch, ours_fwd_bwd, flush, iters=10, warmup=2),
+                library_ms=time_ms(torch, sdpa_fwd_bwd, flush, iters=10, warmup=2),
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            print(f"  flash_attention_backward [{label}] timed: backward {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{row['ms'] / bound_ms:.1f}x); forward with lse {row['forward_lse_ms']:.4f} ms; "
+                  f"forward + backward {row['forward_backward_ms']:.4f} ms against SDPA forward + backward "
+                  f"{row['library_ms']:.4f} ms", flush=True)
+        del q, k, v, do, out, lse, grads, again
+        torch.cuda.empty_cache()
+    return row
+
+
+def _train_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    return fa.launch_count, fb.launch_count
+
+
+def _reset_train_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    fa.reset_launch_count()
+    fb.reset_launch_count()
+
+
+def train_launches(n_layers, passes, remat):
+    """What a training run implies: kernel 2's forward n_layers x passes x
+    (2 under remat: the recompute), the backward n_layers x passes."""
+    return {"flash_attention": n_layers * passes * (2 if remat else 1),
+            "flash_attention_backward": n_layers * passes}
+
+
+def check_train_launches(what, n_layers, passes, remat):
+    """The flash forward and backward launched exactly as the run implies."""
+    got = dict(zip(("flash_attention", "flash_attention_backward"), _train_counts()))
+    want = train_launches(n_layers, passes, remat)
+    print(f"  {what} launches: {json.dumps(got)} (expected {json.dumps(want)})", flush=True)
+    check(got == want, f"{what}: flash launches {got}, the path implies {want}")
+
+
+def _step0_checkpoint(params_cpu, directory):
+    """A step-0 checkpoint of the CPU model's parameters and a fresh AdamW
+    state: train() on either device resumes from it, so both start from the
+    same weights (each device's generator draws other numbers)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.train.optimizer import adamw_init
+
+    save_checkpoint(directory, 0, {"params": params_cpu, "opt": adamw_init(params_cpu)})
+
+
+def run_train_parity(torch, np):
+    """TRAIN_PARITY's float32 smoke configs (every weight perturbed off its
+    init), card against CPU: the loss (1e-4) and every gradient leaf
+    (TRAIN_GRAD_TOL relative to the leaf's largest magnitude), one AdamW
+    step on identical gradients
+    (the CPU's, copied to the card), and three train() steps (two
+    microbatches, remat) from the same step-0 checkpoint at train()'s
+    default optimizer (lr 1e-4, warmup 10: the reference's); flash launches
+    exact. At lr 1e-2 the smoke OLMoE's losses drifted apart by 5e-4 in
+    three steps with gradients equal to 1e-6: AdamW's first steps are
+    sign-like, so where an element's gradient is near 0 the two devices can
+    step it 2 lr apart, and the next steps (and the MoE's routing) see it."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import _leaves as leaves_of
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, synthetic_batches, train
+
+    for arch in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        (cpu, p_cpu), (card, p_card) = _card_and_cpu(torch, cfg, perturb=True)
+        tc = TrainConfig(steps=3, batch=4, seq=32, microbatches=2, remat=True, log_every=0)
+        batch = next(synthetic_batches(cfg, tc))
+        grads = {}
+        for dev, m, p in (("cpu", cpu, p_cpu), ("cuda", card, p_card)):
+            leaves = [(path, t.detach().clone().requires_grad_(True)) for path, t in leaves_of(p)]
+            tree = {}
+            for path, t in leaves:
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = t
+            _reset_train_counts()
+            loss = m.loss(tree, {k: x.to(dev) for k, x in batch.items()}, remat=True)
+            gs = torch.autograd.grad(loss, [t for _, t in leaves])
+            grads[dev] = (float(loss.detach()), {path: g.cpu() for (path, _), g in zip(leaves, gs)})
+            if dev == "cuda":
+                check_train_launches(f"smoke {arch} loss + grad", cfg.n_layers, 1, True)
+        loss_err = abs(grads["cpu"][0] - grads["cuda"][0])
+        check(loss_err <= LOGITS_TOL, f"smoke {arch}: loss card vs CPU {loss_err:.3g}")
+        worst = 0.0
+        for path, g in grads["cpu"][1].items():
+            e = float((grads["cuda"][1][path] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+            check(e <= TRAIN_GRAD_TOL, f"smoke {arch} grad {'/'.join(path)}: card vs CPU {e:.3g}")
+            worst = max(worst, e)
+        # one AdamW step on the same gradients
+        g_cpu = {}
+        for path, g in grads["cpu"][1].items():
+            node = g_cpu
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = g
+        cfg_opt = opt.AdamWConfig(lr=1e-2, warmup_steps=1)
+        new_cpu, _, m_cpu = opt.adamw_update(g_cpu, opt.adamw_init(p_cpu), tree_map(torch.clone, p_cpu),
+                                             cfg_opt)
+        new_card, _, m_card = opt.adamw_update(tree_map(lambda x: x.cuda(), g_cpu),
+                                               opt.adamw_init(p_card), tree_map(torch.clone, p_card), cfg_opt)
+        step_err = max(float((b.cpu() - a).abs().max()) for (_, a), (_, b) in
+                       zip(leaves_of(new_cpu), leaves_of(new_card)))
+        check(step_err <= 1e-6, f"smoke {arch}: AdamW step on identical gradients card vs CPU {step_err:.3g}")
+        # three train() steps from one step-0 checkpoint
+        losses = {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for dev in ("cpu", "cuda"):
+                d = Path(tmp) / dev
+                _step0_checkpoint(p_cpu, d)
+                _reset_train_counts()
+                out = train(cfg, dataclasses.replace(tc, checkpoint_dir=str(d), save_every=100),
+                            device=dev)
+                losses[dev] = out["losses"]
+                if dev == "cuda":
+                    check_train_launches(f"smoke {arch} train()", cfg.n_layers, 3 * 2, True)
+        train_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        check(len(losses["cuda"]) == 3 and train_err <= LOGITS_TOL,
+              f"smoke {arch}: train() losses card {losses['cuda']} vs CPU {losses['cpu']}")
+        print(f"  smoke {arch} float32 training card vs CPU: loss err {loss_err:.3g}, worst gradient leaf "
+              f"{worst:.3g} (relative), AdamW step on identical gradients {step_err:.3g}, grad_norm "
+              f"{float(m_card['grad_norm']):.6g} vs {float(m_cpu['grad_norm']):.6g}, three train() steps "
+              f"{json.dumps(losses['cuda'])} vs {json.dumps(losses['cpu'])} (max err {train_err:.3g})",
+              flush=True)
+
+
+def run_train_loop_checks(torch):
+    """On the card: the smoke Qwen3 (bf16, as configured) trained 60 steps
+    loses at least 0.3 (the reference's test_train_loss_decreases); the
+    float32 smoke Qwen3 trained 9 steps in one run equals 6 steps, a
+    CheckpointManager save and a resume for 3 more (losses within 1e-6;
+    whether bit-equal is printed)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import _leaves as leaves_of
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    cfg = get_smoke_config("qwen3_8b")
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    out = train(cfg, TrainConfig(steps=60, batch=4, seq=32, log_every=0),
+                AdamWConfig(lr=5e-3, warmup_steps=5), device="cuda")
+    check_train_launches("smoke qwen3 60 steps", cfg.n_layers, 60, False)
+    drop = out["first_loss"] - out["last_loss"]
+    check(drop >= 0.3, f"smoke qwen3: loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}")
+    print(f"  smoke qwen3 ({cfg.dtype}) 60 steps on the card: loss {out['first_loss']:.4f} -> "
+          f"{out['last_loss']:.4f} (drop {drop:.4f} >= 0.3), {time.perf_counter() - t0:.2f} s", flush=True)
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    kw = dict(batch=2, seq=16, save_every=3, log_every=0)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        whole = train(cfg, TrainConfig(steps=9, **kw), device="cuda")
+        first = train(cfg, TrainConfig(steps=6, checkpoint_dir=tmp, **kw), device="cuda")
+        rest = train(cfg, TrainConfig(steps=9, checkpoint_dir=tmp, **kw), device="cuda")
+    resumed = first["losses"] + rest["losses"]
+    check((rest["start_step"], rest["steps_run"]) == (6, 3), f"resume: {rest['start_step']}, {rest['steps_run']}")
+    err = max(abs(a - b) for a, b in zip(resumed, whole["losses"]))
+    check(len(resumed) == 9 and err <= 1e-6, f"resume: losses {resumed} vs {whole['losses']}")
+    same = all(bool(torch.equal(a, b)) for (_, a), (_, b) in zip(leaves_of(whole["params"]),
+                                                                 leaves_of(rest["params"])))
+    print(f"  smoke qwen3 float32 on the card: 9 steps in one run vs 6 + save + resume for 3: losses max "
+          f"err {err:.3g}, losses bit-equal {resumed == whole['losses']}, parameters bit-equal {same}",
+          flush=True)
+
+
+def run_full_width_train(torch, np, smi):
+    """Qwen3-8B at its published widths, cut to TRAIN_LAYERS of 36 layers
+    (AdamW's state must fit in 80 GB), bf16, random weights from seed 0:
+    TRAIN_STEPS steps of train() at batch TRAIN_BATCH x TRAIN_SEQ with
+    TRAIN_MICROBATCHES microbatches and remat. Gates: every loss finite,
+    grad_norm finite and > 0, count == TRAIN_STEPS, parameters changed,
+    exact flash launches. Then one more step under torch.profiler (device
+    busy share). Returns the launches and the measured numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import _measure
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, synthetic_batches, train
+    from repro_torch.train.train_step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("qwen3_8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     microbatches=TRAIN_MICROBATCHES, remat=True, log_every=1)
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2)
+    # a few rows of the initial weights (train() draws the same from the
+    # seed), to show the steps changed them. Not the leaves initialised to 1
+    # (bf16 keeps 1 under steps of ~lr = 1e-4, below half a bf16 step there)
+    # nor embedding rows of tokens the batches never hold (weight decay
+    # alone moves them less than a bf16 step)
+    sample = lambda p: {"unembed": p["embed"]["unembed"][:, :64].clone(),
+                        "wq": p["blocks"]["wq"][0, :64].clone(),
+                        "w_down": p["blocks"]["mlp"]["w_down"][-1, :64].clone()}
+    init = TransformerLM(cfg, device="cuda").init_params(tc.seed)
+    before = sample(init)
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    out = train(cfg, tc, opt_cfg, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
+    check_launches("qwen3-8b train", launches,
+                   train_launches(cfg.n_layers, TRAIN_STEPS * TRAIN_MICROBATCHES, True))
+    check_flash_variants("qwen3-8b train", launches)
+    by_body = kernels["flash_attention_backward"].launch_count_by_variant
+    print(f"  qwen3-8b train flash backward launches by body: {json.dumps(by_body)}")
+    check(by_body["tensor_cores"] == launches["flash_attention_backward"],
+          "bf16 flash backward off the tensor-core body")
+    params, state = out["params"], out["opt_state"]
+    n_params = sum(x.numel() for x in _leaves(params))
+    check(all(np.isfinite(out["losses"])), f"train losses not finite: {out['losses']}")
+    check(all(np.isfinite(out["grad_norms"])) and min(out["grad_norms"]) > 0,
+          f"grad norms {out['grad_norms']}")
+    check(int(state["count"]) == TRAIN_STEPS, f"count {int(state['count'])}")
+    changed = {name: float((x != before[name]).float().mean()) for name, x in sample(params).items()}
+    print(f"  qwen3-8b train: share of sampled weights the steps changed {json.dumps(changed)}")
+    check(all(share > 0 for share in changed.values()), f"parameters did not change: {changed}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = out["step_s"][1:]
+    step_s = statistics.median(steady)
+    hd, s = cfg.resolved_head_dim, TRAIN_SEQ
+    n_blocks = sum(x.numel() for x in _leaves(params["blocks"]))
+    model_flops = (6 * (n_blocks + cfg.d_model * cfg.vocab_size) * tokens
+                   + 12 * hd * cfg.n_heads * cfg.n_layers * TRAIN_BATCH * attention_pairs(s, 0))
+    mfu = model_flops / step_s / BF16_FLOPS_PER_S
+    # one more step of the same work under the profiler
+    model = TransformerLM(cfg, device="cuda")
+    step_fn = make_train_step(model, opt_cfg, microbatches=TRAIN_MICROBATCHES, remat=True)
+    batch = next(synthetic_batches(cfg, tc, "cuda"))
+    prof = _measure("train step", lambda: step_fn(params, state, batch), iters=1, kernels=True)
+    if not prof["kernels_launched"]:
+        # every trace came back empty: the profiled numbers are not measured
+        prof.update(device_busy_share=None, device_ms=None)
+    by_kind = {}
+    for name, us in prof["kernel_us"]:
+        kind = ("flash" if "flash_" in name else
+                "gemm" if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
+                "elementwise, reductions, copies")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    # the optimizer alone: one adamw_update (global norm, clip, moments,
+    # the in-place parameter update) on a gradient tree of the params' size
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import adamw_update
+
+    grads = tree_map(torch.zeros_like, params)
+    opt_ms = time_warm_ms(torch, lambda: adamw_update(grads, state, params, opt_cfg), batch=1, reps=3)
+    del grads
+    res = dict(
+        layers=f"{cfg.n_layers} of {full.n_layers}", parameters=n_params, losses=out["losses"],
+        grad_norms=out["grad_norms"], step_s=out["step_s"], step_ms_median=step_s * 1e3,
+        changed_share=changed,
+        tokens_per_s=tokens / step_s, model_flops=model_flops, mfu=mfu, peak_gib=peak,
+        device_busy_share=prof["device_busy_share"], profiled_step_wall_ms=prof["traced_wall_ms"],
+        profiled_step_device_ms=prof["device_ms"], top_kernels=prof["top_kernels"][:6],
+        device_ms_by_kind=by_kind, adamw_update_ms=opt_ms,
+        launches=launches, card=smi,
+    )
+    print(f"  qwen3-8b train ({res['layers']} layers, {n_params / 1e9:.3f} B parameters, bf16, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, remat) on {smi}: losses "
+          f"{json.dumps([round(x, 4) for x in out['losses']])}, step ms {json.dumps([round(1e3 * x, 1) for x in out['step_s']])}, "
+          f"median of steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, "
+          f"model FLOPs {model_flops / 1e12:.2f} T a step, MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOPS, "
+          f"peak {peak:.2f} GiB, device busy share of one step {prof['device_busy_share']} "
+          f"({prof['device_ms']} of {prof['traced_wall_ms']:.1f} ms), device ms by kind "
+          f"{json.dumps(by_kind)}, one adamw_update {opt_ms:.1f} ms, top kernels "
+          f"{json.dumps(prof['top_kernels'][:6])}", flush=True)
+    del model, params, state, out, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_train_phase(torch, np, smi):
+    """Phase train: smoke parity card against CPU, the smoke loop and resume
+    on the card, then full-width Qwen3-8B at 12 of 36 layers (the kernels at
+    the training shapes run in phase kernels, where torch.profiler's traces
+    still hold their device events: late in a long process they come back
+    empty). Returns (the train path's launches, the full-width numbers)."""
+    run_train_parity(torch, np)
+    run_train_loop_checks(torch)
+    full = run_full_width_train(torch, np, smi)
+    return full["launches"], full
+
+
 def main() -> int:
     sweep = sys.argv[1:] == ["--sweep"]
-    if sys.argv[1:] and not sweep:
-        print("usage: chip_smoke.py [--sweep]", file=sys.stderr)
+    train_only = sys.argv[1:] == ["--train"]
+    if sys.argv[1:] and not (sweep or train_only):
+        print("usage: chip_smoke.py [--sweep | --train]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
     import numpy as np
@@ -1819,6 +2280,15 @@ def main() -> int:
         res = run_sweep(torch, np)
         phase("sweep", t0)
         print(json.dumps({"sweep": res, "device": smi}))
+        return 0
+    if train_only:
+        import torch.nn.functional as F
+
+        t0 = time.perf_counter()
+        row = run_train_kernel_checks(torch, np, F)
+        _, res = run_train_phase(torch, np, smi)
+        phase("train", t0)
+        print(json.dumps({"train": res, "flash_attention_backward": row}))
         return 0
 
     t0 = time.perf_counter()
@@ -1892,6 +2362,10 @@ def main() -> int:
     by_variant.update(family_by_variant)
     phase("family", t0)
 
+    t0 = time.perf_counter()
+    launches["train"], train_res = run_train_phase(torch, np, smi)
+    phase("train", t0)
+
     kernels = []
     for kname, key, label, count, layout, source, replaces in KERNELS:
         r = kres[(key, label)]
@@ -1904,7 +2378,10 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **({"launches_by_variant": by_variant[layout],
                 "ms_by_tile": r.get("ms_by_tile")} if count == "flash_attention" else {}),
+            **({k: r[k] for k in ("rel_err", "forward_lse_ms", "forward_backward_ms")}
+               if key == "flash_attention_backward" else {}),
         })
+    print(json.dumps({"train": train_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the hybrid offline-online LLM serving system.
 
 The package mirrors ``src/repro`` module for module (``configs``, ``core``,
-``data``, ``models``, ``kernels``, ``serving``, ``launch``) and imports
-nothing from it. Entry points run on the CUDA device unless the caller
+``data``, ``models``, ``kernels``, ``serving``, ``train``, ``checkpoint``,
+``launch``) and imports nothing from it. Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``; there they use the plain PyTorch versions of the
 hand-written kernels.
 """

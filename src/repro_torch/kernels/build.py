@@ -24,7 +24,8 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_decode_attention", "flash_attention", "decode_attention", "rglru")
+SOURCES = ("paged_decode_attention", "flash_attention", "decode_attention", "rglru",
+           "flash_attention_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

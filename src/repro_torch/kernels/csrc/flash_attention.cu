@@ -66,6 +66,7 @@ struct FlashArgs {
   long long q_sb, q_ss, q_sh, o_sb, o_ss, o_sh;
   long long k_sb, k_skv, k_ss, v_sb, v_skv, v_ss;  // paged: k_ss / v_ss = page stride
   float scale;
+  float* lse;      // dense only, may be null: (B, H, Sq) float32 log-sum-exp
 };
 
 // element offset of key token t in its K (or V) tensor, -1 when masked:
@@ -259,6 +260,9 @@ flash_kernel(FlashArgs a) {
     const float inv = 1.f / fmaxf(l_run[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) store_f(out + qi * a.o_ss + cg + 8 * c, acc[r][c] * inv);
+    // the row's log-sum-exp of the scaled scores (-inf for a row without keys)
+    if (a.lse != nullptr && cg == 0)
+      a.lse[((long long)row * gridDim.y + h) * a.sq + qi] = m_run[r] + logf(l_run[r]);
   }
 }
 
@@ -544,6 +548,7 @@ flash_tc_kernel(FlashArgs a) {
       const float c0 = mx == -CUDART_INF_F ? 0.f : exp2f(m_run[h] - mx);
       const float c1 = mx == -CUDART_INF_F ? 0.f : exp2f(m1 - mx);
       l_run[h] = l_run[h] * c0 + xs[(D / 2 + 2 + h) * 128 + t] * c1;
+      m_run[h] = mx;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         o[4 * j + 2 * h] = o[4 * j + 2 * h] * c0 + xs[(4 * j + 2 * h) * 128 + t] * c1;
@@ -560,6 +565,10 @@ flash_tc_kernel(FlashArgs a) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (f_row[h] >= n_rows) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    // the row's log-sum-exp, from the base-2 running max and sum
+    if (a.lse != nullptr && quad == 0)
+      a.lse[((long long)row * gridDim.y * g + kvh * g + f_row[h] % g) * a.sq + f_row[h] / g] =
+          (m_run[h] + log2f(l)) * 0.6931471805599453f;
     T* dst = out + (kvh * g + f_row[h] % g) * a.o_sh + (f_row[h] / g) * a.o_ss + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -636,18 +645,21 @@ static int dispatch(const FlashArgs& a, int rows, int H, int KV, int D, int dtyp
 using namespace repro_torch;
 
 // Dense entry: q (B, H, Sq, D), k / v (B, KV, Sk, D), out like q. Query i and
-// key j sit at positions i and j. Returns cudaGetLastError() after the launch.
+// key j sit at positions i and j. lse, where not null, receives each row's
+// float32 log-sum-exp (B, H, Sq) contiguous: what the backward recomputes
+// the softmax from (flash_attention_bwd.cu). Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_dense_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KV, int Sq, int Sk, int D, int causal, int window, long long q_sb,
     long long q_sh, long long q_ss, long long o_sb, long long o_sh,
     long long o_ss, long long k_sb, long long k_skv, long long k_ss,
     long long v_sb, long long v_skv, long long v_ss, float scale, int dtype,
-    int tile, void* stream) {
+    int tile, void* lse, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   FlashArgs a{q, k, v, out, nullptr, nullptr, nullptr, Sq, H / KV, Sk, 1, 0,
               causal, window, q_sb, q_ss, q_sh, o_sb, o_ss, o_sh,
-              k_sb, k_skv, k_ss, v_sb, v_skv, v_ss, scale};
+              k_sb, k_skv, k_ss, v_sb, v_skv, v_ss, scale, static_cast<float*>(lse)};
   return dispatch<false>(a, B, H, KV, D, dtype, tile, static_cast<cudaStream_t>(stream));
 }
 

@@ -7,7 +7,11 @@ bf16 at head_dim 64/128/256, a CUDA-core body for the rest; ``variant``).
   ``(B, H, Sq, D)`` x ``(B, KV, Sk, D)``, the reference kernel's contract
   (its oracle is ``kernels/ref.py:flash_attention_ref``); what every prefill
   stage of the dense KV layout runs (``models.attention.attention_any``),
-  on strided views of the model's ``bshk`` tensors.
+  on strided views of the model's ``bshk`` tensors. With
+  ``return_lse=True`` it also returns each row's float32 log-sum-exp
+  ``(B, H, Sq)``, which the training path's backward
+  (``kernels.flash_attention_bwd``) recomputes the softmax from; serving
+  never asks for it, and the kernel then writes none.
 * ``paged_chunk_attention(q, k_pages, v_pages, tables, starts, valid_lens)``
   — what the serving path runs for every prefill-chunk row of
   ``prefill_chunk`` / ``mixed_step``: queries ``(R, C, H, D)`` in the model's
@@ -132,18 +136,38 @@ def flash_attention_plain(
     """Dense form: q (B, H, Sq, D), k/v (B, KV, Sk, D) → (B, H, Sq, D)."""
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     scale = scale if scale is not None else d ** -0.5
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window > 0:
-        mask = mask & (qpos - kpos < window)
+    mask = dense_mask(sq, sk, causal, window, q.device)
     out = masked_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         mask.expand(q.shape[0], sq, sk), scale,
     )
     return out.transpose(1, 2)
+
+
+def flash_attention_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, *,
+    causal: bool = True, window: int = 0, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The dense form's row log-sum-exp: logsumexp over the visible keys of
+    ``scale q k^T`` in float32, (B, H, Sq); -inf for a row without keys."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(b, kv, h // kv, sq, d), k.float())
+    s = torch.where(dense_mask(sq, sk, causal, window, q.device), s * scale, float("-inf"))
+    return torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
+def dense_mask(sq: int, sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is visible to query i (positions i and j)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    return mask
 
 
 def paged_chunk_attention_plain(
@@ -208,7 +232,7 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "flash_attention_dense_launch":
-            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [ctypes.c_float, i, i, p]
+            fn.argtypes = [p, p, p, p] + [i] * 8 + [ll] * 12 + [ctypes.c_float, i, i, p, p]
         else:
             fn.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
@@ -231,26 +255,41 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Dense flash attention (positions 0..Sq-1 and 0..Sk-1)."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention: q (B,H,Sq,D), k/v (B,KV,Sk,D)")
-    b, h, sq, d = q.shape
-    kb, kv, sk, kd = k.shape
-    if kb != b or kd != d:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    _check_common(q, k, v, h, kv, d, (k, v))
+    return_lse: bool = False,
+):
+    """Dense flash attention (positions 0..Sq-1 and 0..Sk-1): the output,
+    or ``(output, lse)`` with ``return_lse``."""
+    check_dense(q, k, v)
+    d = q.shape[3]
     scale = scale if scale is not None else d ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        out = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        if not return_lse:
+            return out
+        return out, flash_attention_lse_plain(q, k, causal=causal, window=window, scale=scale)
     check_head_dim("flash_attention", d, _HEAD_DIMS)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
+    b, h, sq, _ = q.shape
+    kv, sk = k.shape[1], k.shape[2]
     tile = plan(q.dtype, b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
-    return _launch_dense(q, k, v, causal, window, scale, tile)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    out = _launch_dense(q, k, v, causal, window, scale, tile, lse)
+    return (out, lse) if return_lse else out
 
 
-def _launch_dense(q, k, v, causal, window, scale, tile):
+def check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The dense entry's shape, device and dtype checks (the backward's too)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention: q (B,H,Sq,D), k/v (B,KV,Sk,D)")
+    b, h, _, d = q.shape
+    kb, kv, _, kd = k.shape
+    if kb != b or kd != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    _check_common(q, k, v, h, kv, d, (k, v))
+
+
+def _launch_dense(q, k, v, causal, window, scale, tile, lse=None):
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     # q's own strides where q is a permuted dense tensor (a bshk prefill
@@ -263,7 +302,7 @@ def _launch_dense(q, k, v, causal, window, scale, tile):
         out.stride(0), out.stride(1), out.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        float(scale), _DTYPES[q.dtype], tile,
+        float(scale), _DTYPES[q.dtype], tile, None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _count(err, "flash_attention", tile)

@@ -75,7 +75,10 @@ def _fill_pool(model, params, n_slots, context, page_size, max_len, device):
     return cache
 
 
-def _measure(name, fn, iters):
+def _measure(name, fn, iters, kernels=False):
+    """``fn``'s wall (median of ``iters`` after a warm call) and one traced
+    call's device time, busy share and top kernels; with ``kernels``, also
+    every device kernel's (name, µs) of the traced call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -86,20 +89,25 @@ def _measure(name, fn, iters):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    # device-side events are the kernels (and copies) themselves
-    kernels = [e for e in prof.events() if getattr(e.device_type, "name", "") == "CUDA"]
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        # device-side events are the kernels (and copies) themselves
+        kernels = [e for e in prof.events() if getattr(e.device_type, "name", "") == "CUDA"]
+        if kernels:
+            break
+        # late in a long process a trace now and then holds no device event
+        print(f"  {name}: trace {attempt} of 3 held no device event", flush=True)
     by_name: dict = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     device_us = sum(t for _, t in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    return {
+    out = {
         "call": name,
         "wall_ms_median": float(np.median(walls)) * 1e3,
         "traced_wall_ms": traced_wall * 1e3,
@@ -108,6 +116,9 @@ def _measure(name, fn, iters):
         "kernels_launched": len(kernels),
         "top_kernels": [(k[:70], n, t / 1e3) for k, (n, t) in top],
     }
+    if kernels:
+        out["kernel_us"] = [(e.name, e.time_range.elapsed_us()) for e in kernels]
+    return out
 
 
 def main(argv=None):

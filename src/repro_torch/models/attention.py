@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention_bwd import FlashAttentionFn
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -73,11 +74,15 @@ def attention_any(
     mask. Runs the dense entry of ``kernels.flash_attention`` on
     ``(B, H, S, D)`` views of the same memory (no copy), whose plain version
     takes CPU tensors. Query rows past a prompt's length are padding: their
-    output is computed and ignored."""
-    out = flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, scale=scale,
-    )
+    output is computed and ignored. Where autograd records (grad enabled and
+    an input requires grad: the training forward), the same launch goes
+    through ``FlashAttentionFn``, which also saves the row log-sum-exp and
+    differentiates with the backward kernel; serving calls never do."""
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
+    else:
+        out = flash_attention(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
 
 

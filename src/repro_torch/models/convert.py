@@ -10,6 +10,11 @@ float32 ``lam`` and an MoE's float32 ``router`` in a bf16 tree stay
 float32). Both packages then compute the
 same function. bfloat16 leaves (numpy's ``bfloat16`` extension dtype) move
 bit for bit.
+
+``opt_state_from_numpy(state, cfg, device)`` does the same for the
+reference's AdamW state (``adamw_init`` / ``adamw_update`` output, leaves as
+numpy): ``m`` and ``v`` in float32 with the parameters' tree and shapes, and
+``count`` as a 0-dim int32 tensor.
 """
 from __future__ import annotations
 
@@ -31,7 +36,9 @@ def _to_tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
-def params_from_numpy(tree: Tree, cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
+def params_from_numpy(tree: Tree, cfg: ArchConfig, device="cuda", dtype=None) -> Dict[str, Any]:
+    """The port's tree of ``tree``; every leaf in ``dtype`` where given, else
+    in its parameter's own dtype."""
     from .registry import get_model
 
     defs = get_model(cfg, device="cpu").param_defs()
@@ -50,6 +57,15 @@ def params_from_numpy(tree: Tree, cfg: ArchConfig, device="cuda") -> Dict[str, A
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = t.to(device=device, dtype=d.dtype)
+        node[path[-1]] = t.to(device=device, dtype=dtype or d.dtype)
     return out
+
+
+def opt_state_from_numpy(state: Dict[str, Any], cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state of the reference's ``{"m", "v", "count"}``."""
+    return {
+        "m": params_from_numpy(state["m"], cfg, device, dtype=torch.float32),
+        "v": params_from_numpy(state["v"], cfg, device, dtype=torch.float32),
+        "count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=device),
+    }
 

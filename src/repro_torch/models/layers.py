@@ -1,4 +1,5 @@
-"""Layer primitives of the serving path (counterpart of ``repro.models.layers``).
+"""Layer primitives of the serving and training paths (counterpart of
+``repro.models.layers``).
 
 Parameters are declared as ``ParamDef`` trees (shape + init rule) exactly as
 the reference declares them — same shapes, same fan-in scales, same stacked
@@ -256,3 +257,28 @@ def unembed(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     if "unembed" in p:
         return x @ p["unembed"]
     return x @ p["embedding"].T
+
+
+# --------------------------------------------------------------------------- #
+# Training loss                                                               #
+# --------------------------------------------------------------------------- #
+def moe_aux_weight(cfg) -> float:
+    """Load-balancing loss weight (standard 0.01 for Switch-style routers)."""
+    return 0.01 if getattr(cfg, "n_experts", 0) > 0 else 0.0
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,                 # (batch, seq, vocab)
+    labels: torch.Tensor,                 # (batch, seq) int
+    mask: Optional[torch.Tensor] = None,  # (batch, seq), 1 = counted
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in float32 (logsumexp minus
+    the gold logit); with ``mask``, the masked mean over max(sum(mask), 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

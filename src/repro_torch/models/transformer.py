@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, serving paths (counterpart of the serving
-methods of ``repro.models.transformer``, which serves the dense, MoE and VLM
+"""Decoder-only transformer LM, serving and training paths (counterpart of
+``repro.models.transformer``, which serves and trains the dense, MoE and VLM
 families).
 
 * Parameters keep the reference's tree and stacked ``(L, ...)`` layout; the
@@ -32,12 +32,22 @@ families).
   each step computes its RoPE tables and its KV write plan once, and the
   per-layer weights (with float32 norm scales) are sliced once per
   parameter tree.
+* Training: ``forward`` / ``loss`` as in the reference (full causal forward,
+  float32 logits, the MoE aux loss summed over layers). They carry no
+  ``no_grad`` and build each layer's views on every call (no cache, so an
+  in-place optimizer step leaves nothing stale and every call has its own
+  graph); ``remat`` checkpoints each block (``torch.utils.checkpoint``, the
+  reference's ``jax.checkpoint(policy=nothing_saveable)``). Attention runs
+  kernel 2's dense entry forward and the backward kernel
+  (``kernels.flash_attention_bwd``) through ``attention_any``. The serving
+  methods stay under ``no_grad`` and keep their cache.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -68,12 +78,14 @@ from .layers import (
     ParamDef,
     apply_norm,
     apply_rope_tables,
+    cross_entropy_loss,
     embed_defs,
     embed_tokens,
     init_params,
     m_rope_tables,
     mlp_apply,
     mlp_defs,
+    moe_aux_weight,
     norm_defs,
     rms_norm,
     rope_tables,
@@ -154,35 +166,41 @@ class TransformerLM:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_defs(), gen, self.device)
 
+    def _layer_view(self, blocks, l: int) -> Params:
+        """Layer ``l``'s views of the block weights — the stacked tree (each
+        leaf ``(L, ...)``) or a list of per-layer trees — with the
+        projection matrices flattened to 2-D and the norm parameters in
+        float32."""
+        cfg, hd = self.cfg, self.hd
+        d = cfg.d_model
+        f32 = lambda x: x.float()
+        ffn = "moe" if cfg.is_moe else "mlp"
+        at = (lambda w: w[l]) if isinstance(blocks, dict) else (lambda w: w)
+        layer = blocks if isinstance(blocks, dict) else blocks[l]
+        lp: Params = {
+            "norm_attn": {k: f32(at(w)) for k, w in layer["norm_attn"].items()},
+            "norm_mlp": {k: f32(at(w)) for k, w in layer["norm_mlp"].items()},
+            "wq": at(layer["wq"]).reshape(d, cfg.n_heads * hd),
+            "wk": at(layer["wk"]).reshape(d, cfg.n_kv_heads * hd),
+            "wv": at(layer["wv"]).reshape(d, cfg.n_kv_heads * hd),
+            "wo": at(layer["wo"]).reshape(cfg.n_heads * hd, d),
+            ffn: {k: at(w) for k, w in layer[ffn].items()},
+        }
+        if cfg.use_bias:
+            for name in ("bq", "bk", "bv", "bo"):
+                lp[name] = at(layer[name])
+        if cfg.qk_norm:
+            lp["q_norm"] = f32(at(layer["q_norm"]))
+            lp["k_norm"] = f32(at(layer["k_norm"]))
+        return lp
+
     def _layer_params(self, params: Params) -> List[Params]:
-        """Per-layer views of the stacked block weights, with the projection
-        matrices flattened to 2-D and the norm parameters in float32 (cached
-        for the last parameter tree)."""
+        """Every layer's ``_layer_view`` for serving, cached for the last
+        parameter tree."""
         blocks = params["blocks"]
         if self._layers_src is not blocks:
-            cfg, hd = self.cfg, self.hd
-            d = cfg.d_model
-            layers = []
-            f32 = lambda x: x.float()
-            ffn = "moe" if cfg.is_moe else "mlp"
-            for l in range(cfg.n_layers):
-                lp: Params = {
-                    "norm_attn": {k: f32(w[l]) for k, w in blocks["norm_attn"].items()},
-                    "norm_mlp": {k: f32(w[l]) for k, w in blocks["norm_mlp"].items()},
-                    "wq": blocks["wq"][l].reshape(d, cfg.n_heads * hd),
-                    "wk": blocks["wk"][l].reshape(d, cfg.n_kv_heads * hd),
-                    "wv": blocks["wv"][l].reshape(d, cfg.n_kv_heads * hd),
-                    "wo": blocks["wo"][l].reshape(cfg.n_heads * hd, d),
-                    ffn: {k: w[l] for k, w in blocks[ffn].items()},
-                }
-                if cfg.use_bias:
-                    for name in ("bq", "bk", "bv", "bo"):
-                        lp[name] = blocks[name][l]
-                if cfg.qk_norm:
-                    lp["q_norm"] = f32(blocks["q_norm"][l])
-                    lp["k_norm"] = f32(blocks["k_norm"][l])
-                layers.append(lp)
-            self._layers, self._layers_src = layers, blocks
+            self._layers = [self._layer_view(blocks, l) for l in range(self.cfg.n_layers)]
+            self._layers_src = blocks
         return self._layers
 
     # ------------------------------------------------------------------ #
@@ -260,20 +278,23 @@ class TransformerLM:
             out = out + lp["bo"]
         return out
 
-    def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Norm and MLP (or MoE, whose groups and capacity follow ``h``'s
-        shape, as in the reference) with the residual."""
+        shape, as in the reference) with the residual, and the MoE's aux
+        load-balancing loss (None for an MLP)."""
         cfg = self.cfg
         x = apply_norm(h, lp["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
         if cfg.is_moe:
-            out, _ = moe_apply(
+            out, aux = moe_apply(
                 x, lp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_token,
                 mlp_kind=cfg.mlp_kind, capacity_factor=cfg.moe_capacity_factor,
                 group_size=cfg.moe_group_size,
             )
-        else:
-            out = mlp_apply(x, lp["mlp"], cfg.mlp_kind)
-        return h + out
+            return h + out, aux
+        return h + mlp_apply(x, lp["mlp"], cfg.mlp_kind), None
+
+    def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
+        return self._ffn(h, lp)[0]
 
     def _embed(self, tokens: torch.Tensor, params: Params) -> torch.Tensor:
         return embed_tokens(tokens, params["embed"]).to(self.dtype)
@@ -282,6 +303,70 @@ class TransformerLM:
         cfg = self.cfg
         h = apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
         return unembed(h, params["embed"]).float()
+
+    def _merge_patches(self, h: torch.Tensor, patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """A VLM config (``num_patch_tokens > 0``) takes ``patch_embeds``
+        (B, P, D) in place of the first P token embeddings."""
+        if patch_embeds is None or self.cfg.num_patch_tokens <= 0:
+            return h
+        b, s, _ = h.shape
+        p = patch_embeds.shape[1]
+        pad = torch.zeros((b, s - p, h.shape[2]), dtype=patch_embeds.dtype, device=h.device)
+        merged = torch.cat([patch_embeds, pad], dim=1).to(self.dtype)
+        is_patch = (torch.arange(s, device=h.device) < p)[None, :, None]
+        return torch.where(is_patch, merged, h)
+
+    # ------------------------------------------------------------------ #
+    # Training / full forward                                             #
+    # ------------------------------------------------------------------ #
+    def _train_block(self, h, blocks, l: int, cos, sin):
+        """Layer ``l`` of the full causal forward: (h, aux loss f32). The
+        layer's views are built here, so a rematerialised block rebuilds
+        them from the leaves."""
+        cfg = self.cfg
+        lp = self._layer_view(blocks, l)
+        x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
+        q, k, v = self._qkv_block(x, lp)
+        q, k = apply_rope_tables(q, cos, sin), apply_rope_tables(k, cos, sin)
+        attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
+        h, aux = self._ffn(h + self._attn_out(attn, lp), lp)
+        return h, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def forward(
+        self,
+        params: Params,
+        tokens: torch.Tensor,                        # (B, S) int32
+        patch_embeds: Optional[torch.Tensor] = None,  # (B, P, D) VLM stub input
+        remat: bool = True,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full causal forward → (logits (B, S, V) f32, MoE aux loss f32).
+        ``params["blocks"]`` is the stacked tree, or a list of per-layer
+        trees (what ``train.train_step`` differentiates: each layer's
+        gradient is then its own tensor). With ``remat`` each block is
+        recomputed in the backward pass instead of keeping its
+        activations."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        h = self._merge_patches(self._embed(tokens, params), patch_embeds)
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        cos, sin = self._rope(positions)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        blocks = params["blocks"]
+        for l in range(cfg.n_layers):
+            if remat:
+                h, aux_l = checkpoint(self._train_block, h, blocks, l, cos, sin, use_reentrant=False)
+            else:
+                h, aux_l = self._train_block(h, blocks, l, cos, sin)
+            aux = aux + aux_l
+        return self._logits(h, params), aux
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
+        """Cross-entropy of ``batch["labels"]`` (masked by ``batch["mask"]``
+        where given) plus the MoE aux loss times ``moe_aux_weight``."""
+        logits, aux = self.forward(params, batch["tokens"], batch.get("patch_embeds"), remat=remat)
+        return cross_entropy_loss(logits, batch["labels"], batch.get("mask")) + (
+            moe_aux_weight(self.cfg) * aux
+        )
 
     # ------------------------------------------------------------------ #
     # Serving: whole-prompt prefill into a dense cache                    #
@@ -313,13 +398,7 @@ class TransformerLM:
         ring = cfg.sliding_window > 0
         if ring:
             pos_map = ring_positions_prefill(b, cache["k"].shape[2], len_vec)
-        h = self._embed(tokens, params)
-        if patch_embeds is not None and cfg.num_patch_tokens > 0:
-            p = patch_embeds.shape[1]
-            is_patch = (torch.arange(s, device=dev) < p)[None, :, None]
-            merged = torch.zeros_like(h)
-            merged[:, :p] = patch_embeds.to(self.dtype)
-            h = torch.where(is_patch, merged, h)
+        h = self._merge_patches(self._embed(tokens, params), patch_embeds)
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)

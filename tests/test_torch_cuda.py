@@ -587,3 +587,112 @@ def test_cuda_threefry_and_top_p_draw_equal_the_cpu(card):
     sampler = TopPSampler(top_p=0.9)
     got = sampler(logits.cuda(), keys["cuda"]).cpu()
     assert torch.equal(got, sampler(logits, keys["cpu"]))
+
+
+# --------------------------------------------------------------------------- #
+# The training path: kernel 2's log-sum-exp and the backward kernel           #
+# --------------------------------------------------------------------------- #
+def _grad_case(b, h, kv, s, d, dtype, seed):
+    """bshk q/k/v and dO seen as (B, H, S, D), the forward's output and
+    log-sum-exp from the kernel."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (_bshk(b, s, n, d, dtype, g) for n in (h, kv, kv, h))
+    return q, k, v, do
+
+
+def _backward_matches_plain(q, k, v, do, causal, window, dtype):
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    ref_lse = fa.flash_attention_lse_plain(q, k, causal=causal, window=window)
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-5, atol=2e-5)
+    grads = fb.flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    refs = fb.flash_attention_backward_plain(q, k, v, out, ref_lse, do, causal=causal, window=window)
+    tol = _tol(dtype)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        # relative to the reference's largest magnitude (bf16 inputs round
+        # at other places in the plain version's float32 einsums), but not
+        # below 1, the inputs' scale: under a window of 1 each query sees
+        # one key, so dS and with it dQ and dK are 0 up to rounding
+        err = float((got.float() - ref.float()).abs().max() / max(float(ref.float().abs().max()), 1.0))
+        assert err <= tol, err
+    again = fb.flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))     # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", range(1, 17))
+def test_cuda_flash_backward_any_group(card, g, dtype):
+    """The backward kernel at every GQA group from 1 to 16 (2 KV heads,
+    head_dim 128 and 16), causal, against its plain version; two runs equal."""
+    for d, s in ((128, 150), (16, 70)):
+        _backward_matches_plain(*_grad_case(2, 2 * g, 2, s, d, dtype, g), True, 0, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (True, 1), (False, 0), (False, 40)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_flash_backward_masks(card, d, causal, window, dtype):
+    _backward_matches_plain(*_grad_case(2, 8, 2, 200, d, dtype, d + window), causal, window, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", [(100, 160), (160, 100)])
+def test_cuda_flash_backward_more_keys_or_queries(card, sq, sk, dtype):
+    """The dense entry's positions 0..Sq-1 and 0..Sk-1 with Sq != Sk: keys
+    no query sees get zero dK / dV (and queries past the keys, causal, see
+    them all)."""
+    g = torch.Generator(device="cuda").manual_seed(sq)
+    q, do = (_bshk(2, sq, 8, 128, dtype, g) for _ in range(2))
+    k, v = (_bshk(2, sk, 2, 128, dtype, g) for _ in range(2))
+    _backward_matches_plain(q, k, v, do, True, 0, dtype)
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+def test_cuda_flash_lse_on_each_tensor_core_tile(card, tile):
+    """The bf16 tensor-core body writes the log-sum-exp at each CTA tile
+    (the key split merges its two halves' maxima first)."""
+    g = torch.Generator(device="cuda").manual_seed(tile)
+    q, k, v = (_bshk(2, 300, n, 128, "bfloat16", g) for n in (16, 4, 4))
+    lse = torch.empty(2, 16, 300, dtype=torch.float32, device="cuda")
+    out = fa._launch_dense(q, k, v, True, 0, 128 ** -0.5, tile, lse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_cuda_serving_forward_asks_for_no_lse_and_runs_no_backward(card):
+    """``attention_any`` without grad (every serving path) launches the
+    forward once and nothing else; with grad, the forward once with the
+    log-sum-exp and, in the backward pass, the backward kernel once."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models.attention import attention_any
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 64, n, 128, device="cuda", generator=g).bfloat16() for n in (8, 2, 2))
+    fa.reset_launch_count()
+    fb.reset_launch_count()
+    with torch.no_grad():
+        served = attention_any(q, k, v, causal=True)
+    assert (fa.launch_count, fb.launch_count) == (1, 0)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    out = attention_any(*leaves, causal=True)
+    assert torch.equal(out.detach(), served)
+    assert (fa.launch_count, fb.launch_count) == (2, 0)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fb.launch_count) == (2, 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+
+
+def test_cuda_backward_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    q, k, v, do = _grad_case(1, 2, 1, 32, 256, "bfloat16", 0)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        fb.flash_attention_backward(q, k, v, out, lse, do)

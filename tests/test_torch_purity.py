@@ -39,6 +39,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.serve, repro_torch.launch.generate, repro_torch.kernels.build\n"
         "import repro_torch.kernels.rglru, repro_torch.launch.profile_step\n"
         "import repro_torch.obs, repro_torch.serving.sampler, repro_torch.serving.threefry\n"
+        "import repro_torch.train, repro_torch.train.train_loop, repro_torch.checkpoint\n"
+        "import repro_torch.launch.train, repro_torch.kernels.flash_attention_bwd\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -64,6 +66,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--requests", "2"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RecurrentGemma(get_smoke_config("recurrentgemma_9b"))
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, TrainConfig(steps=1, batch=2, seq=8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "1"])
+
+
+def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys):
+    """``--arch`` takes the archs whose loss the port has (the TransformerLM
+    families); RecurrentGemma, xLSTM and Whisper are refused with the
+    ROADMAP item that brings them."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launcher
+
+    assert train_launcher.TRAIN_ARCHS == serve.ENGINE_ARCHS
+    for arch, item in (("recurrentgemma_9b", "item 11"), ("xlstm_350m", "item 9"),
+                       ("whisper_small", "item 9")):
+        with pytest.raises(SystemExit):
+            train_launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        err = capsys.readouterr().err
+        assert "cannot train it yet" in err and item in err, err
+    out = train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "2", "--batch", "2",
+                               "--seq", "8", "--device", "cpu"])
+    assert out["steps_run"] == 2 and "done: arch=qwen3-8b-smoke device=cpu" in capsys.readouterr().out
 
 
 def test_serve_launcher_offers_only_the_archs_the_engine_serves(capsys):
