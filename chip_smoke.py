@@ -13,6 +13,10 @@ Phases, each printing its seconds on a line of its own:
              with nvcc for sm_90a (one nvcc per source, all at once), print
              each variant's registers and spills for kernels 1, 2 and 3, and
              check that flash's tensor-core variants issue HGMMA (cuobjdump);
+             that the flash backward's wgmma kernels issue HGMMA, and none
+             of its other kernels does, and that they use no stack and no
+             local memory (cuobjdump -res-usage; 0 spill bytes in ptxas's
+             report where the process built them), each printed;
 3. kernels — hold each kernel against its plain PyTorch version on the card,
              at the serving shapes of Qwen3-8B (8 slots, 32 query and 8 KV
              heads, head_dim 128, up to 640 tokens a slot: paged decode and
@@ -36,13 +40,21 @@ Phases, each printing its seconds on a line of its own:
              (36, 4), (48, 8), (28, 4), (16, 16) — timed at LLaMA-65B's and
              StarCoder2-7B's; and the training path's kernels: kernel 2's
              forward with its log-sum-exp and the backward kernel
-             (flash_attention_bwd.cu) at Qwen3-8B's attention (B 2, 32/8
-             heads, S 2048, head_dim 128, bf16, causal; timed on both
-             bodies, beside its bound, its plain version and one SDPA
-             forward + backward), a window of 256, LLaMA-65B's 64/64 heads
-             and float32 at the smoke shape, against the plain versions,
-             one device kernel a forward and two a backward (dQ, dK/dV),
-             two calls bit-equal;
+             (flash_attention_bwd.cu) at Qwen3-8B's attention (S 2048, 32/8
+             heads, head_dim 128, bf16, causal) at B 2 and at the train
+             step's B 1, a window of 256, LLaMA-65B's 64/64 heads and
+             float32 at the smoke shape, against the plain versions: one
+             device kernel a forward, and a backward runs exactly the
+             device kernels of backward_plan, in order (each pass's device
+             µs printed), two calls bit-equal, and the other dK/dV grid
+             (the GQA group split over CTAs, or not) checked and timed
+             beside the plan's; at both Qwen3 batches the backward timed
+             beside its bound, the design's floor, its plain version, our
+             forward + backward, and SDPA under each backend that takes
+             the inputs (forward, forward + backward, backward alone; the
+             fastest backward alone is the library time), and kernel 2's
+             forward with its log-sum-exp beside its bound, its plain
+             version and SDPA's fastest forward;
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -122,14 +134,16 @@ Phases, each printing its seconds on a line of its own:
              microbatches, remat, 8 steps of train(): losses finite,
              grad_norm > 0, count 8, parameters changed, launches exact;
              step ms, tokens/s, model-FLOPs utilisation, peak memory and
-             the device busy share of one profiled step, beside the card.
+             the device busy share of one profiled step with its device ms
+             by kind (GEMM, flash forward, flash backward, the rest),
+             beside the card.
 
 Then one JSON line of the train phase's numbers, one JSON line naming every
 ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
 RecurrentGemma's shapes, kernels 1-3 again at LLaMA-65B's and
-StarCoder2-7B's, the flash backward at the training shape) with its
-launches on each path (flash's also by device body) and this run's times,
-and, last,
+StarCoder2-7B's, the flash backward and kernel 2's dense entry at the
+training shape) with its launches on each path (flash's also by device
+body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
@@ -155,6 +169,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -268,11 +283,12 @@ def max_err(torch, out, ref, tol):
     return float(err.max())
 
 
-def device_kernels(torch, fn, attempts=3):
-    """Names of the device kernels one call of ``fn`` runs (torch.profiler).
-    A trace that holds no device event at all missed the call (on the card
-    a process's later traces now and then come back empty), so the call
-    is traced again, up to ``attempts`` times; every retry is printed."""
+def device_kernel_us(torch, fn, attempts=3):
+    """(name, device µs) of each device kernel one call of ``fn`` runs, in
+    the order they started (torch.profiler). A trace that holds no device
+    event at all missed the call (on the card a process's later traces now
+    and then come back empty), so the call is traced again, up to
+    ``attempts`` times; every retry is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -281,11 +297,18 @@ def device_kernels(torch, fn, attempts=3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
         if events:
             break
         print(f"  device_kernels: trace {attempt} of {attempts} held no device event", flush=True)
-    return [n for n in events if "emcpy" not in n and "emset" not in n]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events
+            if "emcpy" not in e.name and "emset" not in e.name]
+
+
+def device_kernels(torch, fn, attempts=3):
+    """Names of the device kernels one call of ``fn`` runs, in order."""
+    return [name for name, _ in device_kernel_us(torch, fn, attempts)]
 
 
 def check_one_kernel_and_repeat(torch, what, call, out):
@@ -598,7 +621,8 @@ def run_kernel_checks(torch, np):
         results.update(check_attention_kernels(torch, np, F, flush, label, h, kv, 128,
                                                timed=label in TIMED_FAMILY))
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
-    results[("flash_attention_backward", "qwen3-8b train")] = run_train_kernel_checks(torch, np, F)
+    for key, row in run_train_kernel_checks(torch, np, F).items():
+        results[(key, "qwen3-8b train")] = row
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         tiles = r.get("ms_by_tile")
@@ -1631,6 +1655,8 @@ KERNELS = (
      "train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
      "(the gradient of kernel 2's function; no Pallas kernel)"),
+    ("flash_attention_dense_train", "flash_attention_dense", "qwen3-8b train", "flash_attention", "train",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
 ) + tuple(
     (f"{name}_{arch.split('_')[0]}", name, label, count, f"{arch} {layout}", f"src/repro_torch/kernels/csrc/{src}.cu",
      replaces)
@@ -1648,11 +1674,11 @@ KERNELS = (
 )
 
 
-def check_tensor_core_sass(build):
-    """The flash library's tensor-core kernels issue HGMMA (wgmma) in their
-    SASS, read with cuobjdump from the toolkit that built them."""
+def _hgmma_counts(build, name):
+    """HGMMA (wgmma) instructions in each function of ``name``'s library,
+    read with cuobjdump from the toolkit that built it."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(build.lib_path("flash_attention"))],
+    sass = subprocess.run([str(tool), "-sass", str(build.lib_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -1661,11 +1687,50 @@ def check_tensor_core_sass(build):
             counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
+    return counts
+
+
+def check_tensor_core_sass(build):
+    """The flash library's tensor-core kernels issue HGMMA (wgmma) in their
+    SASS."""
+    counts = _hgmma_counts(build, "flash_attention")
     tc = {f: n for f, n in counts.items() if "flash_tc_kernel" in f}
     print(f"  flash_attention SASS: HGMMA in {sum(1 for n in tc.values() if n)} of {len(tc)} "
           f"tensor-core variants ({sum(tc.values())} instructions), "
           f"{sum(n for f, n in counts.items() if f not in tc)} in the CUDA-core variants")
     check(bool(tc) and all(tc.values()), f"flash tensor-core variants without HGMMA: {tc}")
+
+
+def check_backward_build(build):
+    """The flash backward's wgmma kernels issue HGMMA and keep everything in
+    registers: no stack and no local memory in cuobjdump's resource usage
+    of the built library, and 0 spill bytes in ptxas's report where this
+    process built it; its other kernels issue no HGMMA."""
+    counts = _hgmma_counts(build, "flash_attention_bwd")
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    usage = subprocess.run([str(tool), "-res-usage", str(build.lib_path("flash_attention_bwd"))],
+                           capture_output=True, text=True, check=True, timeout=300).stdout
+    res, fn = {}, None
+    for line in usage.splitlines():
+        if line.strip().startswith("Function "):
+            fn = line.strip()[len("Function "):].rstrip(":")
+        elif fn and "REG:" in line:
+            res[fn] = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", line)}
+            fn = None
+    ptxas = build.ptxas_kernels("flash_attention_bwd")
+    wg = {f: n for f, n in counts.items() if "wgmma" in f}
+    for f, n in sorted(wg.items()):
+        print(f"    {f}: HGMMA {n}, {json.dumps(res.get(f))}, ptxas: {ptxas.get(f, 'not built here')}")
+    others = sum(n for f, n in counts.items() if f not in wg)
+    print(f"  flash_attention_bwd SASS: HGMMA in {sum(1 for n in wg.values() if n)} of {len(wg)} wgmma "
+          f"kernels, {others} in the other {len(counts) - len(wg)} kernels", flush=True)
+    check(bool(wg) and all(wg.values()), f"flash backward wgmma kernels without HGMMA: {wg}")
+    check(others == 0, "flash backward: HGMMA outside its wgmma kernels")
+    for f in wg:
+        check(f in res and res[f]["STACK"] == 0 and res[f]["LOCAL"] == 0,
+              f"flash backward {f}: stack or local memory (spills): {res.get(f)}")
+        if f in ptxas:
+            check("0 bytes spill stores, 0 bytes spill loads" in ptxas[f], f"flash backward {f}: {ptxas[f]}")
 
 
 def sweep_dense_decode(torch, np, flush):
@@ -1822,15 +1887,18 @@ def run_sweep(torch, np):
 # --------------------------------------------------------------------------- #
 # Training                                                                    #
 # --------------------------------------------------------------------------- #
-# The backward kernel's shapes: Qwen3-8B's attention at the train run's
-# sequence (timed), a sliding window, LLaMA-65B's MHA, and float32 at the
-# smoke shape.
+# The backward kernel's shapes: Qwen3-8B's attention at the check's batch of
+# 2 (timed, the kernels line's row) and at the train step's microbatch of 1
+# (timed), a sliding window, LLaMA-65B's MHA, and float32 at the smoke shape.
 TRAIN_KERNEL_CASES = (
     ("qwen3-8b", dict(b=2, h=32, kv=8, s=2048, d=128, window=0, dtype="bfloat16")),
+    ("qwen3-8b microbatch", dict(b=1, h=32, kv=8, s=2048, d=128, window=0, dtype="bfloat16")),
     ("window 256", dict(b=2, h=32, kv=8, s=1024, d=128, window=256, dtype="bfloat16")),
     ("llama-65b", dict(b=1, h=64, kv=64, s=2048, d=128, window=0, dtype="bfloat16")),
     ("smoke", dict(b=2, h=4, kv=2, s=64, d=16, window=0, dtype="float32")),
 )
+TIMED_TRAIN_CASES = ("qwen3-8b", "qwen3-8b microbatch")
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 TRAIN_LAYERS = 12                 # full-width Qwen3-8B cut to 12 of its 36 layers
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 2, 2048, 2
 TRAIN_PARITY = ("qwen3_8b", "olmoe_1b_7b", "qwen2_vl_7b", "mixtral_8x22b")
@@ -1841,14 +1909,16 @@ def attention_pairs(s, window):
     return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
 
-def flash_backward_bound(q, k, window):
+def flash_backward_bound(q, k, window, flops_per_pair=10):
     """Five products of the visible pairs (S, dP, dV, dQ, dK: 10 D flops a
     pair and head) against reading q, k, v, o, dO and lse once and writing
-    dq, dk and dv once."""
+    dq, dk and dv once. With ``flops_per_pair=14`` the same count for the
+    kernel's own design, whose dQ pass computes S and dP again: its floor,
+    not the function's bound."""
     b, h, s, d = q.shape
     e = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * e + b * h * s * 4
-    flops = 10 * d * h * b * attention_pairs(s, window)
+    flops = flops_per_pair * d * h * b * attention_pairs(s, window)
     peak = F32_FLOPS_PER_S if e == 4 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1865,25 +1935,79 @@ def rel_err(torch, out, ref, tol, what):
     return err
 
 
+def sdpa_times(torch, F, flush, q, k, v, do):
+    """The library yardstick, timed here only and never called by the port:
+    scaled_dot_product_attention (causal) under each backend that takes
+    these inputs, its forward, forward + backward, and backward alone (one
+    forward kept outside the timed region, then torch.autograd.grad with
+    retain_graph). With enable_gqa where the backend takes it, else with K
+    and V expanded to the query heads outside the timed region (that
+    backward then returns the expanded heads' dK and dV unsummed).
+    Returns {backend: times}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    out = {}
+    for name in SDPA_BACKENDS:
+        for gqa in (True, False):
+            kk, vv = (k, v) if gqa else (k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
+            leaves = [x.detach().clone().requires_grad_(True) for x in (q, kk, vv)]
+            fwd = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=gqa)
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    o = fwd()
+                    torch.autograd.grad(o, leaves, do, retain_graph=True)
+                    torch.cuda.synchronize()
+                    row = dict(
+                        enable_gqa=gqa,
+                        forward_ms=time_ms(torch, fwd, flush, iters=10, warmup=2),
+                        forward_backward_ms=time_ms(
+                            torch, lambda: torch.autograd.grad(fwd(), leaves, do), flush, iters=10, warmup=2),
+                        backward_ms=time_ms(
+                            torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True), flush,
+                            iters=10, warmup=2))
+            except RuntimeError as e:
+                print(f"  SDPA {name} enable_gqa={gqa}: refused ({str(e).strip().splitlines()[0][:100]})",
+                      flush=True)
+                continue
+            out[name] = row
+            print(f"  SDPA {name} enable_gqa={gqa}: forward {row['forward_ms']:.4f} ms, forward + backward "
+                  f"{row['forward_backward_ms']:.4f} ms, backward alone {row['backward_ms']:.4f} ms", flush=True)
+            break
+        torch.cuda.empty_cache()
+    check(bool(out), "no SDPA backend takes the training shape")
+    return out
+
+
+def fastest(sdpa, key):
+    """The fastest backend's time of ``key`` and the backend's name."""
+    name = min(sdpa, key=lambda n: sdpa[n][key])
+    return sdpa[name][key], name
+
+
 def run_train_kernel_checks(torch, np, F):
     """Kernel 2's forward with the log-sum-exp and the backward kernel at
-    TRAIN_KERNEL_CASES against their plain versions, one device kernel a
-    forward and one a backward pass (dQ, then dK/dV) a call, two calls equal
-    bit for bit; at Qwen3-8B's shape the cold-L2 times of the backward, its
-    plain version, the forward with the log-sum-exp, and one SDPA forward
-    plus backward on the same inputs (the yardstick, never called by the
-    port). Returns the timed row."""
+    TRAIN_KERNEL_CASES against their plain versions: one device kernel a
+    forward, the device kernels of ``backward_plan`` a backward (the same
+    names, count and order; each pass's device µs printed), two calls equal
+    bit for bit, and at the bf16 cases the wgmma body's other plan (the GQA
+    group split or not) checked and timed beside the plan's. At
+    TIMED_TRAIN_CASES the cold-L2 times of the backward, its plain version,
+    the forward with the log-sum-exp, our forward + backward, and SDPA on
+    the same inputs under each backend (sdpa_times; the yardstick, never
+    called by the port). Returns the rows of the kernels line: the
+    backward's and kernel 2's dense entry at the training shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    row = None
+    rows, timed = {}, {}
     for label, c in TRAIN_KERNEL_CASES:
         g = torch.Generator(device="cuda").manual_seed(7)
         dt = getattr(torch, c["dtype"])
         mk = lambda n: torch.randn(c["b"], c["s"], n, c["d"], device="cuda", generator=g).to(dt).transpose(1, 2)
         q, k, v, do = mk(c["h"]), mk(c["kv"]), mk(c["kv"]), mk(c["h"])
-        w = c["window"]
+        w, scale = c["window"], c["d"] ** -0.5
         out, lse = fa.flash_attention(q, k, v, causal=True, window=w, return_lse=True)
         grads = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
         torch.cuda.synchronize()
@@ -1895,38 +2019,58 @@ def run_train_kernel_checks(torch, np, F):
         refs = fb.flash_attention_backward_plain(q, k, v, out, ref_lse, do, causal=True, window=w)
         errs = {f"d{n}": rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] d{n}")
                 for n, a, b in zip("qkv", grads, refs)}
-        del refs
+        max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads, refs))
+        plan = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=True, window=w,
+                                n_sms=n_sms(torch))
         fwd_names = device_kernels(torch, lambda: fa.flash_attention(
             q, k, v, causal=True, window=w, return_lse=True))
-        bwd_names = device_kernels(torch, lambda: fb.flash_attention_backward(
+        passes = device_kernel_us(torch, lambda: fb.flash_attention_backward(
             q, k, v, out, lse, do, causal=True, window=w))
+        names = [n for n, _ in passes]
         check(len(fwd_names) == 1, f"flash forward [{label}] ran {fwd_names}")
-        check(len(bwd_names) == 2 and "dq" in bwd_names[0] and "dkv" in bwd_names[1],
-              f"flash backward [{label}] ran {bwd_names}")
+        check(len(names) == len(plan.kernels) and all(k_ in n for k_, n in zip(plan.kernels, names)),
+              f"flash backward [{label}] ran {names}, its plan {plan.kernels}")
         again = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
         check(all(bool(torch.equal(a, b)) for a, b in zip(grads, again)),
               f"flash backward [{label}]: two calls differ")
+        del again
         print(f"  flash_attention_backward [{label}] {tuple(q.shape)} kv {c['kv']} window {w} {c['dtype']}: "
               f"lse max err {err_lse:.3g}, rel err {json.dumps(errs)} (tol {tol}), forward one device "
-              f"kernel, backward two ({bwd_names[0][:40]}, {bwd_names[1][:40]}), two calls equal", flush=True)
-        if label == "qwen3-8b":
-            qs, ks, vs, dos = (x.detach().clone() for x in (q, k, v, do))
-            leaves = [x.requires_grad_(True) for x in (qs, ks, vs)]
-
-            def sdpa_fwd_bwd():
-                o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-                return torch.autograd.grad(o, leaves, dos)
-
+              f"kernel, backward the plan's {len(names)} ({plan.body}, split group {plan.split_group}, "
+              f"scratch {plan.scratch_bytes} B), two calls equal; device µs a pass "
+              f"{json.dumps([[n.split('(')[0].split('::')[-1], round(us, 1)] for n, us in passes])}",
+              flush=True)
+        ms_by_plan = {}
+        if plan.body == "tensor_cores" and c["h"] > c["kv"]:
+            # the other dK/dV grid: the GQA group split over CTAs, or not
+            alt = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=True,
+                                   window=w, split=not plan.split_group)
+            alt_grads = fb._launch(q, k, v, out, lse, do, True, w, scale, alt)
+            torch.cuda.synchronize()
+            alt_errs = [rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] other plan")
+                        for a, b in zip(alt_grads, refs)]
+            del alt_grads
+            for p in (plan, alt):
+                key = "split" if p.split_group else "grouped"
+                ms_by_plan[key] = time_ms(torch, lambda: fb._launch(q, k, v, out, lse, do, True, w, scale, p),
+                                          flush, iters=10, warmup=2)
+            print(f"  flash_attention_backward [{label}] by plan (the plan: "
+                  f"{'split' if plan.split_group else 'grouped'}): "
+                  f"{json.dumps({k_: round(ms, 4) for k_, ms in ms_by_plan.items()})} ms, the other's rel err "
+                  f"{max(alt_errs):.3g}", flush=True)
+        del refs
+        if label in TIMED_TRAIN_CASES:
             def ours_fwd_bwd():
                 o, l = fa.flash_attention(q, k, v, causal=True, return_lse=True)
                 return fb.flash_attention_backward(q, k, v, o, l, do, causal=True)
 
             bound_ms, bound_by = flash_backward_bound(q, k, w)
+            floor_ms, _ = flash_backward_bound(q, k, w, flops_per_pair=14)
+            sdpa = sdpa_times(torch, F, flush, q, k, v, do)
+            library_ms, library_backend = fastest(sdpa, "backward_ms")
             row = dict(
-                max_abs_err=max(float((a.float() - b.float()).abs().max())
-                                for a, b in zip(grads, fb.flash_attention_backward_plain(
-                                    q, k, v, out, ref_lse, do, causal=True))),
-                rel_err=max(errs.values()),
+                max_abs_err=max_abs, rel_err=max(errs.values()), plan=plan._asdict(),
+                pass_us=[[n, us] for n, us in passes], ms_by_plan=ms_by_plan,
                 ms=time_ms(torch, lambda: fb.flash_attention_backward(q, k, v, out, lse, do, causal=True),
                            flush, iters=10, warmup=2),
                 plain_ms=time_ms(torch, lambda: fb.flash_attention_backward_plain(
@@ -1934,17 +2078,39 @@ def run_train_kernel_checks(torch, np, F):
                 forward_lse_ms=time_ms(torch, lambda: fa.flash_attention(
                     q, k, v, causal=True, return_lse=True), flush, iters=10, warmup=2),
                 forward_backward_ms=time_ms(torch, ours_fwd_bwd, flush, iters=10, warmup=2),
-                library_ms=time_ms(torch, sdpa_fwd_bwd, flush, iters=10, warmup=2),
-                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_backend=library_backend,
+                library_forward_backward_ms=fastest(sdpa, "forward_backward_ms")[0], sdpa=sdpa,
+                bound_ms=bound_ms, bound_by=bound_by, design_floor_ms=floor_ms,
             )
-            print(f"  flash_attention_backward [{label}] timed: backward {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                  f"{row['ms'] / bound_ms:.1f}x); forward with lse {row['forward_lse_ms']:.4f} ms; "
-                  f"forward + backward {row['forward_backward_ms']:.4f} ms against SDPA forward + backward "
-                  f"{row['library_ms']:.4f} ms", flush=True)
-        del q, k, v, do, out, lse, grads, again
+            timed[label] = row
+            print(f"  flash_attention_backward [{label}] timed: backward {row['ms']:.4f} ms (passes "
+                  f"{' + '.join(f'{us:.1f}' for _, us in passes)} µs), plain {row['plain_ms']:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {row['ms'] / bound_ms:.2f}x), the design's floor "
+                  f"{floor_ms:.4f} ms; SDPA's backward alone {library_ms:.4f} ms ({library_backend}); forward "
+                  f"with lse {row['forward_lse_ms']:.4f} ms; forward + backward {row['forward_backward_ms']:.4f} "
+                  f"ms against SDPA's {row['library_forward_backward_ms']:.4f} ms", flush=True)
+            if label == "qwen3-8b":
+                # kernel 2's dense entry as the training path runs it: with
+                # its log-sum-exp, against the plain forward and lse
+                fwd_bound_ms, fwd_bound_by = dense_flash_bound(q, k)
+                out_ref = fa.flash_attention_plain(q, k, v, causal=True)
+                rows["flash_attention_dense"] = dict(
+                    max_abs_err=max_err(torch, out, out_ref, KERNEL_TOL[c["dtype"]]),
+                    ms=row["forward_lse_ms"],
+                    plain_ms=time_ms(torch, lambda: (fa.flash_attention_plain(q, k, v, causal=True),
+                                                     fa.flash_attention_lse_plain(q, k, causal=True)),
+                                     flush, iters=5, warmup=1),
+                    library_ms=fastest(sdpa, "forward_ms")[0], library_backend=fastest(sdpa, "forward_ms")[1],
+                    bound_ms=fwd_bound_ms, bound_by=fwd_bound_by)
+                print(f"  flash_attention_dense [qwen3-8b train] timed: forward with lse {row['forward_lse_ms']:.4f} "
+                      f"ms, plain {rows['flash_attention_dense']['plain_ms']:.4f} ms, SDPA's forward "
+                      f"{rows['flash_attention_dense']['library_ms']:.4f} ms, bound {fwd_bound_ms:.4f} ms "
+                      f"({fwd_bound_by})", flush=True)
+                del out_ref
+        del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
-    return row
+    rows["flash_attention_backward"] = dict(timed["qwen3-8b"], microbatch=timed["qwen3-8b microbatch"])
+    return rows
 
 
 def _train_counts():
@@ -2157,7 +2323,7 @@ def run_full_width_train(torch, np, smi):
     launches = {name: mod.launch_count for name, mod in kernels.items()}
     check_launches("qwen3-8b train", launches,
                    train_launches(cfg.n_layers, TRAIN_STEPS * TRAIN_MICROBATCHES, True))
-    check_flash_variants("qwen3-8b train", launches)
+    flash_by_variant = check_flash_variants("qwen3-8b train", launches)
     by_body = kernels["flash_attention_backward"].launch_count_by_variant
     print(f"  qwen3-8b train flash backward launches by body: {json.dumps(by_body)}")
     check(by_body["tensor_cores"] == launches["flash_attention_backward"],
@@ -2189,7 +2355,7 @@ def run_full_width_train(torch, np, smi):
         prof.update(device_busy_share=None, device_ms=None)
     by_kind = {}
     for name, us in prof["kernel_us"]:
-        kind = ("flash" if "flash_" in name else
+        kind = ("flash backward" if "flash_bwd" in name else "flash forward" if "flash_" in name else
                 "gemm" if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
                 "elementwise, reductions, copies")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
@@ -2209,7 +2375,7 @@ def run_full_width_train(torch, np, smi):
         device_busy_share=prof["device_busy_share"], profiled_step_wall_ms=prof["traced_wall_ms"],
         profiled_step_device_ms=prof["device_ms"], top_kernels=prof["top_kernels"][:6],
         device_ms_by_kind=by_kind, adamw_update_ms=opt_ms,
-        launches=launches, card=smi,
+        launches=launches, flash_launches_by_variant=flash_by_variant, card=smi,
     )
     print(f"  qwen3-8b train ({res['layers']} layers, {n_params / 1e9:.3f} B parameters, bf16, batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, remat) on {smi}: losses "
@@ -2273,6 +2439,7 @@ def main() -> int:
         for fn, info in build.ptxas_kernels(src).items():
             print(f"    {fn}: {info}")
     check_tensor_core_sass(build)
+    check_backward_build(build)
     phase("build", t0)
 
     if sweep:
@@ -2285,10 +2452,10 @@ def main() -> int:
         import torch.nn.functional as F
 
         t0 = time.perf_counter()
-        row = run_train_kernel_checks(torch, np, F)
+        rows = run_train_kernel_checks(torch, np, F)
         _, res = run_train_phase(torch, np, smi)
         phase("train", t0)
-        print(json.dumps({"train": res, "flash_attention_backward": row}))
+        print(json.dumps({"train": res, **rows}))
         return 0
 
     t0 = time.perf_counter()
@@ -2364,6 +2531,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     launches["train"], train_res = run_train_phase(torch, np, smi)
+    by_variant["train"] = train_res["flash_launches_by_variant"]
     phase("train", t0)
 
     kernels = []
@@ -2378,7 +2546,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **({"launches_by_variant": by_variant[layout],
                 "ms_by_tile": r.get("ms_by_tile")} if count == "flash_attention" else {}),
-            **({k: r[k] for k in ("rel_err", "forward_lse_ms", "forward_backward_ms")}
+            **({k: r[k] for k in ("rel_err", "forward_lse_ms", "forward_backward_ms", "library_backend",
+                                  "library_forward_backward_ms", "design_floor_ms", "ms_by_plan", "pass_us",
+                                  "plan")}
+               if key == "flash_attention_backward" else {}),
+            **({"microbatch": {k: r["microbatch"][k] for k in (
+                "ms", "ms_by_plan", "pass_us", "plan", "bound_ms", "design_floor_ms", "library_ms",
+                "library_backend", "forward_backward_ms", "library_forward_backward_ms")}}
                if key == "flash_attention_backward" else {}),
         })
     print(json.dumps({"train": train_res}))

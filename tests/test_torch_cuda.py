@@ -651,6 +651,50 @@ def test_cuda_flash_backward_more_keys_or_queries(card, sq, sk, dtype):
     _backward_matches_plain(q, k, v, do, True, 0, dtype)
 
 
+def _plan_matches_plain(q, k, v, do, causal, window, split):
+    """The wgmma body under a forced plan (the GQA group split over CTAs or
+    kept in the CTA) against the plain backward, bf16 2e-2 relative to
+    max(|ref|, 1); the plan's kernels ran, and two calls give the same bits."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    plan = fb.backward_plan(b, h, kv, sq, sk, d, q.dtype, causal=causal, window=window, split=split)
+    assert plan.body == "tensor_cores" and plan.split_group is split
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    grads = fb._launch(q, k, v, out, lse, do, causal, window, d ** -0.5, plan)
+    torch.cuda.synchronize()
+    refs = fb.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        err = float((got.float() - ref.float()).abs().max() / max(float(ref.float().abs().max()), 1.0))
+        assert err <= 2e-2, err
+    again = fb._launch(q, k, v, out, lse, do, causal, window, d ** -0.5, plan)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", range(1, 17))
+def test_cuda_flash_backward_wgmma_both_plans_any_group(card, g, d, split):
+    """The wgmma body at every GQA group from 1 to 16 under both dK/dV
+    grids (the group split over CTAs and summed in head order, or kept in
+    the CTA), causal, S not a multiple of 64, strided bshk views."""
+    _plan_matches_plain(*_grad_case(2, 2 * g, 2, 150, d, "bfloat16", g), True, 0, split)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (True, 1), (False, 0), (False, 40)])
+@pytest.mark.parametrize("sq,sk", [(200, 200), (100, 160), (160, 100), (64, 64)])
+def test_cuda_flash_backward_wgmma_both_plans_masks(card, sq, sk, causal, window, split):
+    """Both dK/dV grids under causal and windowed masks, with Sq != Sk and
+    at a whole number of tiles."""
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + window)
+    q, do = (_bshk(2, sq, 8, 128, "bfloat16", g) for _ in range(2))
+    k, v = (_bshk(2, sk, 2, 128, "bfloat16", g) for _ in range(2))
+    _plan_matches_plain(q, k, v, do, causal, window, split)
+
+
 @pytest.mark.parametrize("tile", [0, 1, 2])
 def test_cuda_flash_lse_on_each_tensor_core_tile(card, tile):
     """The bf16 tensor-core body writes the log-sum-exp at each CTA tile

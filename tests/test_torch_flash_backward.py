@@ -152,3 +152,33 @@ def test_backward_body_by_dtype_and_head_dim():
     assert {fb.variant(torch.float32, d) for d in (16, 32, 64, 128)} == {"cuda_cores"}
     fb.reset_launch_count()
     assert fb.launch_count == 0 and set(fb.launch_count_by_variant.values()) == {0}
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 9, 16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_group_split_sums_to_the_plain_backward(g, causal, window):
+    """The split plan's two steps on the CPU: each query head's float32
+    share of dK and dV, then the fixed-order sum over the group, equal the
+    plain backward's dK and dV (float32, the sums in another order)."""
+    kv = 2 if g < 9 else 1
+    q, k, v, do = (_bhsd(x) for x in _inputs(g * kv, kv, 16, seed=g))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    parts = fb.group_partials_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    assert all(p.shape == (2, g * kv, 24, 16) and p.dtype == torch.float32 for p in parts)
+    dk, dv = fb.group_sum_plain(*parts, kv, q.dtype)
+    _, ref_dk, ref_dv = fb.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert _rel(got.numpy(), ref.numpy()) < 1e-6
+
+
+def test_group_sum_adds_in_head_order():
+    """Float32 addition is not associative: the sum takes the heads in
+    order 0, 1, ..., g - 1, as the device's sum kernel does, so the two
+    give the same bits from the same partials."""
+    parts = torch.tensor([1.0, 2.0 ** -24, 2.0 ** -24, -1.0]).reshape(1, 4, 1, 1)
+    dk, _ = fb.group_sum_plain(parts, parts, 1, torch.float32)
+    assert float(dk) == 0.0                      # in float32, 1 + 2^-24 rounds to 1
+    assert float(parts.double().sum()) == 2.0 ** -23
+    dk, _ = fb.group_sum_plain(parts.flip(1), parts.flip(1), 1, torch.float32)
+    assert float(dk) == 2.0 ** -23

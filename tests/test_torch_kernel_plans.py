@@ -1,14 +1,16 @@
 """Host-side plans of the attention kernels, on the CPU: the split count and
 heads a CTA of paged decode attention (kernel 1), its scratch sizing and
-reuse, flash attention's (kernel 2) dispatch table and CTA tile, and dense
+reuse, flash attention's (kernel 2) dispatch table and CTA tile, dense
 decode attention's (kernel 3) body, split count and heads a CTA, with the
-split scratch it shares with kernel 1.
+split scratch it shares with kernel 1, and the flash backward's plan (body,
+grids, launch order, group split, scratch, device kernels).
 None of these reads a device tensor; they decide from shapes alone."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fb
 from repro_torch.kernels import paged_decode_attention as pda
 from torch_port_arrays import shuffled_tables
 
@@ -296,3 +298,85 @@ def test_workspace_shared_by_kernels_1_and_3_and_grown_once():
         f, c = pda.workspace(dev, *need)
         assert f is f2 and c is c2
     pda._workspaces.pop((dev.type, dev.index), None)
+
+
+# --------------------------------------------------------------------------- #
+# The flash backward: body, tiles, grids, scratch, kernels                    #
+# --------------------------------------------------------------------------- #
+BF16, F32 = torch.bfloat16, torch.float32
+# (B, H, KV, Sq, Sk, head_dim, dtype, causal, window): chip_smoke.py's
+# TRAIN_KERNEL_CASES, then tests/test_torch_cuda.py's backward cases
+BACKWARD_SHAPES = [
+    (2, 32, 8, 2048, 2048, 128, BF16, True, 0),       # Qwen3-8B, the check's batch
+    (1, 32, 8, 2048, 2048, 128, BF16, True, 0),       # Qwen3-8B, the train step's microbatch
+    (2, 32, 8, 1024, 1024, 128, BF16, True, 256),     # a window of 256
+    (1, 64, 64, 2048, 2048, 128, BF16, True, 0),      # LLaMA-65B's MHA
+    (2, 4, 2, 64, 64, 16, F32, True, 0),              # float32 smoke
+] + [
+    (2, 2 * g, 2, s, s, d, dt, True, 0)
+    for g in range(1, 17) for d, s in ((128, 150), (16, 70)) for dt in (BF16, F32)
+] + [
+    (2, 8, 2, 200, 200, d, dt, causal, w)
+    for d in (16, 32, 64, 128) for causal, w in ((True, 0), (True, 64), (True, 1), (False, 0), (False, 40))
+    for dt in (BF16, F32)
+] + [(2, 8, 2, sq, sk, 128, dt, True, 0) for sq, sk in ((100, 160), (160, 100)) for dt in (BF16, F32)]
+
+
+def _key_tiles_of_query_tile(i0, sq, sk, causal, window, rows=64):
+    """Key tiles the dQ pass runs for the query tile at ``i0`` (its bounds)."""
+    hi = min(sk, min(sq, i0 + rows)) if causal else sk
+    lo = max(0, i0 - window + 1) // rows * rows if window > 0 else 0
+    return -(-(hi - lo) // rows) if hi > lo else 0
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,dtype,causal,window", BACKWARD_SHAPES)
+def test_backward_plan(b, h, kv, sq, sk, d, dtype, causal, window):
+    """Body by the dispatch table, the kernels in launch order, grids that
+    cover every query and key tile, heaviest tiles first under a causal
+    mask, and the scratch the wrapper allocates."""
+    p = fb.backward_plan(b, h, kv, sq, sk, d, dtype, causal=causal, window=window, n_sms=H100_SMS)
+    assert p.body == fb.variant(dtype, d) and p.body in fb.VARIANTS
+    wgmma = p.body == "tensor_cores"
+    assert (p.rows, p.cols) == ((64, 64) if wgmma else (64, 32))
+    if wgmma:
+        want = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+        want += ("flash_bwd_dkv_sum_kernel",) if p.split_group else ()
+        assert p.grids[0][:2] == (h, b) and p.grids[1][:2] == (h if p.split_group else kv, b)
+    else:
+        want = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+        assert not p.split_group and p.grids[0][:2] == (b, h) and p.grids[1][:2] == (b, kv)
+    assert p.kernels == want and len(p.grids) == len(want)
+    for (_, _, z), n in ((p.grids[0], sq), (p.grids[1], sk)):
+        assert (z - 1) * p.rows < n <= z * p.rows              # every tile, none past the end
+    if p.split_group:
+        assert p.grids[2][0] * 256 >= b * kv * sk * d // 8 and p.grids[2][1:] == (1, 1)
+    assert p.scratch_bytes == b * h * sq * 4 + (2 * b * h * sk * d * 4 if p.split_group else 0)
+    if wgmma and causal:
+        nq, nk = p.grids[0][2], p.grids[1][2]
+        dq_work = [_key_tiles_of_query_tile(64 * fb.tile_in_launch_order(p.kernels[0], z, nq, True),
+                                            sq, sk, causal, window) for z in range(nq)]
+        dkv_work = [fb.query_tiles(64 * fb.tile_in_launch_order(p.kernels[1], z, nk, True),
+                                   sq, sk, causal, window) for z in range(nk)]
+        assert dq_work == sorted(dq_work, reverse=True) and dkv_work == sorted(dkv_work, reverse=True)
+        assert sorted(fb.tile_in_launch_order(p.kernels[0], z, nq, True) for z in range(nq)) == list(range(nq))
+
+
+@pytest.mark.parametrize("b,h,kv,sq,d,window,split", [
+    (2, 32, 8, 2048, 128, 0, False),    # Qwen3-8B at B 2: 512 CTAs already balance the tail
+    (1, 32, 8, 2048, 128, 0, True),     # the train step's B 1: the first key tiles' CTAs would rule
+    (2, 32, 8, 1024, 128, 256, False),  # a window: every CTA's work is about the same
+    (1, 64, 64, 2048, 128, 0, False),   # MHA: no group to split
+    (2, 32, 2, 150, 128, 0, True),      # g = 16 on a small grid
+])
+def test_backward_plan_splits_the_group_where_the_tail_would_rule(b, h, kv, sq, d, window, split):
+    assert fb.split_group(b, h, kv, sq, sq, d, True, window, H100_SMS) is split
+    p = fb.backward_plan(b, h, kv, sq, sq, d, BF16, window=window, n_sms=H100_SMS)
+    assert p.split_group is split
+    forced = fb.backward_plan(b, h, kv, sq, sq, d, BF16, window=window, n_sms=H100_SMS, split=not split)
+    assert forced.split_group is (not split) and len(forced.kernels) == 2 + (not split)
+
+
+@pytest.mark.parametrize("b,sq,sk", [(0, 64, 64), (2, 0, 64), (2, 64, 0), (2, 0, 0)])
+def test_backward_plan_launches_nothing_for_an_empty_pass(b, sq, sk):
+    p = fb.backward_plan(b, 8, 2, sq, sk, 128, BF16, n_sms=H100_SMS, split=True)
+    assert len(p.kernels) == len(p.grids) == (b > 0) * ((sq > 0) + 2 * (sk > 0))

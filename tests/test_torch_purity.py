@@ -75,6 +75,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "1"])
 
 
+def test_flash_backward_timer_needs_the_card(monkeypatch):
+    """The script that times a checkout's flash backward measures the card
+    only: without CUDA it raises before it builds or imports a kernel."""
+    from repro_torch.launch import time_flash_backward
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        time_flash_backward.main(["--iters", "1"])
+    assert set(time_flash_backward.SHAPES) == {"b1", "b2"}
+
+
 def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys):
     """``--arch`` takes the archs whose loss the port has (the TransformerLM
     families); RecurrentGemma, xLSTM and Whisper are refused with the
