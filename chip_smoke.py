@@ -121,7 +121,19 @@ Phases, each printing its seconds on a line of its own:
              rounds, ms a decode round beside the weight-read floor, peak
              memory; then one fused decode stage under the profiler, whose
              device busy share says whether the device or the host paces
-             it;
+             it; and, on LLaMA-65B's weights before they are freed,
+   paper   — the paper's experiment: 32 requests drawn from its GSM8K
+             moments with the outputs over 4 (capped at 128) on 8 slots of
+             the dense layout, served under each of the four configurations
+             of core.simulate (baseline, offline, online, hybrid) through
+             the serve's gates, each mode's online profiler starting from
+             the same prior and refitting (at least once); each mode's
+             utilization, makespan, tok/s, prefill stages, decode rounds and
+             prefill stall printed beside the cost model it fitted, the
+             ported simulator's utilization and makespan for the same
+             requests under that model, the served / simulated ratio and
+             the Eq. 32 lower bound (the ranking and the ratio are not
+             gated);
 7. train   — the training path (repro_torch.train, its kernels checked
              in phase kernels): the float32 smoke Qwen3, OLMoE, Qwen2-VL and Mixtral, card
              against CPU: loss and every gradient leaf, one AdamW step on
@@ -138,11 +150,14 @@ Phases, each printing its seconds on a line of its own:
              by kind (GEMM, flash forward, flash backward, the rest),
              beside the card.
 
-Then one JSON line of the train phase's numbers, one JSON line naming every
+Then one JSON line of the train phase's numbers, one of phase paper's
+(each mode's served and simulated numbers and fitted cost model, with the
+card's name and power limit), one JSON line naming every
 ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
 RecurrentGemma's shapes, kernels 1-3 again at LLaMA-65B's and
 StarCoder2-7B's, the flash backward and kernel 2's dense entry at the
-training shape) with its launches on each path (flash's also by device
+training shape, and kernels 2 and 3 at LLaMA-65B's on phase paper's four
+serves) with its launches on each path (flash's also by device
 body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -960,24 +975,22 @@ def check_launches(path, launches, expect):
             check(n > 0, f"{path}: {name} was never launched on its path")
 
 
-def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, path=None):
+def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, path=None,
+              mode="hybrid"):
     """Serve the GSM8K-shaped closed-loop workload (``reqs``, by default the
     16 requests of ``profile_step.serve_workload``) through the port's Engine
-    under hybrid scheduling as launch/serve.py sets it up, on the paged
-    layout (mixed steps) or the dense layout (whole-prompt prefill stages),
-    greedy or under ``sampler`` (seed 0), recording into ``obs`` when one
-    is given, and check the result. Returns (engine, launches per kernel,
-    flash's launches by body, serve stats: tok/s, wall seconds, decode
-    rounds and the wall ms a decode round)."""
-    from repro_torch.core import (
-        CostModel,
-        LagrangianPolicy,
-        SortingPreemptiveScheduler,
-        StageKind,
-        build_clients,
-        solve_offline,
-    )
+    under one of the paper's four configurations (``mode``; hybrid unless
+    asked) as launch/serve.py builds it, on the paged layout (mixed steps)
+    or the dense layout (whole-prompt prefill stages), greedy or under
+    ``sampler`` (seed 0), recording into ``obs`` when one is given, and
+    check the result. The online profiler starts from the same prior in
+    every mode and refits as it serves. Returns (engine, launches per
+    kernel, flash's launches by body, serve stats: tok/s, wall seconds,
+    decode rounds and the wall ms a decode round, prefill stages and
+    stall)."""
+    from repro_torch.core import CostModel, StageKind
     from repro_torch.launch.profile_step import DENSE_BUCKETS, SERVE_LEN, serve_workload
+    from repro_torch.launch.serve import build_scheduling
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.sampler import greedy
 
@@ -985,8 +998,7 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
     path = path or (layout if sampler is None else "top_p")
     reqs = reqs or serve_workload()
     cm = CostModel(level_caps=(32, 64, 128, 256))
-    asn = solve_offline(reqs, 8, cm).assignment
-    clients = build_clients(8, reqs, asn)
+    clients, scheduler, policy = build_scheduling(mode, reqs, 8, cm)
     if layout == "paged":
         ecfg = EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged", mixed_schedule=True,
                             sample_seed=0, observe=obs)
@@ -1001,8 +1013,7 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
     for mod in kernels.values():
         mod.reset_launch_count()
     t0 = time.perf_counter()
-    trace = eng.serve(reqs, clients, SortingPreemptiveScheduler(clients), LagrangianPolicy(),
-                      policy_name="hybrid")
+    trace = eng.serve(reqs, clients, scheduler, policy, policy_name=mode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launch_count for name, mod in kernels.items()}
@@ -1048,6 +1059,7 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
     return eng, launches, by_variant, dict(
         tok_s=s["generation_speed_tok_s"], wall=wall, utilization=s["utilization"],
         makespan=s["makespan_s"], decode_rounds=decode_rounds, mixed_rounds=mixed,
+        prefill_stages=prefills, prefill_stall_s=stall,
         ms_per_decode_round=1e3 * decode_s / max(decode_rounds, 1),
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1189,12 +1201,13 @@ def decode_stage_profile(torch, model, params):
         token_idx0=z), iters=1)
 
 
-def run_family_serves(torch):
+def run_family_serves(torch, then=None):
     """Each of FAMILY_SERVES at full width (random bf16 weights, seed 0):
     the 8 requests of ``family_workload`` through ``run_serve``'s gates on the
     dense layout and, where marked, the paged mixed one; then one fused
     decode stage under the profiler, whose device busy share says whether
-    the device or the host paces a decode round. Each model is freed before
+    the device or the host paces a decode round; then ``then[arch](model,
+    params)`` where given, on the same weights. Each model is freed before
     the next loads. Returns launches and flash's launches by body, by path."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import TransformerLM
@@ -1239,10 +1252,95 @@ def run_family_serves(torch):
               f"device {prof['device_ms']:.3f} ms ({prof['device_ms'] / 8:.3f} ms a step against the floor "
               f"{floor:.3f} ms), busy share {busy:.3f}, {prof['kernels_launched']} kernels: "
               f"{'device' if busy >= 0.8 else 'host'}-paced; top {json.dumps(prof['top_kernels'][:4])}")
+        if then and arch in then:
+            then[arch](model, params)
         del model, params
         torch.cuda.empty_cache()
         print(f"  {cfg.name}: {time.perf_counter() - t0:.3f} s", flush=True)
     return launches, by_variant
+
+
+# --------------------------------------------------------------------------- #
+# Paper                                                                       #
+# --------------------------------------------------------------------------- #
+PAPER_MODES = ("baseline", "offline", "online", "hybrid")
+PAPER_SLOTS = 8
+PAPER_OUTPUT_SCALE = 4            # the paper's GSM8K output moments over 4
+PAPER_ESTIMATE_NOISE_STD = 10.0   # the paper's predictor noise (40) over 4
+
+
+def paper_workload():
+    """32 requests drawn from the paper's GSM8K moments (inputs 68.43 ±
+    25.04; outputs 344.83 ± 187.99 capped at 512, each over 4, so capped
+    at 128), seed 0, with decode-length estimates off by N(0, 10)."""
+    from repro_torch.data import WorkloadSpec, gsm8k_like_workload
+
+    k = PAPER_OUTPUT_SCALE
+    spec = WorkloadSpec(n_requests=32, output_mu0=423.508 / k, output_sigma0=340.894 / k,
+                        output_mean=344.83 / k, output_std=187.99 / k, output_max=512 // k)
+    return gsm8k_like_workload(spec, seed=0, estimate_noise_std=PAPER_ESTIMATE_NOISE_STD)
+
+
+def run_paper_phase(torch, model, params, smi):
+    """The paper's experiment on the card: ``paper_workload`` served under
+    each of the four configurations of ``core.simulate`` (baseline, offline,
+    online, hybrid) through ``run_serve`` on the dense layout (buckets
+    DENSE_BUCKETS, 8 slots) with every gate of the serve, each mode's
+    profiler starting from the same prior and refitting as it serves (at
+    least one fit a mode); then the ported simulator's prediction for the
+    same requests under the cost model that mode fitted on the card, and
+    the Eq. 32 lower bound under it. The ranking of the modes and the
+    served / simulated ratio are the finding, not gates. Returns (launches
+    by path, flash's launches by body by path, the numbers by mode)."""
+    from repro_torch.core import simulate, theoretical_lower_bound
+
+    t0 = time.perf_counter()
+    reqs = paper_workload()
+    print(f"  paper workload: {len(reqs)} requests on {PAPER_SLOTS} slots, "
+          f"{sum(r.n_prefill for r in reqs)} prompt tokens (longest {max(r.n_prefill for r in reqs)}), "
+          f"{sum(r.n_decode for r in reqs)} output tokens "
+          f"({sum(r.n_decode == 512 // PAPER_OUTPUT_SCALE for r in reqs)} at the cap of "
+          f"{512 // PAPER_OUTPUT_SCALE}); {model.cfg.name}, {model.cfg.n_layers} layers, dense layout",
+          flush=True)
+    launches, by_variant, res = {}, {}, {}
+    for mode in PAPER_MODES:
+        path = f"paper {mode}"
+        eng, launches[path], by_variant[path], st = run_serve(
+            torch, model, params, "dense", reqs=paper_workload(), path=path, mode=mode)
+        fits, cm = eng.profiler.fits, eng.profiler.cost_model
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(fits >= 1, f"{path}: the online profiler never refit the cost model")
+        sim = simulate(reqs, PAPER_SLOTS, cm, mode=mode)
+        lb = theoretical_lower_bound(reqs, PAPER_SLOTS, cm)
+        fitted = {k: getattr(cm, k) for k in ("prefill_overhead", "prefill_per_token",
+                                              "decode_overhead", "decode_per_token",
+                                              "decode_dispatch")}
+        res[mode] = dict(
+            utilization=st["utilization"], makespan_s=st["makespan"], tok_s=st["tok_s"],
+            wall_s=st["wall"], prefill_stages=st["prefill_stages"],
+            decode_rounds=st["decode_rounds"], prefill_stall_s=st["prefill_stall_s"],
+            profiler_fits=fits, fitted_cost_model=fitted,
+            simulated_utilization=sim.utilization, simulated_makespan_s=sim.makespan,
+            served_over_simulated=st["makespan"] / sim.makespan, lower_bound_s=lb.total,
+            launches=launches[path])
+        print(f"  {path} [{smi}]: served utilization {st['utilization']}, makespan "
+              f"{st['makespan']} s, {st['tok_s']} tok/s, {st['prefill_stages']} prefill stages, "
+              f"{st['decode_rounds']} decode rounds, prefill stall {st['prefill_stall_s']} s; "
+              f"fitted ({fits} fits) {json.dumps(fitted)}; simulated under it: utilization "
+              f"{sim.utilization:.6f}, makespan {sim.makespan:.6f} s; served / simulated "
+              f"makespan {st['makespan'] / sim.makespan:.4f}; Eq. 32 lower bound {lb.total:.6f} s",
+              flush=True)
+    ranked = sorted(PAPER_MODES, key=lambda m: -res[m]["utilization"])
+    print(f"  paper modes by served utilization: {', '.join(ranked)}; by simulated: "
+          f"{', '.join(sorted(PAPER_MODES, key=lambda m: -res[m]['simulated_utilization']))}")
+    launches["paper"] = {k: sum(launches[f"paper {m}"][k] for m in PAPER_MODES)
+                         for k in launches["paper hybrid"]}
+    by_variant["paper"] = {k: sum(by_variant[f"paper {m}"][k] for m in PAPER_MODES)
+                           for k in by_variant["paper hybrid"]}
+    phase("paper", t0)
+    return launches, by_variant, res
 
 
 # --------------------------------------------------------------------------- #
@@ -1657,6 +1755,11 @@ KERNELS = (
      "(the gradient of kernel 2's function; no Pallas kernel)"),
     ("flash_attention_dense_train", "flash_attention_dense", "qwen3-8b train", "flash_attention", "train",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    # phase paper: LLaMA-65B served under the four modes (launches summed)
+    ("flash_attention_dense_paper", "flash_attention_dense", "llama-65b", "flash_attention", "paper",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    ("decode_attention_paper", "decode_attention", "llama-65b", "decode_attention", "paper",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
 ) + tuple(
     (f"{name}_{arch.split('_')[0]}", name, label, count, f"{arch} {layout}", f"src/repro_torch/kernels/csrc/{src}.cu",
      replaces)
@@ -2524,9 +2627,17 @@ def main() -> int:
     phase("serve", t0)
 
     t0 = time.perf_counter()
-    family_launches, family_by_variant = run_family_serves(torch)
+    paper = {}
+
+    def paper_phase(model, params):
+        paper_launches, paper_by_variant, paper["modes"] = run_paper_phase(torch, model, params, smi)
+        launches.update(paper_launches)
+        by_variant.update(paper_by_variant)
+
+    family_launches, family_by_variant = run_family_serves(torch, then={"llama_65b": paper_phase})
     launches.update(family_launches)
     by_variant.update(family_by_variant)
+    check(set(paper.get("modes", {})) == set(PAPER_MODES), "phase paper did not serve every mode")
     phase("family", t0)
 
     t0 = time.perf_counter()
@@ -2556,6 +2667,8 @@ def main() -> int:
                if key == "flash_attention_backward" else {}),
         })
     print(json.dumps({"train": train_res}))
+    print(json.dumps({"paper": {"device": smi, "model": "llama-65b, 32 of 80 layers, dense",
+                                "modes": paper["modes"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 # The paper's primary contribution: hybrid offline-online scheduling for
-# LLM inference under PD Competition (binpack + Algorithm 1 + Lagrangian
-# iteration rule). A copy of the reference package's framework-free modules
-# that the serving engine and fleet use; the simulator, MIP and RL policy
-# modules are not part of the port yet (see ROADMAP.md).
+# LLM inference under PD Competition (MIP + binpack + Algorithm 1 +
+# Lagrangian iteration rule), shared by the simulator and the real engine.
+# Verbatim copies of the reference package's framework-free modules (numpy
+# and scipy only), kept here so the port imports nothing of the reference.
 from .types import (
     Request,
     ClientState,
@@ -61,3 +61,5 @@ from .iteration import (
     POLICIES,
     make_policy,
 )
+from .simulator import Simulator, SimConfig, simulate
+from .mip import OriginalMIP, MIPSolution, toy_instance, recost_trace_mip_semantics

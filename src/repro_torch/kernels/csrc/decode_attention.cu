@@ -596,14 +596,16 @@ static int dispatch_gc(const DenseDecodeArgs& a, int B, int KV, cudaStream_t s) 
   return (int)cudaErrorInvalidValue;
 }
 
-// float32 at every head_dim; bf16 only at head_dim 16, where the tensor-core
-// body has no variant
+// float32 at every head_dim; bf16 only at head_dim 16 and 32, where the
+// tensor-core body has no variant
 static int dispatch_cuda_cores(const DenseDecodeArgs& a, int B, int KV, int D, int dtype,
                                cudaStream_t s) {
   if (dtype == kBF16 && D == 16) return dispatch_gc<__nv_bfloat16, 16>(a, B, KV, s);
+  if (dtype == kBF16 && D == 32) return dispatch_gc<__nv_bfloat16, 32>(a, B, KV, s);
   if (dtype != kF32) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16: return dispatch_gc<float, 16>(a, B, KV, s);
+    case 32: return dispatch_gc<float, 32>(a, B, KV, s);
     case 64: return dispatch_gc<float, 64>(a, B, KV, s);
     case 128: return dispatch_gc<float, 128>(a, B, KV, s);
     case 256: return dispatch_gc<float, 256>(a, B, KV, s);
@@ -628,10 +630,10 @@ using namespace repro_torch;
 // launch at B = 0). The caller checks shapes, dtypes, strides and alignment
 // and plans the launch (decode_attention.py :: plan): body 1 = tensor cores
 // (bf16, D 64, 128 or 256, the whole group of g <= 16 heads a CTA: gc = g),
-// 0 = CUDA cores (float32 at D 16, 64, 128 or 256, bf16 at D 16; gc = 1, 2,
-// 4 or 8 heads a CTA, gc >= min(g, 8)); n_splits CTAs per (slot, KV head,
-// head part), placed on each slot's keys by split_range from split_keys,
-// and, for n_splits > 1, a scratch of B x KV x parts x n_splits x gc x
+// 0 = CUDA cores (float32 at D 16, 32, 64, 128 or 256, bf16 at D 16 or
+// 32; gc = 1, 2, 4 or 8 heads a CTA, gc >= min(g, 8)); n_splits CTAs per
+// (slot, KV head, head part), placed on each slot's keys by split_range
+// from split_keys, and, for n_splits > 1, a scratch of B x KV x parts x n_splits x gc x
 // (D + 2) floats and B x KV x parts int32 counters that are 0.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out, void* part,

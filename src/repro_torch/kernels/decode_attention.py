@@ -15,10 +15,10 @@ cache is never copied. Only the head_dim axis must be contiguous.
 The kernel splits each slot's keys across CTAs and merges the splits in the
 same launch. ``plan`` picks the body (tensor cores for bf16 at head_dim 64,
 128 and 256, with the whole group of up to 16 heads in one CTA; CUDA cores
-for float32 and head_dim 16), the split count, the keys a split takes at
-the full row and the heads a CTA from shapes alone; the kernel places each
-slot's splits from its length on the device. The splits' scratch is
-``decode_split.workspace``, shared with kernel 1.
+for float32 and head_dim 16 and 32), the split count, the keys a split
+takes at the full row and the heads a CTA from shapes alone; the kernel
+places each slot's splits from its length on the device. The splits'
+scratch is ``decode_split.workspace``, shared with kernel 1.
 
 The wrapper checks device, dtype, shape, strides and alignment and raises on
 what the kernel does not take (a head_dim it has no variant for, only before
@@ -41,7 +41,7 @@ from .flash_attention import _sm_count, check_head_dim, check_vector_aligned, ma
 launch_count = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _MAX_GROUP = 16
 
 #: the kernel's two bodies, by the code the launcher takes
@@ -74,8 +74,8 @@ def plan(dtype: torch.dtype, b: int, h: int, kv: int, s: int, d: int, n_sms: int
     """Body, split count, keys a split and heads a CTA from shapes only
     (never from ``lengths``): bf16 at head_dim 64, 128 and 256 (both serving
     paths) takes the tensor-core body, which holds the whole group of
-    g <= 16 query heads in one CTA; float32 and head_dim 16 take the
-    CUDA-core body, at most 8 heads a CTA (``decode_split.cta_group``).
+    g <= 16 query heads in one CTA; float32 and head_dim 16 and 32 take
+    the CUDA-core body, at most 8 heads a CTA (``decode_split.cta_group``).
     Splits over the cache length S by ``CTAS_PER_SM`` and
     ``TC_SPLIT_KEYS``; ``split_keys`` is a split's share of a full row, and
     a shorter row takes fewer splits (``CTAS_PER_SM``'s note)."""

@@ -24,6 +24,7 @@ from ..core import (
     SortingPreemptiveScheduler,
     StaticBacklogScheduler,
     build_clients,
+    round_robin_assign,
     solve_offline,
 )
 from ..core.gantt import ascii_gantt
@@ -42,6 +43,8 @@ ENGINE_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family in Transf
 
 
 def build_scheduling(mode, reqs, n_slots, cm):
+    """The clients, request scheduler and iteration policy of one of the
+    paper's four configurations, built as ``core.simulate`` builds them."""
     if mode == "baseline":
         return build_clients(n_slots, reqs, None), GlobalQueueScheduler(reqs), PrefillFirstPolicy()
     if mode == "offline":
@@ -49,9 +52,7 @@ def build_scheduling(mode, reqs, n_slots, cm):
         clients = build_clients(n_slots, reqs, asn)
         return clients, StaticBacklogScheduler(clients), PrefillFirstPolicy()
     if mode == "online":
-        clients = build_clients(
-            n_slots, reqs, [[r.rid for r in reqs[j::n_slots]] for j in range(n_slots)]
-        )
+        clients = build_clients(n_slots, reqs, round_robin_assign(reqs, n_slots))
         return clients, SortingPreemptiveScheduler(clients), LagrangianPolicy()
     if mode == "hybrid":
         asn = solve_offline(reqs, n_slots, cm).assignment

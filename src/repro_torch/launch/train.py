@@ -24,11 +24,11 @@ from ..train.train_loop import TrainConfig, train
 TRAIN_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family in TransformerLM.FAMILIES)
 
 # the reference's training archs that the port cannot train yet, by the
-# ROADMAP.md item that brings each
+# title of the ROADMAP.md item (queue 1) that brings each
 NOT_YET = {
-    "recurrentgemma_9b": "ROADMAP.md queue 1 item 11 (RecurrentGemma's loss, with a backward of kernel 4)",
-    "xlstm_350m": "ROADMAP.md queue 1 item 9 (models/xlstm.py)",
-    "whisper_small": "ROADMAP.md queue 1 item 9 (models/whisper.py)",
+    "recurrentgemma_9b": "ROADMAP.md, \"RecurrentGemma training\" (its loss, with a backward of kernel 4)",
+    "xlstm_350m": "ROADMAP.md, \"xLSTM\" (models/xlstm.py)",
+    "whisper_small": "ROADMAP.md, \"Whisper\" (models/whisper.py)",
 }
 
 

@@ -145,8 +145,8 @@ def _bucket(x: int, buckets: Sequence[int]) -> int:
     raise ValueError(
         f"value {x} exceeds the largest bucket {buckets[-1]}; a request "
         f"padded into it would silently overflow the batch — raise the "
-        f"bucket table (EngineConfig.prefill_req_buckets) to cover the "
-        f"workload"
+        f"bucket table (EngineConfig.prefill_seq_buckets / "
+        f"prefill_req_buckets) to cover the workload"
     )
 
 

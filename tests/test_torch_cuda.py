@@ -91,7 +91,8 @@ def test_cuda_flash_dense_on_strided_bshk_views(card):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (4, 2, 16), (8, 2, 64), (8, 1, 64), (4, 4, 128)])
+@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (4, 2, 16), (8, 2, 64), (8, 1, 64), (4, 4, 128),
+                                    (8, 4, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_decode_matches_plain(card, h, kv, d, dtype):
     """Kernel 3 over the (B, S, KV, D) cache view, ragged lengths with an

@@ -131,8 +131,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         da.decode_attention(q.half(), k.half(), k.half(), lengths)
     with pytest.raises(ValueError):                     # lengths not int32
         da.decode_attention(q, k, k, lengths.long())
-    with pytest.raises(ValueError):                     # head_dim 32: no variant
-        check_head_dim("decode_attention", 32, da._HEAD_DIMS)
+    with pytest.raises(ValueError):                     # head_dim 48: no variant
+        check_head_dim("decode_attention", 48, da._HEAD_DIMS)
     with pytest.raises(ValueError):                     # group of 17
         da.decode_attention(torch.zeros(2, 34, 16), k, k, lengths)
     with pytest.raises(ValueError):                     # H not a multiple of KV

@@ -3,6 +3,8 @@ the reference package, importing the port leaves JAX unloaded, and the entry
 points refuse to fall back to the CPU when no CUDA device exists."""
 import ast
 import os
+import re
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -11,7 +13,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _imports(path):
@@ -41,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.obs, repro_torch.serving.sampler, repro_torch.serving.threefry\n"
         "import repro_torch.train, repro_torch.train.train_loop, repro_torch.checkpoint\n"
         "import repro_torch.launch.train, repro_torch.kernels.flash_attention_bwd\n"
+        "import repro_torch.core.simulator, repro_torch.core.mip, repro_torch.core.rl_policy\n"
+        "import repro_torch.launch.paper_tables\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -75,6 +80,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "1"])
 
 
+@pytest.mark.parametrize("name", ["offline_rlhf", "serve_engine", "serve_fleet"])
+def test_examples_that_take_a_device_raise_without_cuda(monkeypatch, name):
+    """The ported examples that build a model or train default to
+    ``--device cuda`` and raise where there is none, before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    example = runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"), run_name="example")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        example["main"]([])
+
+
+def test_the_ported_examples_are_the_references_five():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_" + p.name for p in sorted((ROOT / "examples").glob("*.py"))
+        if not p.name.startswith("torch_")]
+
+
 def test_flash_backward_timer_needs_the_card(monkeypatch):
     """The script that times a checkout's flash backward measures the card
     only: without CUDA it raises before it builds or imports a kernel."""
@@ -88,18 +109,22 @@ def test_flash_backward_timer_needs_the_card(monkeypatch):
 
 def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys):
     """``--arch`` takes the archs whose loss the port has (the TransformerLM
-    families); RecurrentGemma, xLSTM and Whisper are refused with the
-    ROADMAP item that brings them."""
+    families); RecurrentGemma, xLSTM and Whisper are refused with the title
+    of the ROADMAP item that brings them (a title, not a number, which a
+    re-anchor of the queue would stale)."""
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_launcher
 
     assert train_launcher.TRAIN_ARCHS == serve.ENGINE_ARCHS
-    for arch, item in (("recurrentgemma_9b", "item 11"), ("xlstm_350m", "item 9"),
-                       ("whisper_small", "item 9")):
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for arch, item in (("recurrentgemma_9b", "RecurrentGemma training"), ("xlstm_350m", "xLSTM"),
+                       ("whisper_small", "Whisper")):
         with pytest.raises(SystemExit):
             train_launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
         err = capsys.readouterr().err
-        assert "cannot train it yet" in err and item in err, err
+        assert "cannot train it yet" in err and f'"{item}"' in err, err
+        assert not re.search(r"item \d", err), err
+        assert f"**{item}" in roadmap, item
     out = train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "2", "--batch", "2",
                                "--seq", "8", "--device", "cpu"])
     assert out["steps_run"] == 2 and "done: arch=qwen3-8b-smoke device=cpu" in capsys.readouterr().out
