@@ -54,8 +54,13 @@ def _unflatten_like(target: Tree, leaves: Dict[str, torch.Tensor], prefix: str =
     return {k: _unflatten_like(v, leaves, _key(prefix, k)) for k, v in target.items()}
 
 
-def _to_numpy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """The stored array and the logical dtype name."""
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """The stored array and the logical dtype name. A leaf that is not a
+    tensor (an engine state's ints, lists and numpy arrays) is stored as
+    ``np.asarray`` gives it, as the reference stores every leaf."""
+    if not isinstance(leaf, torch.Tensor):
+        a = np.asarray(leaf)
+        return a, str(a.dtype)
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -143,10 +148,12 @@ def restore_checkpoint(
 ) -> Tuple[Tree, Dict[str, Any]]:
     """Restore a checkpoint (the latest complete one by default).
 
-    ``target``: a dict tree of tensors of the same structure; each restored leaf
+    ``target``: a dict tree of the same structure; each restored tensor leaf
     takes its target's dtype (through float32 where the stored one differs,
-    as the reference converts) and device. Without it, returns the stored
-    arrays by key (bf16 as their uint16 bits). Returns (tree, metadata).
+    as the reference converts) and device, and a leaf whose target is not a
+    tensor comes back as its stored numpy array. Without a target, returns
+    the stored arrays by key (bf16 as their uint16 bits). Returns (tree,
+    metadata).
     """
     directory = Path(directory)
     if step is None:
@@ -163,6 +170,9 @@ def restore_checkpoint(
     for key, tgt in _flatten_with_paths(target):
         if key not in by_key:
             raise KeyError(f"checkpoint missing leaf {key!r}")
+        if not isinstance(tgt, torch.Tensor):
+            leaves[key] = by_key[key]
+            continue
         t = _leaf_tensor(by_key[key], manifest["leaf_meta"][key]["dtype"])
         if t.dtype != tgt.dtype:
             t = t.float().to(tgt.dtype)
