@@ -82,9 +82,20 @@ Phases, each printing its seconds on a line of its own:
              scheduling: the paged layout with mixed steps, then the dense
              layout with whole-prompt prefill stages and fused decode; checks
              the trace, the budgets, the token ids and that each kernel ran
-             exactly as often as each schedule implies, every flash launch
-             on the tensor-core body, and that these greedy serves, run with
-             observe=None, made no obs callback (Observation.tripwire). Then
+             exactly as often as each schedule implies (a replay counts the
+             launches its graph holds), every flash launch on the
+             tensor-core body, and that these greedy serves, run with
+             observe=None, made no obs callback (Observation.tripwire). Every
+             engine of this phase and the next (fleet replicas too) captures
+             its reachable dispatch keys in ``warm_serving_shapes`` and
+             replays one graph a stage: captures, capture seconds, replays
+             and graph pool MiB are printed, and the replays must equal the
+             trace's stages and the captures the reachable keys. Then
+             (phase replays) each captured key of Qwen3-8B's engines, paged
+             and dense, greedy and top-p, is replayed against a direct model
+             call on the same inputs over a copy of the same mid-serve
+             state: token block, emitted counts, active mask, last tokens
+             (or sampled tokens, or logits) and the pool bit-equal. Then
              the paged serve again under TopPSampler(top_p=0.9) with an
              Observation: the same gates, capacity conserved, one
              first_token and one complete span a request, a Perfetto trace
@@ -105,10 +116,13 @@ Phases, each printing its seconds on a line of its own:
              page-copy times printed. Then, Qwen3 freed,
              full-size RecurrentGemma-9B (38 layers, bf16, random weights)
              on the same 16 requests in two waves of 8 slots through its own
-             prefill and decode_step (launch.generate; the Engine does not
-             take it); checks the budgets, the token ids and that the scan
-             ran in each of the 26 recurrent layers and kernels 2 and 3 in
-             each of the 12 attention layers of every prefill and step;
+             prefill and decode_step (launch.generate.WaveServer, each decode
+             step a replay of the wave size's graph; the Engine does not
+             take it); checks the budgets, the token ids, that the first
+             wave's tokens equal direct calls', that the replays equal the
+             decode steps, and that the scan ran in each of the 26 recurrent
+             layers and kernels 2 and 3 in each of the 12 attention layers
+             of every prefill and step;
 6. family  — the other decoders the reference's Engine serves, at their
              published widths (random bf16 weights from seed 0):
              Granite-3-8B, StarCoder2-7B, Nemotron-4-15B, Qwen2-VL-7B and
@@ -119,9 +133,10 @@ Phases, each printing its seconds on a line of its own:
              layout, and on the paged mixed one for LLaMA, StarCoder2 and
              OLMoE; each serve's tok/s, utilization, makespan, decode
              rounds, ms a decode round beside the weight-read floor, peak
-             memory; then one fused decode stage under the profiler, whose
-             device busy share says whether the device or the host paces
-             it; and, on LLaMA-65B's weights before they are freed,
+             memory; then one fused decode stage under the profiler, called
+             directly and replayed from its graph, whose device busy share
+             says whether the device or the host paces it; and, on
+             LLaMA-65B's weights before they are freed,
    paper   — the paper's experiment: 32 requests drawn from its GSM8K
              moments with the outputs over 4 (capped at 128) on 8 slots of
              the dense layout, served under each of the four configurations
@@ -918,25 +933,25 @@ def run_recurrentgemma_parity(torch, np, steps=12):
 # --------------------------------------------------------------------------- #
 # Serve                                                                       #
 # --------------------------------------------------------------------------- #
-def warm(torch, model, params, eng):
-    """All-pad calls of the serving entries of the engine's layout (every
-    write dropped or thrown away, every lane inactive) so cuBLAS and the
-    kernels are initialised before the measured serve: the engine's own
-    warm pass on the paged layout, one prefill and one decode step on the
-    dense one."""
-    from repro_torch.serving.sampler import greedy
+def graph_stats(what, dispatches):
+    """Print one owner's captured dispatches: captures, capture seconds,
+    replays and its graph pool."""
+    st = dispatches.stats()
+    print(f"  {what} graphs: {st['captures']} captures in {st['capture_s']:.3f} s, "
+          f"{st['replays']} replays, pool {st['pool_mib']:.3f} MiB", flush=True)
+    return st
 
-    if eng.cfg.kv_layout == "paged":
-        eng.warm_serving_shapes()
-        return
-    j = eng.cfg.n_slots
-    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=model.device)
-    s = eng.cfg.prefill_seq_buckets[0]
-    model.prefill(params, z(1, s), model.cache_init(1, s), lengths=z(1) + 1)
-    model.decode_steps(params, z(j), eng.slots.cache, num_steps=1, sampler=greedy,
-                       active=torch.zeros(j, dtype=torch.bool, device=model.device),
-                       budgets=z(j), rids=z(j), token_idx0=z(j))
-    torch.cuda.synchronize()
+
+def check_graphs(what, eng, n_stages, replays_before=0):
+    """Every stage of the serve replayed one captured dispatch, every
+    dispatch was captured before the serve (``warm_serving_shapes``), and
+    the engine captured exactly the keys it can reach."""
+    st = graph_stats(what, eng.graphs)
+    check(eng.graphs.captures == len(eng.graphs.keys) and eng.graphs.keys == eng.serving_keys(),
+          f"{what}: captured {sorted(eng.graphs.keys)} of {sorted(eng.serving_keys())}")
+    check(st["replays"] - replays_before == n_stages,
+          f"{what}: {st['replays'] - replays_before} replays for {n_stages} stages")
+    return st
 
 
 def kernel_modules():
@@ -1007,7 +1022,7 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
                             prefill_seq_buckets=DENSE_BUCKETS, sample_seed=0, observe=obs)
     eng = Engine(model, params, ecfg, sampler=sampler or greedy, device="cuda")
     eng.profiler.cost_model = cm
-    warm(torch, model, params, eng)
+    eng.warm_serving_shapes()
     torch.cuda.reset_peak_memory_stats()
     kernels = kernel_modules()
     for mod in kernels.values():
@@ -1052,6 +1067,7 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
           f"({decode_rounds} rounds), decode dispatches {trace.meta['decode_dispatches']}, "
           f"prefill stall {stall} s")
     print(f"  {path} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    graphs = check_graphs(path, eng, len(trace.stages))
     check_launches(path, launches, expect)
     if layout == "dense" and len(reqs) > ecfg.n_slots:
         check(stall > 0, "dense: no prefill stage ran while decoders were active")
@@ -1061,7 +1077,156 @@ def run_serve(torch, model, params, layout, sampler=None, obs=None, reqs=None, p
         makespan=s["makespan_s"], decode_rounds=decode_rounds, mixed_rounds=mixed,
         prefill_stages=prefills, prefill_stall_s=stall,
         ms_per_decode_round=1e3 * decode_s / max(decode_rounds, 1),
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, graphs=graphs)
+
+
+def _bits(torch, t):
+    """A tensor's bits, for bit-equality (bf16 and float32 alike)."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64,
+                                1: torch.int8}[t.element_size()])
+
+
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and bool(torch.equal(_bits(torch, a), _bits(torch, b)))
+
+
+def replay_inputs(np, rng, eng, key):
+    """Random inputs of ``key``'s dispatch, valid for the engine's state:
+    random tokens, about three lanes in four decoding, chunk rows on
+    distinct slots continuing at each slot's length, random budgets, rids
+    and token indices."""
+    cfg = eng.cfg
+    j, c = cfg.n_slots, cfg.prefill_chunk
+    vocab = eng.model.cfg.vocab_size
+    ints = lambda lo, hi, *shape: rng.integers(lo, hi, size=shape).astype(np.int32)
+    lengths = eng.slots.cache["length"].cpu().numpy()
+    if key.kind == "decode":
+        k = key.shape[0]
+        return dict(tokens=ints(1, vocab, j), active=rng.random(j) < 0.75,
+                    budgets=ints(1, k + 3, j), rids=ints(0, 1000, j), token_idx0=ints(0, 64, j))
+    if key.kind in ("mixed", "chunk"):
+        r = key.shape[0]
+        m = int(rng.integers(1, min(r, j) + 1))
+        slots = rng.permutation(j)[:m]
+        rows = dict(tokens=ints(1, vocab, r, c), slots=np.full(r, j, np.int32),
+                    starts=np.zeros(r, np.int32), lens=np.zeros(r, np.int32))
+        rows["slots"][:m] = slots
+        rows["starts"][:m] = lengths[slots]
+        rows["lens"][:m] = ints(1, c + 1, m)
+        if key.kind == "chunk":
+            return dict(tokens=rows["tokens"], slot_ids=rows["slots"], starts=rows["starts"],
+                        lens=rows["lens"])
+        dec = rng.random(j) < 0.75
+        dec[slots] = False
+        return dict(pending=ints(1, vocab, j), chunk_tokens=rows["tokens"],
+                    chunk_slots=rows["slots"], starts=rows["starts"], lens=rows["lens"],
+                    dec_active=dec, rids=ints(0, 1000, j + r), token_idx=ints(0, 64, j + r),
+                    sample_rows=rng.random(j + r) < 0.8)
+    n, sl = key.shape
+    return dict(tokens=ints(1, vocab, n, sl), lengths=ints(1, sl + 1, n))
+
+
+def direct_dispatch(torch, eng, key, x, cache):
+    """The call ``key`` captures, made directly on the model over ``cache``
+    (a copy of the engine's): what its replay must give, bit for bit."""
+    model, params, cfg = eng.model, eng.params, eng.cfg
+    t = lambda a: torch.from_numpy(a).to(eng.device)
+    sample = dict(sampler=eng.sampler, base_key=eng._base_key)
+    if key.kind == "decode":
+        block, counts, act, last, _ = model.decode_steps(
+            params, t(x["tokens"]), cache, num_steps=key.shape[0], active=t(x["active"]),
+            budgets=t(x["budgets"]), rids=t(x["rids"]), token_idx0=t(x["token_idx0"]),
+            eos_id=cfg.eos_id, **sample)
+        return dict(block=block, counts=counts, active=act, last=last)
+    if key.kind == "mixed":
+        sampled, _ = model.mixed_step(
+            params, t(x["pending"]), cache, t(x["chunk_tokens"]), t(x["chunk_slots"]),
+            t(x["starts"]), t(x["lens"]), dec_active=t(x["dec_active"]), rids=t(x["rids"]),
+            token_idx=t(x["token_idx"]), sample_rows=t(x["sample_rows"]), **sample)
+        return dict(sampled=sampled)
+    if key.kind == "chunk":
+        logits, _ = model.prefill_chunk(params, t(x["tokens"]), cache, t(x["slot_ids"]),
+                                        t(x["starts"]), t(x["lens"]))
+        return dict(logits=logits)
+    n, sl = key.shape
+    fresh = model.cache_init(n, sl)
+    logits, _ = model.prefill(params, t(x["tokens"]), fresh, lengths=t(x["lengths"]))
+    return dict(logits=logits, **{f"prefill {k}": v for k, v in fresh.items()})
+
+
+def replayed_dispatch(torch, eng, key, x):
+    """The same call through the engine's captured dispatch: inputs loaded
+    into its static buffers (pending tokens into the engine's own buffer),
+    the graph replayed, the outputs unpacked as the engine reads them."""
+    x = dict(x)
+    if key.kind in ("decode", "mixed"):
+        eng._pending_dev.copy_(torch.from_numpy(x.pop("tokens" if key.kind == "decode" else "pending")))
+    entry = eng.graphs.prepare(key)
+    check(entry.graph is not None, f"replay {key}: no graph was captured")
+    out = eng.graphs.run(key, **x)
+    if key.kind == "decode":
+        k, j = key.shape[0], eng.cfg.n_slots
+        return dict(block=out[: k * j].view(k, j), counts=out[k * j: k * j + j],
+                    active=out[k * j + j:].bool(), last=eng._pending_dev)
+    if key.kind == "mixed":
+        return dict(sampled=out)
+    if key.kind == "chunk":
+        return dict(logits=out)
+    return dict(logits=out, **{f"prefill {k}": v for k, v in entry.inputs["cache"].items()})
+
+
+def check_replays(torch, np, model, params):
+    """Every captured key of Qwen3-8B's serving engines — paged (chunk,
+    mixed, decode) and dense (prefill, decode), greedy and top-p — replayed
+    against a direct model call on the same inputs over a copy of the same
+    mid-serve state: the token block, emitted counts, active mask, last
+    tokens (or the sampled tokens, or the logits) and the pool's bytes and
+    lengths after the call bit-equal. Returns the number of keys checked."""
+    from repro_torch.core import CostModel
+    from repro_torch.launch.profile_step import DENSE_BUCKETS, SERVE_LEN, serve_workload
+    from repro_torch.launch.serve import build_scheduling
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sampler import TopPSampler, greedy
+
+    rng = np.random.default_rng(0)
+    checked = 0
+    for layout in ("paged", "dense"):
+        for sampler in (greedy, TopPSampler(top_p=0.9)):
+            what = f"replay {layout} {'top_p' if sampler is not greedy else 'greedy'}"
+            t0 = time.perf_counter()
+            ecfg = (EngineConfig(n_slots=8, max_len=SERVE_LEN, kv_layout="paged")
+                    if layout == "paged" else
+                    EngineConfig(n_slots=8, max_len=SERVE_LEN, prefill_seq_buckets=DENSE_BUCKETS))
+            eng = Engine(model, params, ecfg, sampler=sampler, device="cuda")
+            eng.profiler.cost_model = CostModel(level_caps=(32, 64, 128, 256))
+            eng.warm_serving_shapes()
+            # a mid-serve state: slots bound, pages owned, lengths ragged
+            reqs = serve_workload()
+            eng.begin_serve(reqs, *build_scheduling("hybrid", reqs, 8, eng.profiler.cost_model))
+            for _ in range(6):
+                eng.serve_step()
+            names = set()
+            for key in sorted(eng.graphs.keys):
+                x = replay_inputs(np, rng, eng, key)
+                cache = {k: v.clone() for k, v in eng.slots.cache.items()}
+                want = direct_dispatch(torch, eng, key, x, cache)
+                got = replayed_dispatch(torch, eng, key, x)
+                names |= set(want)
+                torch.cuda.synchronize()
+                for name in want:
+                    check(_same_bits(torch, got[name], want[name]), f"{what} {key}: {name} differs")
+                for name, v in cache.items():
+                    check(_same_bits(torch, eng.slots.cache[name], v),
+                          f"{what} {key}: the pool's {name} differs after the call")
+                checked += 1
+            st = graph_stats(what, eng.graphs)
+            print(f"  {what}: {len(eng.graphs.keys)} keys, each replay bit-equal to the direct call "
+                  f"({', '.join(sorted(names))} and the pool), {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+            del eng, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+    return checked
 
 
 def run_top_p_serve(torch, model, params, greedy_stats):
@@ -1095,27 +1260,55 @@ def run_top_p_serve(torch, model, params, greedy_stats):
     return eng, launches, by_variant
 
 
+def direct_wave(torch, model, params, wave, max_len, prefill_len):
+    """One wave served by direct calls (prefill, then ``decode_step`` and
+    the greedy pick per token, no graph): the tokens a WaveServer's
+    replays must give."""
+    from repro_torch.serving.engine import prompt_tokens
+    from repro_torch.serving.sampler import greedy
+
+    dev = model.device
+    tokens = torch.zeros((len(wave), prefill_len), dtype=torch.int32)
+    for i, r in enumerate(wave):
+        tokens[i, : r.n_prefill] = torch.from_numpy(prompt_tokens(r, model.cfg.vocab_size))
+    lengths = torch.tensor([r.n_prefill for r in wave], dtype=torch.int32, device=dev)
+    cache = model.cache_init(len(wave), max_len)
+    logits, _ = model.prefill(params, tokens.to(dev), cache, lengths=lengths)
+    out = [greedy(logits)]
+    for _ in range(max(r.n_decode for r in wave) - 1):
+        logits, _ = model.decode_step(params, out[-1], cache)
+        out.append(greedy(logits))
+    block = torch.stack(out).cpu().numpy()
+    return {r.rid: block[: r.n_decode, i].tolist() for i, r in enumerate(wave)}
+
+
 def run_recurrentgemma_serve(torch, model, params):
     """The serve's 16 requests through RecurrentGemma's own prefill and
-    decode_step in two waves of 8 slots (launch.generate), after a warm-up
-    wave; returns the launches per kernel and flash's launches by body."""
-    from repro_torch.launch.generate import generate_waves
+    decode_step in two waves of 8 slots (``launch.generate.WaveServer``, its
+    decode steps replayed), after a warm-up wave that captures the wave
+    size's graph; the first wave's tokens equal direct calls'. Returns the
+    launches per kernel and flash's launches by body."""
+    from repro_torch.launch.generate import WaveServer
     from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len, serve_workload
 
     cfg = model.cfg
     reqs = serve_workload()
-    waves = dict(n_slots=8, max_len=SERVE_LEN, prefill_len=dense_prefill_len())
-    # warm-up: cuBLAS and the kernels initialised at the serve's shapes
-    generate_waves(model, params, [dataclasses.replace(r, n_decode=2) for r in reqs[:8]], **waves)
+    server = WaveServer(model, params, n_slots=8, max_len=SERVE_LEN, prefill_len=dense_prefill_len())
+    # warm-up: the wave's graph captured, cuBLAS and the kernels initialised
+    server.serve([dataclasses.replace(r, n_decode=2) for r in reqs[:8]])
+    replays = server.graphs.replays
     torch.cuda.reset_peak_memory_stats()
     kernels = kernel_modules()
     for mod in kernels.values():
         mod.reset_launch_count()
     t0 = time.perf_counter()
-    res = generate_waves(model, params, reqs, **waves)
+    res = server.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launch_count for name, mod in kernels.items()}
+    st = graph_stats("recurrentgemma", server.graphs)
+    check(st["captures"] == 1 and st["replays"] - replays == res.decode_steps,
+          f"recurrentgemma: {st['replays'] - replays} replays for {res.decode_steps} decode steps")
 
     for r in reqs:
         got = res.generated.get(r.rid, [])
@@ -1133,11 +1326,16 @@ def run_recurrentgemma_serve(torch, model, params):
           f"{res.tokens} output tokens, {res.decode_steps} decode steps, wall {wall:.4f} s", flush=True)
     print(f"  recurrentgemma tokens/s: {res.tokens / wall:.3f}")
     print(f"  recurrentgemma ms per decode step: {1e3 * res.decode_s / res.decode_steps:.3f}")
-    print(f"  recurrentgemma ms per prefill (8 x {waves['prefill_len']}): "
+    print(f"  recurrentgemma ms per prefill (8 x {dense_prefill_len()}): "
           f"{1e3 * res.prefill_s / res.prefills:.3f}")
     print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     by_variant = check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
+    direct = direct_wave(torch, model, params, reqs[:8], SERVE_LEN, dense_prefill_len())
+    check(all(res.generated[rid] == toks for rid, toks in direct.items()),
+          "recurrentgemma: the replayed wave's tokens differ from direct calls'")
+    print(f"  recurrentgemma: wave 1's {sum(map(len, direct.values()))} tokens replayed == direct "
+          f"calls': True", flush=True)
     return launches, by_variant
 
 
@@ -1183,8 +1381,10 @@ def weight_read_floor_ms(params, cfg):
 def decode_stage_profile(torch, model, params):
     """One fused decode stage (K = 8) of 8 slots on the dense layout after a
     prefill of 8 prompts at the serve's largest bucket, under torch.profiler
-    (``profile_step._measure``): wall, device time, busy share, kernels."""
-    from repro_torch.launch.profile_step import SERVE_LEN, _measure, dense_prefill_len
+    (``profile_step.measure_both``), called directly and replayed from its
+    graph: (direct, replay), each with wall, device time, busy share,
+    kernels."""
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len, measure_both
     from repro_torch.serving.sampler import greedy
 
     j = 8
@@ -1196,9 +1396,9 @@ def decode_stage_profile(torch, model, params):
     z = torch.zeros(j, dtype=torch.int32, device="cuda")
     on = torch.ones(j, dtype=torch.bool, device="cuda")
     big = torch.full((j,), 10**6, dtype=torch.int32, device="cuda")
-    return _measure("dense fused decode, K = 8", lambda: model.decode_steps(
+    return measure_both("dense fused decode, K = 8", lambda: model.decode_steps(
         params, z, cache, num_steps=8, sampler=greedy, active=on, budgets=big, rids=z,
-        token_idx0=z), iters=1)
+        token_idx0=z), iters=1, read=lambda out: out[0].cpu())
 
 
 def run_family_serves(torch, then=None):
@@ -1246,12 +1446,13 @@ def run_family_serves(torch, then=None):
                   f"rounds, {st['mixed_rounds']} mixed rounds, {st['ms_per_decode_round']:.3f} ms a "
                   f"decode round against the weight-read floor {floor:.3f} ms "
                   f"({st['ms_per_decode_round'] / floor:.2f}x), peak {st['peak_gib']:.3f} GiB", flush=True)
-        prof = decode_stage_profile(torch, model, params)
-        busy = prof["device_busy_share"]
-        print(f"  {cfg.name} fused decode stage (8 slots, K = 8, dense): wall {prof['traced_wall_ms']:.3f} ms, "
-              f"device {prof['device_ms']:.3f} ms ({prof['device_ms'] / 8:.3f} ms a step against the floor "
-              f"{floor:.3f} ms), busy share {busy:.3f}, {prof['kernels_launched']} kernels: "
-              f"{'device' if busy >= 0.8 else 'host'}-paced; top {json.dumps(prof['top_kernels'][:4])}")
+        for prof in decode_stage_profile(torch, model, params):
+            busy = prof["device_busy_share"]
+            print(f"  {cfg.name} fused decode stage (8 slots, K = 8, dense, {prof['way']}): wall "
+                  f"{prof['traced_wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms "
+                  f"({prof['device_ms'] / 8:.3f} ms a step against the floor {floor:.3f} ms), busy share "
+                  f"{busy:.3f}, {prof['kernels_launched']} kernels: "
+                  f"{'device' if busy >= 0.8 else 'host'}-paced; top {json.dumps(prof['top_kernels'][:4])}")
         if then and arch in then:
             then[arch](model, params)
         del model, params
@@ -1465,6 +1666,13 @@ def fleet_workload(n, seed):
     return gsm8k_like_workload(WorkloadSpec(n_requests=n, output_max=128), seed=seed, known_lengths=True)
 
 
+def check_fleet_graphs(what, fleet, report):
+    """Each replica replayed one captured dispatch a stage of its trace and
+    captured nothing during the serve."""
+    for i, (eng, trace) in enumerate(zip(fleet.engines, report.traces)):
+        check_graphs(f"{what} r{i}", eng, len(trace.stages))
+
+
 def run_fleet(torch, model, params):
     """Two replicas of the full-size model on one card over one weight set,
     the paged mixed layout, priced by the paper-prior cost model the other
@@ -1531,6 +1739,7 @@ def run_fleet(torch, model, params):
           f"{gib(weights + pools):.3f} GiB", flush=True)
     by_variant = check_flash_variants("fleet", launches)
     check_launches("fleet", launches, fleet_expect(cfg, report))
+    check_fleet_graphs("fleet", fleet, report)
 
     # drain: the same fleet, 8 requests (4 a replica under LPT), so the
     # survivor always has a free slot and pages for each of replica 0's
@@ -1579,6 +1788,7 @@ def run_fleet(torch, model, params):
           f"other replica -> complete; capacity conserved; {len(obs.spans.events)} spans, "
           f"{len(obs.audit.records)} audit records", flush=True)
     check_launches("drain", drain_launches, fleet_expect(cfg, report))
+    check_fleet_graphs("drain", fleet, report)
     del fleet
     return launches, by_variant
 
@@ -2602,6 +2812,11 @@ def main() -> int:
     eng, launches["top_p"], by_variant["top_p"] = run_top_p_serve(torch, model, params, stats["paged"])
     del eng
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    n_keys = check_replays(torch, np, model, params)
+    print(f"  replays: {n_keys} captured keys of Qwen3-8B's engines (paged and dense, greedy and "
+          f"top-p) bit-equal to direct calls", flush=True)
+    phase("replays", t1)
     t1 = time.perf_counter()
     launches["fleet"], by_variant["fleet"] = run_fleet(torch, model, params)
     torch.cuda.empty_cache()

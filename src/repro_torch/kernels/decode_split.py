@@ -81,3 +81,9 @@ def workspace(device: torch.device, n_floats: int, n_counters: int) -> Tuple[tor
                torch.zeros(max(n_counters, old_c), dtype=torch.int32, device=device))
         _workspaces[key] = cur
     return cur
+
+
+def current(device: torch.device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The scratch pair ``workspace`` holds for ``device`` now (None before
+    the first split launch): captured graphs hold its pointers."""
+    return _workspaces.get((device.type, device.index))

@@ -8,22 +8,28 @@ bf16 weights, fills ``--slots`` slots of a paged pool and of a dense slot
 cache with ``--context`` tokens each, then measures on the CUDA device:
 
 * paged layout: a fused decode stage (``decode_steps`` with K =
-  ``--horizon``) and a mixed round (``mixed_step``: every slot decoding plus
-  ``--chunk-rows`` prefill chunks of 32 tokens);
+  ``--horizon``), a mixed round (``mixed_step``: every other slot decoding
+  plus ``--chunk-rows`` prefill chunks of 32 tokens) and a chunk round
+  (``prefill_chunk`` of those rows alone);
 * dense layout: a prefill stage (``prefill`` of ``--slots`` prompts at the
   largest bucket the serve's prompts use, into a bucket cache, as the engine
   runs it) and a fused decode stage (``decode_steps`` with K = ``--horizon``
   over the slot cache);
 * then, with Qwen3 freed, full-size RecurrentGemma-9B (random bf16 weights):
   a prefill stage (``prefill`` of ``--slots`` prompts at the same bucket into
-  a fresh cache, as ``launch.generate`` runs a wave) and one ``decode_step``
-  over slots holding ``--context`` tokens;
-* for each: host wall time per call, each ending in a device synchronise,
-  and one ``torch.profiler`` trace: device time summed over kernels, the
-  device's busy share of the wall time, kernels launched per call, and the
-  kernels that take the most device time.
+  a wave cache, directly, as ``launch.generate`` runs a wave) and one
+  ``decode_step`` with its greedy pick (a wave's graph) over slots holding
+  ``--context`` tokens;
+* for each, both ways the engine could dispatch it: the direct call (every
+  kernel launched from the host) and the replay of its CUDA graph, captured
+  here as the engine captures its dispatches (``serving.graphs``); each way
+  its host wall time per call, each ending in a device synchronise, and one
+  ``torch.profiler`` trace: device time summed over kernels, the device's
+  busy share of the wall time, kernels run per call, and the kernels that
+  take the most device time.
 
-Prints one JSON object per measured call. Needs a CUDA device.
+Prints one JSON object per measured call and way (``"way": "direct"`` or
+``"replay"``). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ..configs import get_config
 from ..data import WorkloadSpec, gsm8k_like_workload
 from ..models.recurrentgemma import RecurrentGemma
 from ..models.transformer import TransformerLM
+from ..serving.graphs import Dispatches, Key
 from ..serving.sampler import greedy
 
 # The full-size serve that chip_smoke.py runs and this script profiles: the
@@ -121,6 +128,20 @@ def _measure(name, fn, iters, kernels=False):
     return out
 
 
+def measure_both(name, fn, iters, read=None):
+    """``_measure`` of ``fn`` called directly, then of the replay of its
+    graph (captured as ``serving.graphs`` captures the engine's dispatches,
+    after one direct call on the capture stream). ``read(out)`` is the
+    call's host read (outside the graph). Returns (direct, replay)."""
+    read = read or (lambda out: out)
+    graphs = Dispatches(torch.device("cuda"), lambda key: ({}, lambda x: fn()))
+    key = Key(name, (), False)
+    graphs.prepare(key)
+    direct = _measure(name, lambda: read(fn()), iters)
+    replay = _measure(name, lambda: read(graphs.replay(key)), iters)
+    return {**direct, "way": "direct"}, {**replay, "way": "replay", **graphs.stats()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--layers", type=int, default=36)
@@ -142,26 +163,33 @@ def main(argv=None):
     j, dev = args.slots, "cuda"
     cache = _fill_pool(model, params, j, args.context, 16, SERVE_LEN, dev)
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+    # every input lives on the device before a call: a graph captures no
+    # host copy
+    r = args.chunk_rows
+    zj, zjr, zrc, zr = z(j), z(j + r), z(r, 32), z(r)
+    on = torch.ones(j, dtype=torch.bool, device=dev)
+    big = torch.full((j,), 10**6, dtype=torch.int32, device=dev)
+    rows = torch.arange(r, dtype=torch.int32, device=dev)
+    full_rows = torch.full((r,), 32, dtype=torch.int32, device=dev)
+    dec_active = torch.arange(j, device=dev) >= r
+    sample_rows = torch.ones(j + r, dtype=torch.bool, device=dev)
+    host = lambda out: out[0].cpu()
 
     # each call grows the live slots (decode) or rewrites the first chunk of
-    # the chunk rows' slots; the measured calls stay inside the SERVE_LEN pool
+    # the chunk rows' slots; both ways' calls stay inside the SERVE_LEN pool
     def decode():
-        model.decode_steps(
-            params, z(j), cache, num_steps=args.horizon, sampler=greedy,
-            active=torch.ones(j, dtype=torch.bool, device=dev),
-            budgets=torch.full((j,), 10**6, dtype=torch.int32, device=dev),
-            rids=z(j), token_idx0=z(j),
-        )
-
-    r = args.chunk_rows
+        return model.decode_steps(params, zj, cache, num_steps=args.horizon, sampler=greedy,
+                                  active=on, budgets=big, rids=zj, token_idx0=zj)
 
     def mixed():
-        model.mixed_step(
-            params, z(j), cache, z(r, 32), torch.arange(r, dtype=torch.int32, device=dev),
-            z(r), torch.full((r,), 32, dtype=torch.int32, device=dev), sampler=greedy,
-            dec_active=torch.arange(j, device=dev) >= r, rids=z(j + r),
-            token_idx=z(j + r), sample_rows=torch.ones(j + r, dtype=torch.bool, device=dev),
-        )
+        return model.mixed_step(params, zj, cache, zrc, rows, zr, full_rows, sampler=greedy,
+                                dec_active=dec_active, rids=zjr, token_idx=zjr,
+                                sample_rows=sample_rows)
+
+    # the chunk round's first-token pick stays outside its graph, as in the
+    # engine
+    def chunk():
+        return model.prefill_chunk(params, zrc, cache, rows, zr, full_rows)
 
     prefill_len = dense_prefill_len()
     head = {
@@ -169,8 +197,10 @@ def main(argv=None):
         "slots": j, "context": args.context, "horizon": args.horizon,
         "chunk_rows": r, "prefill_len": prefill_len,
     }
-    for name, fn in (("decode_steps", decode), ("mixed_step", mixed)):
-        print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
+    for name, fn, read in (("decode_steps", decode, host), ("mixed_step", mixed, host),
+                           ("prefill_chunk", chunk, lambda out: greedy(out[0]).cpu())):
+        for out in measure_both(name, fn, args.iters, read):
+            print(json.dumps({**head, **out}), flush=True)
     del cache
     torch.cuda.empty_cache()
 
@@ -182,21 +212,21 @@ def main(argv=None):
                   slot_cache)
     prompts = t(rng.integers(1, cfg.vocab_size, size=(j, prefill_len)))
     bucket = model.cache_init(j, prefill_len)
+    prompt_lens = t(np.full(j, prefill_len))
 
+    # the prefill stage's first-token pick stays outside its graph, as in
+    # the engine
     def dense_prefill():
-        logits, _ = model.prefill(params, prompts, bucket, lengths=t(np.full(j, prefill_len)))
-        greedy(logits).cpu()
+        return model.prefill(params, prompts, bucket, lengths=prompt_lens)
 
     def dense_decode():
-        model.decode_steps(
-            params, z(j), slot_cache, num_steps=args.horizon, sampler=greedy,
-            active=torch.ones(j, dtype=torch.bool, device=dev),
-            budgets=torch.full((j,), 10**6, dtype=torch.int32, device=dev),
-            rids=z(j), token_idx0=z(j),
-        )
+        return model.decode_steps(params, zj, slot_cache, num_steps=args.horizon,
+                                  sampler=greedy, active=on, budgets=big, rids=zj, token_idx0=zj)
 
-    for name, fn in (("dense_prefill", dense_prefill), ("dense_decode_steps", dense_decode)):
-        print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
+    for name, fn, read in (("dense_prefill", dense_prefill, lambda out: greedy(out[0]).cpu()),
+                           ("dense_decode_steps", dense_decode, host)):
+        for out in measure_both(name, fn, args.iters, read):
+            print(json.dumps({**head, **out}), flush=True)
     del model, params, slot_cache, bucket
     torch.cuda.empty_cache()
 
@@ -206,19 +236,23 @@ def main(argv=None):
     rg_cache = rg.cache_init(j, SERVE_LEN)
     rg.prefill(rg_params, t(rng.integers(1, rg.cfg.vocab_size, size=(j, args.context))), rg_cache)
     rg_prompts = t(rng.integers(1, rg.cfg.vocab_size, size=(j, prefill_len)))
-    lens = t(np.full(j, prefill_len))
+    rg_bucket = rg.cache_init(j, SERVE_LEN)
 
+    # a wave's prefill runs directly in launch.generate (over a reset cache);
+    # its decode step (with the greedy pick) is the wave's graph
     def rg_prefill():
-        logits, _ = rg.prefill(rg_params, rg_prompts, rg.cache_init(j, SERVE_LEN), lengths=lens)
-        greedy(logits).cpu()
+        logits, _ = rg.prefill(rg_params, rg_prompts, rg_bucket, lengths=prompt_lens)
+        return greedy(logits)
 
     def rg_decode():
-        logits, _ = rg.decode_step(rg_params, z(j), rg_cache)
-        greedy(logits).cpu()
+        logits, _ = rg.decode_step(rg_params, zj, rg_cache)
+        return greedy(logits)
 
     head = {**head, "model": rg.cfg.name, "layers": rg.cfg.n_layers}
-    for name, fn in (("rg_prefill", rg_prefill), ("rg_decode_step", rg_decode)):
-        print(json.dumps({**head, **_measure(name, fn, args.iters)}), flush=True)
+    print(json.dumps({**head, **_measure("rg_prefill", lambda: rg_prefill().cpu(), args.iters),
+                      "way": "direct"}), flush=True)
+    for out in measure_both("rg_decode_step", rg_decode, args.iters, lambda out: out.cpu()):
+        print(json.dumps({**head, **out}), flush=True)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ chunk rows as ``(R, C, D)``, a prefill bucket whole, padding rows included).
 
 The reference computes the dispatch and the expert products outside any
 Pallas kernel, so they stay plain torch here. Nothing reads a device value
-on the host.
+on the host, so the engine's dispatches capture the block in their CUDA
+graphs.
 """
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, n_experts: int, top_k: int
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch): E * sum_e f_e * mean p_e
     me = probs.mean(dim=(0, 1))
-    fe = torch.nn.functional.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
+    # one_hot as a comparison: no range check of the ids on the host
+    fe = (gate_idx[..., 0, None] == torch.arange(e, device=xg.device)).float().mean(dim=(0, 1))
     capacity = max(1, int(capacity_factor * g * k / e))
     flat_choice = gate_idx.reshape(n_groups, g * k)
     ranks = _ranks_within_expert(flat_choice)
@@ -107,7 +109,7 @@ def moe_apply(
     # scatter the kept choices into per-expert capacity buffers; a dropped
     # choice adds zeros at slot C - 1 (kept slots are distinct, so every sum
     # is one value plus zeros: exact in any order)
-    xk = xg.repeat_interleave(k, dim=1)                          # (G, T, D)
+    xk = xg[:, :, None].expand(n_groups, g, k, d).reshape(n_groups, g * k, d)   # (G, T, D)
     contrib = torch.where(r.within[..., None], xk, 0).to(x.dtype)
     expert_in = torch.zeros((n_groups, e * cap, d), dtype=x.dtype, device=x.device)
     expert_in.scatter_add_(1, r.slot[..., None].expand(-1, -1, d), contrib)

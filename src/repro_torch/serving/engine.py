@@ -24,10 +24,17 @@ reference drive the port's model steps over one of two KV layouts:
     device, one host sync at the horizon boundary.
 
 Where the reference calls ``jax.jit(..., donate_argnums=...)`` executables,
-the port calls the model methods directly and they update the pool in place.
-Every stage synchronises the device before it reads the clock (before the
-dispatch, and through the host copy of its sampled tokens after it), so the
-online profiler fits device time, not launch latency.
+the port replays CUDA graphs (``serving.graphs``): one captured dispatch for
+each key the scheduler can reach — fused decode per horizon, mixed and
+chunk rounds per row bucket, the dense prefill per (request, sequence)
+bucket pair — each with its static input buffers, over the pool and slot
+cache, which every path updates in place. A key is captured the first time
+a stage needs it, before the stage's clock starts, or all at once by
+``warm_serving_shapes``. On a CPU engine the same dispatches run eagerly on
+the same static buffers (the kernels' plain versions). Every stage
+synchronises the device before it reads the clock (before the replay, and
+through the host copy of its sampled tokens after it), so the online
+profiler fits device time, not capture or launch latency.
 
 A ``Fleet`` (``serving.fleet``) drives many engines' sessions interleaved
 in virtual time through ``begin_serve`` / ``serve_step`` / ``finish_serve``,
@@ -61,6 +68,7 @@ from ..core.types import (
     StageKind,
     StageRecord,
 )
+from .graphs import Dispatches, Key, decode_scratch, sm_count
 from .kv_slots import PagedSlotManager, SlotManager
 from .overload import OverloadPolicy
 from .profiler import OnlineProfiler
@@ -288,9 +296,18 @@ class Engine:
             if getattr(sampler, "stochastic", False) else None
         )
         self.pending_token = np.zeros(config.n_slots, dtype=np.int32)
-        # device copy of pending tokens carried between consecutive decode
-        # stages (None → stale, rebuilt from the host array)
-        self._dev_pending: Optional[torch.Tensor] = None
+        # the decode and mixed dispatches' pending-token input, owned by the
+        # engine: a decode graph leaves its last tokens here, so consecutive
+        # decode stages carry them on the device; while it is not valid, the
+        # next stage reloads it from the host array
+        self._pending_dev = torch.zeros(config.n_slots, dtype=torch.int32, device=self.device)
+        self._pending_dev_valid = False
+        self._prefill_buf: Optional[Dict[str, torch.Tensor]] = None
+        self.graphs = Dispatches(
+            self.device, self._build_dispatch,
+            scratch=(decode_scratch(self.slots.cache, model.cfg.n_heads, sm_count(self.device))
+                     if self.device.type == "cuda" else (0, 0)),
+        )
         self.decode_dispatches = 0
         self.decoded_tokens = 0
         self.mixed_rounds = 0
@@ -376,15 +393,17 @@ class Engine:
         for i, r in enumerate(reqs):
             tokens[i, : r.n_prefill] = self._prompt_tokens(r)
             lengths[i] = r.n_prefill
-        cache = self.model.cache_init(n_pad, s_pad)
-        args = [self._tensor(x) for x in (tokens, lengths)]
+        key = self._key("prefill", n_pad, s_pad)
+        pref_cache = self.graphs.prepare(key).inputs["cache"]
+        self.graphs.load(key, tokens=tokens, lengths=lengths)
         self._sync()
         t0 = time.perf_counter()
-        logits, pref_cache = self.model.prefill(self.params, args[0], cache, lengths=args[1])
-        # the stage's host sync
+        logits = self.graphs.replay(key)
+        # the stage's host sync; the first token is sampled outside the
+        # graph, as outside the reference's ``_prefill_jit``
         first = self._sample_first(logits, [r.rid for r in reqs]).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
-        self._dev_pending = None          # prefill rewrites pending tokens
+        self._pending_dev_valid = False  # prefill rewrites pending tokens
         # scatter only the real rows (the batch was padded to a bucket)
         n = len(slots)
         real_cache = {
@@ -719,16 +738,16 @@ class Engine:
             slot_ids[i] = st.slot
             starts[i] = st.done
             lens[i] = n
-        args = [self._tensor(x) for x in (tokens, slot_ids, starts, lens)]
+        key = self._key("chunk", n_pad)
+        self.graphs.prepare(key)
+        self.graphs.load(key, tokens=tokens, slot_ids=slot_ids, starts=starts, lens=lens)
         self._sync()
         t0 = time.perf_counter()
-        logits, self.slots.cache = self.model.prefill_chunk(
-            self.params, args[0], self.slots.cache, *args[1:]
-        )
-        # the stage's host sync
+        logits = self.graphs.replay(key)
+        # the stage's host sync (first tokens sampled outside the graph)
         first = self._sample_first(logits, [st.req.rid for st in states]).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
-        self._dev_pending = None          # prefill rewrites pending tokens
+        self._pending_dev_valid = False  # prefill rewrites pending tokens
         busy: Dict[int, int] = {}
         busy_partial: Dict[int, int] = {}
         finished: List[int] = []
@@ -772,10 +791,12 @@ class Engine:
             budget -= n
         return plan, admitted
 
-    def _pending_tensor(self) -> torch.Tensor:
-        if self._dev_pending is not None:
-            return self._dev_pending
-        return self._tensor(self.pending_token.copy())
+    def _load_pending(self) -> None:
+        """Bring the engine-owned pending-token buffer up to date with the
+        host array, unless a decode graph left it current."""
+        if not self._pending_dev_valid:
+            self._pending_dev.copy_(torch.from_numpy(self.pending_token))
+            self._pending_dev_valid = True
 
     def _run_mixed_stage(self, plan: List[Tuple[_ChunkState, int]]):
         """ONE dispatch: a decode round over every active slot plus the
@@ -815,23 +836,20 @@ class Engine:
                     sample_rows[j + i] = True
                     rids[j + i] = st.req.rid
                 final_row[st.slot] = j + i
-        pending = self._pending_tensor()
-        dev = [
-            self._tensor(x) for x in (
-                chunk_tokens, chunk_slots, starts, lens, dec_active, rids,
-                token_idx, sample_rows,
-            )
-        ]
+        key = self._key("mixed", r_pad)
+        self.graphs.prepare(key)
+        self._load_pending()
+        self.graphs.load(
+            key, chunk_tokens=chunk_tokens, chunk_slots=chunk_slots, starts=starts,
+            lens=lens, dec_active=dec_active, rids=rids, token_idx=token_idx,
+            sample_rows=sample_rows,
+        )
         self._sync()
         t0 = time.perf_counter()
-        sampled, self.slots.cache = self.model.mixed_step(
-            self.params, pending, self.slots.cache, *dev[:4],
-            sampler=self.sampler, dec_active=dev[4], rids=dev[5],
-            token_idx=dev[6], sample_rows=dev[7], base_key=self._base_key,
-        )
-        sampled = sampled.cpu().numpy()    # the ONE host sync for this round
+        # the ONE host sync for this round
+        sampled = self.graphs.replay(key).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
-        self._dev_pending = None           # pending rebuilt from host below
+        self._pending_dev_valid = False  # pending rebuilt from host below
 
         finished_decode: List[int] = []
         decode_tokens = 0
@@ -894,51 +912,121 @@ class Engine:
                 if self.obs is not None:
                     self._obs_complete(req, t, slot)
 
-    def warm_serving_shapes(self) -> None:
-        """Run every paged serving dispatch shape the scheduler can reach —
-        mixed rounds and chunk rounds at each row bucket, fused decode at
-        each horizon bucket — once, as all-pad / all-inactive calls (writes
-        dropped, lengths untouched, nothing recorded), so the first stage of
-        each shape in a measured serve finds cuBLAS and the kernels ready.
-        A plain warm pass: nothing is captured."""
-        if self.cfg.kv_layout != "paged":
-            return
+    # ------------------------------------------------------------------ #
+    # Captured dispatches (serving.graphs)                                #
+    # ------------------------------------------------------------------ #
+    def _key(self, kind: str, *shape: int) -> Key:
+        return Key(kind, shape, self._base_key is not None)
+
+    def _horizons(self) -> List[int]:
+        """Every horizon ``_choose_horizon`` can return (page pressure only
+        halves a policy horizon): a pinned K and the powers of two under it,
+        or the powers of two up to the cap."""
         cfg = self.cfg
-        j = cfg.n_slots
-        c = cfg.prefill_chunk
-        dev = self.device
-        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
-        off = lambda n: torch.zeros(n, dtype=torch.bool, device=dev)
-        row_buckets = sorted({
-            _bucket(rows, cfg.prefill_req_buckets) for rows in range(1, j + 1)
-        })
-        for r_pad in row_buckets:
-            pad = torch.full((r_pad,), j, dtype=torch.int32, device=dev)
+        if cfg.decode_horizon is not None:
+            k = cfg.decode_horizon
+            if k < 1:
+                return [1]
+            return sorted({k} | {1 << i for i in range(k.bit_length()) if 1 << i < k})
+        cap = max(1, cfg.max_decode_horizon)
+        return [1 << i for i in range(cap.bit_length())]
+
+    def serving_keys(self) -> set:
+        """Every dispatch key the scheduler can reach: fused decode at each
+        horizon; on the paged layout, chunk rounds (and mixed rounds, under
+        ``mixed_schedule``) at each row bucket of 1..n_slots rows; on the
+        dense layout, prefill stages at each (request, sequence) bucket pair
+        whose sequence bucket fits ``max_len`` (a longer one fails at serve
+        time, as it always has)."""
+        cfg = self.cfg
+        rows = sorted({_bucket(r, cfg.prefill_req_buckets) for r in range(1, cfg.n_slots + 1)})
+        keys = {self._key("decode", k) for k in self._horizons()}
+        if cfg.kv_layout == "paged":
+            keys |= {self._key("chunk", r) for r in rows}
             if cfg.mixed_schedule:
-                self.model.mixed_step(
-                    self.params, zeros(j), self.slots.cache, zeros(r_pad, c),
-                    pad, zeros(r_pad), zeros(r_pad), sampler=self.sampler,
-                    dec_active=off(j), rids=zeros(j + r_pad) - 1,
-                    token_idx=zeros(j + r_pad), sample_rows=off(j + r_pad),
-                    base_key=self._base_key,
-                )
-            self.model.prefill_chunk(
-                self.params, zeros(r_pad, c), self.slots.cache, pad,
-                zeros(r_pad), zeros(r_pad),
-            )
-        k_cap = max(cfg.decode_horizon or cfg.max_decode_horizon, 1)
-        horizons = {k_cap}                 # a pinned K dispatches exactly
-        k = 1
-        while k <= k_cap:                  # plus the power-of-two buckets
-            horizons.add(k)
-            k *= 2
-        for k in sorted(horizons):
-            self.model.decode_steps(
-                self.params, zeros(j), self.slots.cache, num_steps=k,
-                sampler=self.sampler, active=off(j), budgets=zeros(j),
-                rids=zeros(j), token_idx0=zeros(j), base_key=self._base_key,
-            )
+                keys |= {self._key("mixed", r) for r in rows}
+        else:
+            keys |= {self._key("prefill", r, s) for r in rows
+                     for s in cfg.prefill_seq_buckets if s <= cfg.max_len}
+        return keys
+
+    def warm_serving_shapes(self) -> None:
+        """Prepare every key of ``serving_keys`` — its all-inactive call
+        (writes dropped, lengths untouched, nothing recorded) run eagerly,
+        then, on the card, captured — so no stage of a measured serve
+        captures, builds a kernel or warms cuBLAS."""
+        for key in sorted(self.serving_keys()):
+            self.graphs.prepare(key)
         self._sync()
+
+    def _prefill_cache(self, n: int, s: int) -> Dict[str, torch.Tensor]:
+        """The static cache of the (n, s) prefill bucket pair: views of one
+        buffer of the largest pair (each stage overwrites every entry of its
+        view, and the slot merge reads it before the next stage)."""
+        cfg = self.cfg
+        if self._prefill_buf is None:
+            self._prefill_buf = self.model.cache_init(
+                max(cfg.prefill_req_buckets), max(cfg.prefill_seq_buckets))
+        return {
+            k: self._prefill_buf[k][tuple(slice(0, d) for d in shape)]
+            for k, shape in self.model.cache_shape(n, s).items()
+        }
+
+    def _build_dispatch(self, key: Key):
+        """A key's static inputs, at its all-inactive call's values (pad
+        rows at slot n_slots, no active lane, writes dropped), and the
+        function the graph captures. Decode and mixed read the pending
+        tokens from the engine's own buffer; a decode leaves its last tokens
+        there, since its static outputs are overwritten by the next replay."""
+        cfg, model, params, dev = self.cfg, self.model, self.params, self.device
+        j, c = cfg.n_slots, cfg.prefill_chunk
+        cache, pending = self.slots.cache, self._pending_dev
+        sample = dict(sampler=self.sampler, base_key=self._base_key)
+
+        def i32(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=dev)
+
+        def off(n):
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+
+        if key.kind == "decode":
+            (k,) = key.shape
+            inputs = dict(active=off(j), budgets=i32(j), rids=i32(j), token_idx0=i32(j))
+
+            def fn(x):
+                block, counts, act, last, _ = model.decode_steps(
+                    params, pending, cache, num_steps=k, active=x["active"],
+                    budgets=x["budgets"], rids=x["rids"], token_idx0=x["token_idx0"],
+                    eos_id=cfg.eos_id, **sample)
+                pending.copy_(last)
+                return torch.cat([block.reshape(-1), counts, act.to(torch.int32)])
+        elif key.kind == "mixed":
+            (r,) = key.shape
+            inputs = dict(chunk_tokens=i32(r, c), chunk_slots=i32(r, fill=j), starts=i32(r),
+                          lens=i32(r), dec_active=off(j), rids=i32(j + r, fill=-1),
+                          token_idx=i32(j + r), sample_rows=off(j + r))
+
+            def fn(x):
+                return model.mixed_step(
+                    params, pending, cache, x["chunk_tokens"], x["chunk_slots"], x["starts"],
+                    x["lens"], dec_active=x["dec_active"], rids=x["rids"],
+                    token_idx=x["token_idx"], sample_rows=x["sample_rows"], **sample)[0]
+        elif key.kind == "chunk":
+            (n,) = key.shape
+            inputs = dict(tokens=i32(n, c), slot_ids=i32(n, fill=j), starts=i32(n), lens=i32(n))
+
+            def fn(x):
+                return model.prefill_chunk(params, x["tokens"], cache, x["slot_ids"],
+                                           x["starts"], x["lens"])[0]
+        elif key.kind == "prefill":
+            n, s = key.shape
+            inputs = dict(tokens=i32(n, s), lengths=i32(n, fill=1), cache=self._prefill_cache(n, s))
+
+            def fn(x):
+                return model.prefill(params, x["tokens"], x["cache"], lengths=x["lengths"])[0]
+        else:
+            raise ValueError(f"unknown dispatch kind {key.kind!r}")
+        return inputs, fn
 
     # ------------------------------------------------------------------ #
     # Fused decode                                                        #
@@ -980,28 +1068,21 @@ class Engine:
             budgets[slot] = self._decode_budget(slot)
             rids[slot] = self.slots.request_of[slot].rid
             emit0[slot] = self.slots.emitted[slot]
-        pending = self._pending_tensor()
-        dev = [self._tensor(x) for x in (active, budgets, rids, emit0)]
+        key = self._key("decode", k)
+        self.graphs.prepare(key)
+        self._load_pending()
+        self.graphs.load(key, active=active, budgets=budgets, rids=rids, token_idx0=emit0)
         self._sync()
         t0 = time.perf_counter()
-        token_block, emitted_k, active_out, last_tok, self.slots.cache = (
-            self.model.decode_steps(
-                self.params, pending, self.slots.cache,
-                num_steps=k, sampler=self.sampler, active=dev[0],
-                budgets=dev[1], rids=dev[2], token_idx0=dev[3],
-                base_key=self._base_key, eos_id=cfg.eos_id,
-            )
-        )
         # the ONE host sync for this horizon: everything the scheduler needs
-        host = torch.cat([
-            token_block.reshape(-1), emitted_k, active_out.to(torch.int32),
-        ]).cpu().numpy()
+        host = self.graphs.replay(key).cpu().numpy()
         dt = (time.perf_counter() - t0) / self.speed_factor
         n = cfg.n_slots
         block = host[: k * n].reshape(k, n)
         emitted_k = host[k * n : k * n + n]
         active_out = host[k * n + n :].astype(bool)
-        self._dev_pending = last_tok      # stays device-resident across stages
+        # the graph left the last tokens in the engine's pending buffer: they
+        # stay device-resident across stages
         self.decode_dispatches += 1
         finished: List[int] = []
         total = 0
@@ -1218,7 +1299,7 @@ class Engine:
             self.slots.emitted[slot] = ckpt.emitted
             self.pending_token[slot] = ckpt.pending_token
             # the device copy of pending tokens predates this import
-            self._dev_pending = None
+            self._pending_dev_valid = False
             sv.clients[slot].current = req
             req.decoded = ckpt.emitted
         else:
@@ -1681,7 +1762,7 @@ class Engine:
         ]
         self.slots.emitted = [int(e) for e in state["emitted"]]
         self.pending_token = np.array(state["pending_token"], dtype=np.int32)
-        self._dev_pending = None          # rebuilt from the restored host copy
+        self._pending_dev_valid = False  # rebuilt from the restored host copy
         self._budget_shift = int(state.get("budget_shift", 0))
         self.straggler_events = int(state.get("straggler_events", 0))
         self._resume_rids = {

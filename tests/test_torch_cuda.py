@@ -567,6 +567,47 @@ def test_cuda_two_replica_fleet_shares_one_weight_set(card, monkeypatch):
     assert out[1] == out[0]
 
 
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_cuda_engine_replays_every_stage_and_gives_the_cpu_streams(card, monkeypatch, layout):
+    """The float32 smoke engine on the card captures every reachable key in
+    ``warm_serving_shapes``, replays one graph a stage (the split scratch
+    never moves, the launch counts add each graph's launches), and under a
+    scripted clock gives the CPU engine's streams and stage list."""
+    from repro_torch.core import CostModel, GlobalQueueScheduler, LagrangianPolicy, Request, build_clients
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving import Engine, EngineConfig, OnlineProfiler
+    from repro_torch.serving import engine as engine_mod
+    from torch_port_arrays import ScriptedClock
+
+    cm = CostModel(level_caps=(32, 64, 128))
+    kw = dict(n_slots=4, max_len=64, kv_layout=layout, page_size=16, prefill_chunk=16,
+              prefill_seq_buckets=(32, 64), straggler_factor=1e9)
+    cpu = _smoke_model("float32", "cpu")
+    params_cpu = cpu.init_params(seed=0)
+    out = []
+    for m, p in ((cpu, params_cpu), (_smoke_model("float32", "cuda"),
+                                     tree_map(lambda x: x.cuda(), params_cpu))):
+        eng = Engine(m, p, EngineConfig(**kw), device=m.device,
+                     profiler=OnlineProfiler(initial=cm, refit_every=10**9))
+        eng.warm_serving_shapes()
+        reqs = [Request(rid=i, n_prefill=8 + 5 * i, n_decode=(20 if i % 2 else 6) + i) for i in range(7)]
+        monkeypatch.setattr(engine_mod, "time", ScriptedClock())
+        da.reset_launch_count()
+        pda.reset_launch_count()
+        trace = eng.serve(reqs, build_clients(4, reqs, None), GlobalQueueScheduler(reqs),
+                          LagrangianPolicy())
+        assert eng.graphs.replays == len(trace.stages)
+        assert eng.graphs.keys == eng.serving_keys()
+        if m.device.type == "cuda":
+            assert eng.graphs.captures == len(eng.graphs.keys)
+            rounds = sum(s.rounds for s in trace.stages if s.kind.value == "decode")
+            mixed = sum(1 for s in trace.stages if s.kind.value == "mixed")
+            launched = pda.launch_count if layout == "paged" else da.launch_count
+            assert launched == m.cfg.n_layers * (rounds + mixed)
+        out.append((eng.generated, [(s.kind, s.t_start, s.t_end, s.busy, s.tokens) for s in trace.stages]))
+    assert out[1] == out[0]
+
+
 def test_cuda_threefry_and_top_p_draw_equal_the_cpu(card):
     """The sampler is integer threefry work plus float32 ops: on the card
     it gives the CPU's keys and bits exactly, and the same tokens for the

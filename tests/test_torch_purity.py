@@ -107,6 +107,18 @@ def test_flash_backward_timer_needs_the_card(monkeypatch):
     assert set(time_flash_backward.SHAPES) == {"b1", "b2"}
 
 
+def test_serve_timer_needs_the_card(monkeypatch):
+    """The script that serves a checkout's engine for a parent / change
+    comparison measures the card only: without CUDA it raises before it
+    builds a kernel or loads a model."""
+    from repro_torch.launch import time_serves
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        time_serves.main(["--label", "this"])
+
+
 def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys):
     """``--arch`` takes the archs whose loss the port has (the TransformerLM
     families); RecurrentGemma, xLSTM and Whisper are refused with the title
