@@ -54,7 +54,14 @@ Phases, each printing its seconds on a line of its own:
              the inputs (forward, forward + backward, backward alone; the
              fastest backward alone is the library time), and kernel 2's
              forward with its log-sum-exp beside its bound, its plain
-             version and SDPA's fastest forward;
+             version and SDPA's fastest forward; the same for the backward
+             at RecurrentGemma-9B's attention (B 1 x 4096, 16/1 heads,
+             head_dim 256, window 2048, bf16: the CUDA-core body, two CTAs
+             a row tile; SDPA under the window's boolean mask, the math
+             backend included); and the RG-LRU backward (rglru_bwd.cu) at
+             RecurrentGemma-9B's training shape (1, 4096, 4096) float32,
+             chained across two calls, against its plain reverse scan,
+             timed beside its bound (bytes);
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -75,7 +82,13 @@ Phases, each printing its seconds on a line of its own:
              draws, and the smoke Qwen3 served under TopPSampler(top_p=0.9)
              with an Observation and the scripted clock on the paged and
              the dense layout with the same streams, span kinds and
-             Observation state;
+             Observation state; the float32 smoke RecurrentGemma, xLSTM
+             (128 tokens: two time chunks) and Whisper (weights
+             perturbed): each one's loss and every gradient leaf (remat)
+             card vs CPU (RecurrentGemma's through
+             the RG-LRU and flash backward kernels, Whisper's through the
+             flash backward, launches exact), xLSTM's ragged prefill and
+             Whisper's prefill then greedy decode steps card vs CPU;
 5. serve   — full-size Qwen3-8B (36 layers, bf16, random weights from a seed)
              behind the port's Engine, twice on the same weights and the same
              16 GSM8K-shaped requests (outputs capped at 128) under hybrid
@@ -148,7 +161,13 @@ Phases, each printing its seconds on a line of its own:
              ported simulator's utilization and makespan for the same
              requests under that model, the served / simulated ratio and
              the Eq. 32 lower bound (the ranking and the ratio are not
-             gated);
+             gated); then xLSTM-350M and Whisper-small whole, each the
+             serve's 16 requests in two waves of 8 slots through
+             launch.generate.WaveServer (Whisper: prompts of 64 tokens and
+             1500 seeded frames each), budgets, one capture and a replay a
+             decode step, launches exact (Whisper: kernels 2 and 3; xLSTM
+             none, its cells are plain PyTorch), the first wave equal to
+             direct calls; tok/s and ms a decode step printed;
 7. train   — the training path (repro_torch.train, its kernels checked
              in phase kernels): the float32 smoke Qwen3, OLMoE, Qwen2-VL and Mixtral, card
              against CPU: loss and every gradient leaf, one AdamW step on
@@ -163,7 +182,16 @@ Phases, each printing its seconds on a line of its own:
              step ms, tokens/s, model-FLOPs utilisation, peak memory and
              the device busy share of one profiled step with its device ms
              by kind (GEMM, flash forward, flash backward, the rest),
-             beside the card.
+             beside the card; then RecurrentGemma-9B at its published
+             widths cut to 8 of 38 layers (two periods and the tail) at
+             batch 1 x 4096 (past its window of 2048), xLSTM-350M whole at
+             4 x 128 (two time chunks) and Whisper-small whole at 8 x 256,
+             remat, lr 1e-4 warmup 2, a few steps of train() each: losses
+             finite, grad_norm > 0, launches exact (the RG-LRU and flash
+             backward kernels once a layer a step), and from the same
+             init 3 steps on the first batch alone bring its loss below the
+             initial one; losses, step ms, tokens/s and peak memory
+             printed.
 
 Then one JSON line of the train phase's numbers, one of phase paper's
 (each mode's served and simulated numbers and fitted cost model, with the
@@ -171,7 +199,8 @@ card's name and power limit), one JSON line naming every
 ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
 RecurrentGemma's shapes, kernels 1-3 again at LLaMA-65B's and
 StarCoder2-7B's, the flash backward and kernel 2's dense entry at the
-training shape, and kernels 2 and 3 at LLaMA-65B's on phase paper's four
+training shape, the RG-LRU backward and the flash backward at
+RecurrentGemma-9B's training shapes, and kernels 2 and 3 at LLaMA-65B's on phase paper's four
 serves) with its launches on each path (flash's also by device
 body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
@@ -313,12 +342,13 @@ def max_err(torch, out, ref, tol):
     return float(err.max())
 
 
-def device_kernel_us(torch, fn, attempts=3):
+def device_kernel_us(torch, fn, attempts=8):
     """(name, device µs) of each device kernel one call of ``fn`` runs, in
     the order they started (torch.profiler). A trace that holds no device
-    event at all missed the call (on the card a process's later traces now
-    and then come back empty), so the call is traced again, up to
-    ``attempts`` times; every retry is printed."""
+    event at all missed the call (on the card a process's traces now and
+    then come back empty, several in a row), so the call is traced again,
+    after a pause that grows with each retry, up to ``attempts`` times;
+    every retry is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -331,12 +361,13 @@ def device_kernel_us(torch, fn, attempts=3):
         if events:
             break
         print(f"  device_kernels: trace {attempt} of {attempts} held no device event", flush=True)
+        time.sleep(0.25 * attempt)
     events.sort(key=lambda e: e.time_range.start)
     return [(e.name, e.time_range.elapsed_us()) for e in events
             if "emcpy" not in e.name and "emset" not in e.name]
 
 
-def device_kernels(torch, fn, attempts=3):
+def device_kernels(torch, fn, attempts=8):
     """Names of the device kernels one call of ``fn`` runs, in order."""
     return [name for name, _ in device_kernel_us(torch, fn, attempts)]
 
@@ -652,7 +683,7 @@ def run_kernel_checks(torch, np):
                                                timed=label in TIMED_FAMILY))
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
     for key, row in run_train_kernel_checks(torch, np, F).items():
-        results[(key, "qwen3-8b train")] = row
+        results[key if isinstance(key, tuple) else (key, "qwen3-8b train")] = row
     for (name, label), r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         tiles = r.get("ms_by_tile")
@@ -752,20 +783,65 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
         library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
     )
+    results[("rglru_scan_backward", "recurrentgemma-9b train")] = check_rglru_backward(torch, flush)
     return results
+
+
+def check_rglru_backward(torch, flush):
+    """The RG-LRU backward (csrc/rglru_bwd.cu) at RecurrentGemma-9B's
+    training shape (1, 4096, 4096) float32, from the states of two chained
+    forward calls (the second seeded with the first's final state), each
+    call's gradients against the plain reverse scan; the gradient the first
+    call's final state receives is the second's dh0. Timed beside its bound
+    (bytes: a, h and g read, da and dx written, once) and its plain
+    version; no library call computes it."""
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    b, s, r = RG_TRAIN_SCAN
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
+    x, gg = (torch.randn(b, s, r, device="cuda", generator=g) for _ in range(2))
+    h0, g_fin = (torch.randn(b, r, device="cuda", generator=g) for _ in range(2))
+    cut = s // 2
+    h1, f1 = rglru.rglru_scan(a[:, :cut], x[:, :cut], h0)
+    h2, _ = rglru.rglru_scan(a[:, cut:], x[:, cut:], f1)
+    a2, gg2 = a[:, cut:].contiguous(), gg[:, cut:].contiguous()
+    second = rglru_bwd.rglru_scan_backward(a2, h2, f1, gg2, g_fin)
+    a1, gg1 = a[:, :cut].contiguous(), gg[:, :cut].contiguous()
+    first = rglru_bwd.rglru_scan_backward(a1, h1, h0, gg1, second[2])
+    torch.cuda.synchronize()
+    ref2 = rglru_bwd.rglru_scan_backward_plain(a2, h2, f1, gg2, g_fin)
+    ref1 = rglru_bwd.rglru_scan_backward_plain(a1, h1, h0, gg1, ref2[2])
+    err = max(max_err(torch, u, v, RGLRU_TOL * (1 + float(v.abs().max())))
+              for u, v in zip(first + second, ref1 + ref2))
+    print(f"  rglru_scan_backward {(b, s, r)} chained across two calls (cut at {cut}): "
+          f"max_abs_err={err:.4g}", flush=True)
+    h, _ = rglru.rglru_scan(a, x, h0)
+    nbytes = 5 * a.numel() * 4 + 3 * b * r * 4
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: rglru_bwd.rglru_scan_backward(a, h, h0, gg, g_fin), flush),
+        plain_ms=time_ms(torch, lambda: rglru_bwd.rglru_scan_backward_plain(a, h, h0, gg, g_fin), flush,
+                         iters=3, warmup=1),
+        library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+    )
+    print(f"  rglru_scan_backward {(b, s, r)} timed: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"(bytes, {row['bound_ms'] / row['ms']:.2f} of it), plain {row['plain_ms']:.4f} ms", flush=True)
+    return row
 
 
 # --------------------------------------------------------------------------- #
 # Small-model parity: kernels on the card against plain versions on the CPU   #
 # --------------------------------------------------------------------------- #
 def _card_and_cpu(torch, cfg, perturb=False):
-    """The same float32 model and weights on the CPU and on the card; with
-    ``perturb``, every leaf plus seeded noise (0.1 x its spread, 0.1 for a
-    constant leaf), so zero biases and unit scales leave their init."""
+    """The same float32 model (of any family) and weights on the CPU and on
+    the card; with ``perturb``, every leaf plus seeded noise (0.1 x its
+    spread, 0.1 for a constant leaf), so zero biases and unit scales leave
+    their init."""
     from repro_torch.models.layers import tree_map
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.registry import get_model
 
-    cpu = TransformerLM(cfg, device="cpu")
+    cpu = get_model(cfg, device="cpu")
     params_cpu = cpu.init_params(seed=0)
     if perturb:
         gen = torch.Generator().manual_seed(1)
@@ -776,7 +852,7 @@ def _card_and_cpu(torch, cfg, perturb=False):
             return (x.float() + 0.1 * (spread or 1.0) * noise).to(x.dtype)
 
         params_cpu = tree_map(bump, params_cpu)
-    return (cpu, params_cpu), (TransformerLM(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))
+    return (cpu, params_cpu), (get_model(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))
 
 
 def _compare(torch, outs, what):
@@ -898,36 +974,115 @@ def run_recurrentgemma_parity(torch, np, steps=12):
     prefill (prompts of 12, 9 and 7 tokens, so the ring wraps), then greedy
     decode steps that wrap it again, on the card and on the CPU."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.layers import tree_map
-    from repro_torch.models.recurrentgemma import RecurrentGemma
-    from repro_torch.serving.sampler import greedy
 
     cfg = dataclasses.replace(get_smoke_config("recurrentgemma_9b"), dtype="float32")
-    cpu = RecurrentGemma(cfg, device="cpu")
-    params_cpu = cpu.init_params(seed=0)
     lengths = np.array([12, 9, 7], np.int32)
     tokens = np.random.default_rng(1).integers(1, cfg.vocab_size, size=(3, 12)).astype(np.int32)
     tokens[np.arange(12)[None, :] >= lengths[:, None]] = 0
-    outs = []
-    for m, p in ((cpu, params_cpu),
-                 (RecurrentGemma(cfg, device="cuda"), tree_map(lambda x: x.cuda(), params_cpu))):
+
+    def prefill(m, p):
         t = lambda x: torch.from_numpy(x).to(m.device)
-        logits, cache = m.prefill(p, t(tokens), m.cache_init(3, 32), lengths=t(lengths))
+        return m.prefill(p, t(tokens), m.cache_init(3, 32), lengths=t(lengths))
+
+    _serve_card_and_cpu(torch, _card_and_cpu(torch, cfg), prefill, steps,
+                        "smoke recurrentgemma (ring of 8 wrapped)")
+
+
+def _grads_card_and_cpu(torch, pair, batch, what):
+    """Loss and every gradient leaf (remat on) on the CPU and on the card:
+    the loss within 1e-5, each leaf within TRAIN_GRAD_TOL of its largest
+    magnitude. Returns the card's launches by kernel."""
+    from repro_torch.models.layers import _leaves, tree_map
+
+    kernels = kernel_modules()
+    outs = []
+    for model, params in pair:
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+        for mod in kernels.values():
+            mod.reset_launch_count()
+        loss = model.loss(tree, {k: v.to(model.device) for k, v in batch.items()}, remat=True)
+        loss.backward()
+        outs.append((float(loss.detach()), {k: v.grad.cpu() for k, v in _leaves(tree)}))
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
+    err_loss = abs(outs[0][0] - outs[1][0])
+    check(err_loss <= 1e-5, f"{what} loss: card vs CPU {err_loss:.3g}")
+    worst = max((float((outs[1][1][k] - g).abs().max() / g.abs().max().clamp_min(1e-30)), k)
+                for k, g in outs[0][1].items())
+    check(worst[0] <= TRAIN_GRAD_TOL, f"{what} gradient {worst[1]}: card vs CPU {worst[0]:.3g}")
+    print(f"  {what} float32 loss card vs CPU: {err_loss:.3g}; every gradient leaf within "
+          f"{worst[0]:.3g} of its largest magnitude (worst {'/'.join(worst[1])}); card launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    return launches
+
+
+def _serve_card_and_cpu(torch, pair, prefill, steps, what):
+    """``prefill(model, params) -> (logits, cache)`` then greedy decode steps
+    on the CPU and on the card: logits within LOGITS_TOL, tokens equal."""
+    from repro_torch.serving.sampler import greedy
+
+    outs = []
+    for model, params in pair:
+        logits, cache = prefill(model, params)
         dec, toks = [], []
         cur = greedy(logits)
         for _ in range(steps):
-            step_logits, cache = m.decode_step(p, cur, cache)
+            step_logits, cache = model.decode_step(params, cur, cache)
             cur = greedy(step_logits)
             dec.append(step_logits)
             toks.append(cur)
         outs.append((logits.cpu(), torch.stack(dec).cpu(), torch.stack(toks).cpu()))
     for a, b, kind in zip(outs[0][:2], outs[1][:2], ("prefill", "decode")):
         err = float((a - b).abs().max())
-        check(err <= LOGITS_TOL, f"recurrentgemma {kind} logits: card vs CPU max err {err:.3g}")
-        print(f"  smoke recurrentgemma float32 {kind} logits card vs CPU: max_abs_err={err:.3g}")
-    check(bool(torch.equal(outs[0][2], outs[1][2])), "recurrentgemma: greedy tokens differ card vs CPU")
-    print(f"  smoke recurrentgemma float32 {steps} decode steps (ring of 8 wrapped), "
-          f"tokens card == CPU: True", flush=True)
+        check(err <= LOGITS_TOL, f"{what} {kind} logits: card vs CPU max err {err:.3g}")
+        print(f"  {what} float32 {kind} logits card vs CPU: max_abs_err={err:.3g}")
+    check(bool(torch.equal(outs[0][2], outs[1][2])), f"{what}: greedy tokens differ card vs CPU")
+    print(f"  {what} float32 {steps} decode steps, tokens card == CPU: True", flush=True)
+
+
+def run_new_family_parity(torch, np, steps=8):
+    """The float32 smoke RecurrentGemma, xLSTM and Whisper (every weight
+    perturbed off its init) on the card against the CPU: RecurrentGemma's
+    loss and every gradient (a sequence of 16 past its window of 8; the
+    RG-LRU and flash backward kernels launched once a layer); xLSTM's
+    ragged prefill and Whisper's prefill (24 seeded frames) then greedy
+    decode steps; and one xLSTM loss (128 tokens: two time chunks, the
+    state carried between their checkpoints) and one Whisper loss with
+    every gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.train_loop import TrainConfig, synthetic_batches
+
+    pairs = {}
+    for arch in ("recurrentgemma_9b", "xlstm_350m", "whisper_small"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        pairs[arch] = _card_and_cpu(torch, cfg, perturb=True)
+        seq = 128 if arch == "xlstm_350m" else 16
+        batch = next(synthetic_batches(cfg, TrainConfig(batch=2, seq=seq, seed=3)))
+        launches = _grads_card_and_cpu(torch, pairs[arch], batch, f"smoke {arch}")
+        model = pairs[arch][1][0]
+        if arch == "recurrentgemma_9b":
+            want = {"rglru_scan": 2 * model.n_rec, "rglru_scan_backward": model.n_rec,
+                    "flash_attention": 2 * model.n_periods, "flash_attention_backward": model.n_periods}
+            check_launches(f"smoke {arch} loss and gradients (remat)", launches, want)
+        if arch == "whisper_small":
+            n = cfg.encoder_layers + 2 * cfg.n_layers
+            check_launches(f"smoke {arch} loss and gradients (remat)", launches,
+                           {"flash_attention": 2 * n, "flash_attention_backward": n})
+    lengths = np.array([12, 9, 7], np.int32)
+    tokens = np.random.default_rng(1).integers(1, 256, size=(3, 12)).astype(np.int32)
+    tokens[np.arange(12)[None, :] >= lengths[:, None]] = 0
+
+    def xlstm_prefill(m, p):
+        t = lambda x: torch.from_numpy(x).to(m.device)
+        return m.prefill(p, t(tokens), m.cache_init(3), lengths=t(lengths))
+
+    frames = np.random.default_rng(2).standard_normal((3, 24, 64)).astype(np.float32)
+
+    def whisper_prefill(m, p):
+        t = lambda x: torch.from_numpy(x).to(m.device)
+        return m.prefill(p, t(tokens[:, :7]), m.cache_init(3, 32, enc_len=24), patch_embeds=t(frames))
+
+    _serve_card_and_cpu(torch, pairs["xlstm_350m"], xlstm_prefill, steps, "smoke xlstm (ragged 12/9/7)")
+    _serve_card_and_cpu(torch, pairs["whisper_small"], whisper_prefill, steps, "smoke whisper")
 
 
 # --------------------------------------------------------------------------- #
@@ -960,10 +1115,10 @@ def kernel_modules():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import paged_decode_attention as pda
-    from repro_torch.kernels import rglru
+    from repro_torch.kernels import rglru, rglru_bwd
 
     return {"paged_decode_attention": pda, "flash_attention": fa, "decode_attention": da,
-            "rglru_scan": rglru, "flash_attention_backward": fb}
+            "rglru_scan": rglru, "flash_attention_backward": fb, "rglru_scan_backward": rglru_bwd}
 
 
 def check_flash_variants(path, launches):
@@ -1260,20 +1415,15 @@ def run_top_p_serve(torch, model, params, greedy_stats):
     return eng, launches, by_variant
 
 
-def direct_wave(torch, model, params, wave, max_len, prefill_len):
-    """One wave served by direct calls (prefill, then ``decode_step`` and
-    the greedy pick per token, no graph): the tokens a WaveServer's
-    replays must give."""
-    from repro_torch.serving.engine import prompt_tokens
+def direct_wave(torch, server, wave):
+    """One wave served by direct calls (the model's prefill of the server's
+    wave inputs into a fresh cache, then ``decode_step`` and the greedy pick
+    per token, no graph): the tokens a WaveServer's replays must give."""
     from repro_torch.serving.sampler import greedy
 
-    dev = model.device
-    tokens = torch.zeros((len(wave), prefill_len), dtype=torch.int32)
-    for i, r in enumerate(wave):
-        tokens[i, : r.n_prefill] = torch.from_numpy(prompt_tokens(r, model.cfg.vocab_size))
-    lengths = torch.tensor([r.n_prefill for r in wave], dtype=torch.int32, device=dev)
-    cache = model.cache_init(len(wave), max_len)
-    logits, _ = model.prefill(params, tokens.to(dev), cache, lengths=lengths)
+    model, params = server.model, server.params
+    cache = model.cache_init(len(wave), server.max_len, **server.enc)
+    logits, _ = model.prefill(params, cache=cache, **server.wave_inputs(wave))
     out = [greedy(logits)]
     for _ in range(max(r.n_decode for r in wave) - 1):
         logits, _ = model.decode_step(params, out[-1], cache)
@@ -1331,7 +1481,7 @@ def run_recurrentgemma_serve(torch, model, params):
     print(f"  recurrentgemma peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     by_variant = check_flash_variants("recurrentgemma", launches)
     check_launches("recurrentgemma", launches, expect)
-    direct = direct_wave(torch, model, params, reqs[:8], SERVE_LEN, dense_prefill_len())
+    direct = direct_wave(torch, server, reqs[:8])
     check(all(res.generated[rid] == toks for rid, toks in direct.items()),
           "recurrentgemma: the replayed wave's tokens differ from direct calls'")
     print(f"  recurrentgemma: wave 1's {sum(map(len, direct.values()))} tokens replayed == direct "
@@ -1459,6 +1609,91 @@ def run_family_serves(torch, then=None):
         torch.cuda.empty_cache()
         print(f"  {cfg.name}: {time.perf_counter() - t0:.3f} s", flush=True)
     return launches, by_variant
+
+
+WHISPER_PROMPT = 64               # Whisper's waves take prompts of one length
+
+
+def run_wave_family_serve(torch, arch):
+    """xLSTM-350M or Whisper-small at their published sizes (random bf16
+    weights, seed 0) serving the serve's 16 requests in two waves of 8 slots
+    through their own prefill and decode_step (``WaveServer``, each decode
+    step a replay of the wave size's graph), after a warm-up wave that
+    captures it; Whisper's prompts set to WHISPER_PROMPT tokens (its
+    prefill takes no lengths) with 1500 seeded frames each. Gates: every
+    budget met with valid token ids, one capture and a replay a decode step,
+    launches exact (Whisper: kernel 2 for each encoder self-attention and
+    each decoder self- and cross-attention of a wave's prefill, kernel 3
+    twice a decoder layer a decode step; xLSTM's cells are plain PyTorch and
+    launch none), the first wave's tokens equal to direct calls'. Prints
+    tok/s over the served time (the waves' prefills and decode steps; the
+    wall also holds drawing the waves' inputs on the host), ms a decode step
+    and the launches; returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.generate import WaveServer
+    from repro_torch.launch.profile_step import SERVE_LEN, dense_prefill_len, serve_workload
+    from repro_torch.models.registry import get_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = get_model(cfg, device="cuda")
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    audio = cfg.family == "audio"
+    reqs = serve_workload()
+    if audio:
+        reqs = [dataclasses.replace(r, n_prefill=WHISPER_PROMPT) for r in reqs]
+    prefill_len = WHISPER_PROMPT if audio else dense_prefill_len()
+    print(f"  model {cfg.name}: {cfg.n_layers} layers{f' + {cfg.encoder_layers} encoder' if audio else ''}, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {model.hd}, "
+          f"{sum(x.numel() for x in _leaves(params)) / 1e9:.3f} B parameters ({cfg.dtype}), "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    server = WaveServer(model, params, n_slots=8, max_len=SERVE_LEN, prefill_len=prefill_len)
+    server.serve([dataclasses.replace(r, n_decode=2) for r in reqs[:8]])
+    replays = server.graphs.replays
+    torch.cuda.reset_peak_memory_stats()
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    t1 = time.perf_counter()
+    res = server.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {name: mod.launch_count for name, mod in kernels.items()}
+    st = graph_stats(arch, server.graphs)
+    check(st["captures"] == 1 and st["replays"] - replays == res.decode_steps,
+          f"{arch}: {st['replays'] - replays} replays for {res.decode_steps} decode steps")
+    for r in reqs:
+        got = res.generated.get(r.rid, [])
+        check(len(got) == r.n_decode, f"{arch}: request {r.rid} emitted {len(got)} of {r.n_decode}")
+        check(all(0 <= t < cfg.vocab_size for t in got), f"{arch}: request {r.rid}: invalid token id")
+    expect = {}
+    if audio:
+        expect = {"flash_attention": (cfg.encoder_layers + 2 * cfg.n_layers) * res.prefills,
+                  "decode_attention": 2 * cfg.n_layers * res.decode_steps}
+    served = res.prefill_s + res.decode_s
+    print(f"  {arch} serve: {len(reqs)} requests in {res.prefills} waves of 8 slots, {res.tokens} output "
+          f"tokens, {res.decode_steps} decode steps, wall {wall:.4f} s (with drawing the waves' inputs), "
+          f"served {served:.4f} s (prefills and decode steps), {res.tokens / served:.3f} tok/s, "
+          f"{1e3 * res.decode_s / res.decode_steps:.3f} ms a decode step, "
+          f"{1e3 * res.prefill_s / res.prefills:.3f} ms a prefill (8 x {prefill_len}"
+          f"{', 1500 frames' if audio else ''}), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    check_launches(f"{arch} serve", launches, expect)
+    if audio:
+        check_flash_variants(arch, launches)
+    direct = direct_wave(torch, server, reqs[:8])
+    check(all(res.generated[rid] == toks for rid, toks in direct.items()),
+          f"{arch}: the replayed wave's tokens differ from direct calls'")
+    print(f"  {arch}: wave 1's {sum(map(len, direct.values()))} tokens replayed == direct calls': True",
+          flush=True)
+    del server, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name}: {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -1965,6 +2200,16 @@ KERNELS = (
      "(the gradient of kernel 2's function; no Pallas kernel)"),
     ("flash_attention_dense_train", "flash_attention_dense", "qwen3-8b train", "flash_attention", "train",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    # RecurrentGemma-9B's training: the RG-LRU backward and the flash
+    # backward at head_dim 256 (launches from its train run)
+    ("rglru_scan_backward", "rglru_scan_backward", "recurrentgemma-9b train", "rglru_scan_backward",
+     "recurrentgemma train", "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+     "src/repro/models/recurrentgemma.py:179 the lax.scan of the recurrence, the gradient jax.grad "
+     "derives on the training path (the gradient of kernel 4's function; no Pallas kernel)"),
+    ("flash_attention_backward_recurrentgemma", "flash_attention_backward", "recurrentgemma-9b train",
+     "flash_attention_backward", "recurrentgemma train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
+     "(the gradient of kernel 2's function; no Pallas kernel)"),
     # phase paper: LLaMA-65B served under the four modes (launches summed)
     ("flash_attention_dense_paper", "flash_attention_dense", "llama-65b", "flash_attention", "paper",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
@@ -2209,8 +2454,12 @@ TRAIN_KERNEL_CASES = (
     ("window 256", dict(b=2, h=32, kv=8, s=1024, d=128, window=256, dtype="bfloat16")),
     ("llama-65b", dict(b=1, h=64, kv=64, s=2048, d=128, window=0, dtype="bfloat16")),
     ("smoke", dict(b=2, h=4, kv=2, s=64, d=16, window=0, dtype="float32")),
+    # RecurrentGemma-9B's attention at its training shape: 16 query heads on
+    # one KV head at head_dim 256, a window of 2048 inside 4096 tokens
+    ("recurrentgemma-9b", dict(b=1, h=16, kv=1, s=4096, d=256, window=2048, dtype="bfloat16")),
 )
-TIMED_TRAIN_CASES = ("qwen3-8b", "qwen3-8b microbatch")
+TIMED_TRAIN_CASES = ("qwen3-8b", "qwen3-8b microbatch", "recurrentgemma-9b")
+RG_TRAIN_SCAN = (1, 4096, 4096)   # RecurrentGemma-9B's recurrence at batch 1 x 4096 tokens
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 TRAIN_LAYERS = 12                 # full-width Qwen3-8B cut to 12 of its 36 layers
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 2, 2048, 2
@@ -2248,24 +2497,29 @@ def rel_err(torch, out, ref, tol, what):
     return err
 
 
-def sdpa_times(torch, F, flush, q, k, v, do):
+def sdpa_times(torch, F, flush, q, k, v, do, window=0):
     """The library yardstick, timed here only and never called by the port:
-    scaled_dot_product_attention (causal) under each backend that takes
-    these inputs, its forward, forward + backward, and backward alone (one
-    forward kept outside the timed region, then torch.autograd.grad with
-    retain_graph). With enable_gqa where the backend takes it, else with K
-    and V expanded to the query heads outside the timed region (that
-    backward then returns the expanded heads' dK and dV unsummed).
-    Returns {backend: times}."""
+    scaled_dot_product_attention (causal; under a window, the same mask as
+    a boolean band, which only backends that take a mask run, the math
+    backend among them) under each backend that takes these inputs, its
+    forward, forward + backward, and backward alone (one forward kept
+    outside the timed region, then torch.autograd.grad with retain_graph).
+    With enable_gqa where the backend takes it, else with K and V expanded
+    to the query heads outside the timed region (that backward then returns
+    the expanded heads' dK and dV unsummed). Returns {backend: times}."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from repro_torch.kernels.flash_attention import dense_mask
+
     g = q.shape[1] // k.shape[1]
+    mask = dense_mask(q.shape[2], k.shape[2], True, window, q.device) if window else None
     out = {}
-    for name in SDPA_BACKENDS:
+    for name in SDPA_BACKENDS + (("MATH",) if window else ()):
         for gqa in (True, False):
             kk, vv = (k, v) if gqa else (k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
             leaves = [x.detach().clone().requires_grad_(True) for x in (q, kk, vv)]
-            fwd = lambda: F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=gqa)
+            fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
+                                                         enable_gqa=gqa)
             try:
                 with sdpa_kernel(getattr(SDPBackend, name)):
                     o = fwd()
@@ -2374,22 +2628,22 @@ def run_train_kernel_checks(torch, np, F):
         del refs
         if label in TIMED_TRAIN_CASES:
             def ours_fwd_bwd():
-                o, l = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-                return fb.flash_attention_backward(q, k, v, o, l, do, causal=True)
+                o, l = fa.flash_attention(q, k, v, causal=True, window=w, return_lse=True)
+                return fb.flash_attention_backward(q, k, v, o, l, do, causal=True, window=w)
 
             bound_ms, bound_by = flash_backward_bound(q, k, w)
             floor_ms, _ = flash_backward_bound(q, k, w, flops_per_pair=14)
-            sdpa = sdpa_times(torch, F, flush, q, k, v, do)
+            sdpa = sdpa_times(torch, F, flush, q, k, v, do, window=w)
             library_ms, library_backend = fastest(sdpa, "backward_ms")
             row = dict(
                 max_abs_err=max_abs, rel_err=max(errs.values()), plan=plan._asdict(),
                 pass_us=[[n, us] for n, us in passes], ms_by_plan=ms_by_plan,
-                ms=time_ms(torch, lambda: fb.flash_attention_backward(q, k, v, out, lse, do, causal=True),
-                           flush, iters=10, warmup=2),
+                ms=time_ms(torch, lambda: fb.flash_attention_backward(
+                    q, k, v, out, lse, do, causal=True, window=w), flush, iters=10, warmup=2),
                 plain_ms=time_ms(torch, lambda: fb.flash_attention_backward_plain(
-                    q, k, v, out, lse, do, causal=True), flush, iters=5, warmup=1),
+                    q, k, v, out, lse, do, causal=True, window=w), flush, iters=5, warmup=1),
                 forward_lse_ms=time_ms(torch, lambda: fa.flash_attention(
-                    q, k, v, causal=True, return_lse=True), flush, iters=10, warmup=2),
+                    q, k, v, causal=True, window=w, return_lse=True), flush, iters=10, warmup=2),
                 forward_backward_ms=time_ms(torch, ours_fwd_bwd, flush, iters=10, warmup=2),
                 library_ms=library_ms, library_backend=library_backend,
                 library_forward_backward_ms=fastest(sdpa, "forward_backward_ms")[0], sdpa=sdpa,
@@ -2423,6 +2677,7 @@ def run_train_kernel_checks(torch, np, F):
         del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
     rows["flash_attention_backward"] = dict(timed["qwen3-8b"], microbatch=timed["qwen3-8b microbatch"])
+    rows[("flash_attention_backward", "recurrentgemma-9b train")] = timed["recurrentgemma-9b"]
     return rows
 
 
@@ -2705,16 +2960,136 @@ def run_full_width_train(torch, np, smi):
     return res
 
 
+# (arch, layers kept — None keeps them all —, batch, sequence, steps):
+# RecurrentGemma-9B at its published widths cut to two periods and its
+# two-layer tail (8 of 38 layers: AdamW's float32 moments of the full model
+# would not fit in 80 GB), at 4096 tokens so that its window of 2048 masks;
+# xLSTM-350M whole at 128 tokens (two time chunks, the state carried
+# between their checkpoints); Whisper-small whole (its frames as long as
+# its tokens, as the reference's synthetic batches draw them).
+FAMILY_TRAINS = (
+    ("recurrentgemma_9b", 8, 1, 4096, 5),
+    ("xlstm_350m", None, 4, 128, 3),
+    ("whisper_small", None, 8, 256, 5),
+)
+# AdamW as the Qwen3-8B run takes it (lr 1e-4, warmup 2)
+FAMILY_TRAIN_OPT = dict(lr=1e-4, warmup_steps=2)
+# steps on one batch alone (run_family_train): each train() step's loss is
+# that of a new batch (one arithmetic progression a row), and the spread
+# between batches hides what a few steps learn
+FIXED_BATCH_STEPS = 3
+
+
+def family_train_launches(model, cfg, steps):
+    """The kernel launches a remat training run of ``steps`` steps implies:
+    each layer's forward twice (the recompute), its backward once."""
+    if cfg.family == "hybrid":
+        return {"rglru_scan": 2 * model.n_rec * steps, "rglru_scan_backward": model.n_rec * steps,
+                "flash_attention": 2 * model.n_periods * steps,
+                "flash_attention_backward": model.n_periods * steps}
+    if cfg.family == "audio":
+        n = cfg.encoder_layers + 2 * cfg.n_layers
+        return {"flash_attention": 2 * n * steps, "flash_attention_backward": n * steps}
+    return {}
+
+
+def run_family_train(torch, np, smi):
+    """Each of FAMILY_TRAINS, bf16, random weights from seed 0, remat:
+    ``steps`` steps of train(). Gates: every loss finite, grad_norm finite
+    and > 0, count == steps, launches exact (the RG-LRU and flash backward
+    kernels for RecurrentGemma, the flash backward for Whisper, none for
+    xLSTM's plain cells); then, from the same init, FIXED_BATCH_STEPS steps
+    on the first batch alone must bring its loss below the initial one after
+    one of them (``fixed_batch_losses``; bf16 weights updated in place, so
+    the loss need not fall at every step).
+    Prints the losses, step ms, tokens/s and peak memory. Returns (launches
+    by path, numbers by arch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, synthetic_batches, train
+
+    launches, res = {}, {}
+    for arch, keep, batch, seq, steps in FAMILY_TRAINS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = full if keep is None else dataclasses.replace(full, n_layers=keep)
+        model = get_model(cfg, device="cuda")
+        tc = TrainConfig(steps=steps, batch=batch, seq=seq, remat=True, log_every=0)
+        torch.cuda.reset_peak_memory_stats()
+        kernels = kernel_modules()
+        for mod in kernels.values():
+            mod.reset_launch_count()
+        out = train(cfg, tc, AdamWConfig(**FAMILY_TRAIN_OPT), device="cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path = f"{arch.split('_')[0]} train"
+        launches[path] = {name: mod.launch_count for name, mod in kernels.items()}
+        check_launches(path, launches[path], family_train_launches(model, cfg, steps))
+        check(all(np.isfinite(out["losses"])), f"{path}: losses not finite: {out['losses']}")
+        check(all(np.isfinite(out["grad_norms"])) and min(out["grad_norms"]) > 0,
+              f"{path}: grad norms {out['grad_norms']}")
+        check(int(out["opt_state"]["count"]) == steps, f"{path}: count {int(out['opt_state']['count'])}")
+        n_params = sum(x.numel() for x in _leaves(out["params"]))
+        step_s = statistics.median(out["step_s"][1:])
+        res[arch] = dict(
+            layers=f"{cfg.n_layers} of {full.n_layers}", parameters=n_params, batch=batch, seq=seq,
+            losses=out["losses"], grad_norms=out["grad_norms"], step_s=out["step_s"],
+            step_ms_median=step_s * 1e3, tokens_per_s=batch * seq / step_s, peak_gib=peak,
+            opt=FAMILY_TRAIN_OPT, card=smi)
+        print(f"  {path} ({res[arch]['layers']} layers, {n_params / 1e9:.3f} B parameters, bf16, batch "
+              f"{batch} x {seq}, remat, lr {FAMILY_TRAIN_OPT['lr']} warmup {FAMILY_TRAIN_OPT['warmup_steps']}) "
+              f"on {smi}: losses {json.dumps([round(x, 4) for x in out['losses']])}, step ms "
+              f"{json.dumps([round(1e3 * x, 1) for x in out['step_s']])}, median of steps 2-{steps} "
+              f"{step_s * 1e3:.1f} ms, {batch * seq / step_s:.0f} tokens/s, peak {peak:.2f} GiB", flush=True)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        fixed = fixed_batch_losses(torch, model, next(synthetic_batches(cfg, tc, "cuda")), tc.seed)
+        res[arch]["fixed_batch_losses"] = fixed
+        print(f"  {path}: the first batch's loss over {FIXED_BATCH_STEPS} steps on it alone from the same "
+              f"init, then after them: {json.dumps([round(x, 4) for x in fixed])}", flush=True)
+        check(min(fixed[1:]) < fixed[0], f"{path}: {FIXED_BATCH_STEPS} steps on one batch never lowered "
+              f"its loss: {fixed}")
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def fixed_batch_losses(torch, model, batch, seed):
+    """FIXED_BATCH_STEPS AdamW steps (FAMILY_TRAIN_OPT, remat) of ``model``
+    from its init of ``seed``, each on ``batch``: the batch's loss before
+    each step, then after the last."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    params = model.init_params(seed)
+    state = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig(**FAMILY_TRAIN_OPT), remat=True)
+    losses = []
+    for _ in range(FIXED_BATCH_STEPS):
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        losses.append(float(model.loss(params, batch)))
+    del params, state
+    return losses
+
+
 def run_train_phase(torch, np, smi):
     """Phase train: smoke parity card against CPU, the smoke loop and resume
-    on the card, then full-width Qwen3-8B at 12 of 36 layers (the kernels at
-    the training shapes run in phase kernels, where torch.profiler's traces
-    still hold their device events: late in a long process they come back
-    empty). Returns (the train path's launches, the full-width numbers)."""
+    on the card, full-width Qwen3-8B at 12 of 36 layers, then FAMILY_TRAINS
+    (run_family_train) (the kernels at the training shapes run in phase
+    kernels, where torch.profiler's traces still hold their device events:
+    late in a long process they come back empty). Returns (the launches by
+    path, the full-width numbers with the families' under "families")."""
     run_train_parity(torch, np)
     run_train_loop_checks(torch)
     full = run_full_width_train(torch, np, smi)
-    return full["launches"], full
+    launches, full["families"] = run_family_train(torch, np, smi)
+    return dict(launches, train=full["launches"]), full
 
 
 def main() -> int:
@@ -2768,7 +3143,8 @@ def main() -> int:
         rows = run_train_kernel_checks(torch, np, F)
         _, res = run_train_phase(torch, np, smi)
         phase("train", t0)
-        print(json.dumps({"train": res, **rows}))
+        print(json.dumps({"train": res, **{k if isinstance(k, str) else " ".join(k): v
+                                           for k, v in rows.items()}}))
         return 0
 
     t0 = time.perf_counter()
@@ -2779,6 +3155,7 @@ def main() -> int:
     run_parity(torch, np)
     run_fleet_parity(torch, np)
     run_sampler_parity(torch, np)
+    run_new_family_parity(torch, np)
     phase("parity", t0)
 
     t0 = time.perf_counter()
@@ -2853,10 +3230,13 @@ def main() -> int:
     launches.update(family_launches)
     by_variant.update(family_by_variant)
     check(set(paper.get("modes", {})) == set(PAPER_MODES), "phase paper did not serve every mode")
+    for arch in ("xlstm_350m", "whisper_small"):
+        launches[arch.split("_")[0]] = run_wave_family_serve(torch, arch)
     phase("family", t0)
 
     t0 = time.perf_counter()
-    launches["train"], train_res = run_train_phase(torch, np, smi)
+    train_launches, train_res = run_train_phase(torch, np, smi)
+    launches.update(train_launches)
     by_variant["train"] = train_res["flash_launches_by_variant"]
     phase("train", t0)
 
@@ -2879,7 +3259,7 @@ def main() -> int:
             **({"microbatch": {k: r["microbatch"][k] for k in (
                 "ms", "ms_by_plan", "pass_us", "plan", "bound_ms", "design_floor_ms", "library_ms",
                 "library_backend", "forward_backward_ms", "library_forward_backward_ms")}}
-               if key == "flash_attention_backward" else {}),
+               if "microbatch" in r else {}),
         })
     print(json.dumps({"train": train_res}))
     print(json.dumps({"paper": {"device": smi, "model": "llama-65b, 32 of 80 layers, dense",

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke_config(name)``.
 
-The reference's architectures in its order, less those whose model family
-is not ported yet (xLSTM, Whisper), plus the paper's own LLaMA-65B (used by
-the serving reproduction, not part of the reference's 40-cell table).
+The reference's architectures in its order, plus the paper's own LLaMA-65B
+(used by the serving reproduction, not part of the reference's 40-cell
+table).
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ ARCH_IDS: List[str] = [
     "granite_3_8b",
     "nemotron_4_15b",
     "qwen2_vl_7b",
+    "xlstm_350m",
     "recurrentgemma_9b",
+    "whisper_small",
 ]
 
 EXTRA_IDS = ["llama_65b"]

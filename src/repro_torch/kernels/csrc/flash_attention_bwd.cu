@@ -58,11 +58,18 @@
 //     CTA would be the pass's tail (the train step's batch of 1);
 //   * fully masked tiles are skipped; only tiles on the diagonal, the
 //     window's edge or the ragged ends test the mask element by element.
-// float32 at head_dim 16 / 32 / 64 / 128, and bf16 at 16 / 32, run the
-// CUDA-core body: the same two passes in float32 FMAs on tiles widened to
-// float32 in shared memory (rows padded by one against bank conflicts),
-// each thread a 4 x 4 block of a tile's scores (and of dP) and 4 rows x
-// D/8 columns of its accumulators, the group's heads inside the CTA.
+// float32 at head_dim 16 / 32 / 64 / 128 / 256, and bf16 at 16 / 32 / 256,
+// run the CUDA-core body: the same two passes in float32 FMAs on tiles
+// widened to float32 in shared memory (rows padded by one against bank
+// conflicts), each thread a 4 x 4 block of a tile's scores (and of dP) and
+// 4 rows x DA/8 columns of its accumulators, the group's heads inside the
+// CTA. At head_dim 256 (RecurrentGemma-9B's attention) a CTA owns DA = 128
+// of the 256 accumulator columns and two CTAs split each row tile's columns
+// (blockIdx.x = batch x 2 + half): dK and dV of 64 rows at 256 columns
+// alone would take 256 registers a thread. Each CTA still computes S and
+// dP over the full head_dim, so those products run twice; the tiles take
+// 206 KB (dQ pass) and 215 KB (dK/dV pass) of shared memory, one CTA an
+// SM. A tensor-core body at 256 is later work (ROADMAP.md).
 // Float32 must not run as TF32, which misses the float32 tolerance.
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -94,23 +101,36 @@ struct BwdArgs {
 // rows [row0, row0 + ROWS) of a strided (S, D) slice into shared memory as
 // float32 with leading dimension LD; rows at or past n are zero. 16-byte
 // vector loads, all issued before the first store.
+// At most 16 vectors a thread are in flight (the 256-wide tiles issue two
+// batches).
 template <typename T, int D, int ROWS, int LD>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, long long stride, int row0,
                                           int n, int tid) {
   constexpr int VEC = Vec<T>::kElems, NV = ROWS * D / VEC, PER = (NV + kBwdNT - 1) / kBwdNT;
-  uint4 regs[PER];
+  constexpr int BATCH = PER < 16 ? PER : 16;
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = tid + u * kBwdNT, r = i * VEC / D, d = i * VEC % D;
-    regs[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (i < NV && row0 + r < n) regs[u] = load_vec(src + (row0 + r) * stride + d);
-  }
+  for (int u0 = 0; u0 < PER; u0 += BATCH) {
+    uint4 regs[BATCH];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int i = tid + u * kBwdNT, r = i * VEC / D, d = i * VEC % D;
-    if (i < NV) unpack_vec<T>(regs[u], dst + r * LD + d);
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = tid + (u0 + u) * kBwdNT, r = i * VEC / D, d = i * VEC % D;
+      regs[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < NV && row0 + r < n) regs[u] = load_vec(src + (row0 + r) * stride + d);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = tid + (u0 + u) * kBwdNT, r = i * VEC / D, d = i * VEC % D;
+      if (i < NV) unpack_vec<T>(regs[u], dst + r * LD + d);
+    }
   }
 }
+
+// accumulator columns a CTA of the CUDA-core body owns, and the CTAs that
+// split a row tile's head_dim
+template <int D>
+struct AccCols {
+  static constexpr int DA = D > 128 ? 128 : D, NCH = D / DA;
+};
 
 // the forward's mask: key t is seen by query i
 __device__ __forceinline__ bool visible(const BwdArgs& a, int i, int t) {
@@ -118,13 +138,13 @@ __device__ __forceinline__ bool visible(const BwdArgs& a, int i, int t) {
 }
 
 // --------------------------------------------------------------------------
-// Pass 1: Delta and dQ. One CTA per (b, head, 64 query rows); thread
-// (rg, cg) = (tid / 8, tid % 8) owns query rows 4 rg .. 4 rg + 3, the
-// tile's keys 4 cg .. 4 cg + 3 and dQ columns cg + 8 c.
+// Pass 1: Delta and dQ. One CTA per (b, column half, head, 64 query rows);
+// thread (rg, cg) = (tid / 8, tid % 8) owns query rows 4 rg .. 4 rg + 3, the
+// tile's keys 4 cg .. 4 cg + 3 and dQ columns c0 + cg + 8 c.
 // --------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int BQ = kDqRows, BK = kDqKeys, LD = D + 1, DC = D / 8;
+  constexpr int BQ = kDqRows, BK = kDqKeys, LD = D + 1, DC = AccCols<D>::DA / 8;
   static_assert(kBwdNT == 2 * BQ && BK == 32, "16 row groups of 4 rows, 8 key groups of 4 keys");
   extern __shared__ float smem[];
   float* q_s = smem;                    // [BQ][LD]
@@ -135,7 +155,8 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
   float* lse_s = ds_s + BQ * (BK + 1);  // [BQ]
   float* delta_s = lse_s + BQ;          // [BQ]
 
-  const int b = blockIdx.x, h = blockIdx.y, i0 = blockIdx.z * BQ;
+  const int b = blockIdx.x / AccCols<D>::NCH, h = blockIdx.y, i0 = blockIdx.z * BQ;
+  const int c0 = (blockIdx.x % AccCols<D>::NCH) * AccCols<D>::DA;
   const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
   const int kvh = h / a.g;
   const T* q = static_cast<const T*>(a.q) + b * a.q_st.b + h * a.q_st.h;
@@ -162,7 +183,7 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
     if (half == 0) {
       delta_s[r] = acc;
       lse_s[r] = qi < a.sq ? a.lse[lrow + qi] : 0.f;
-      if (qi < a.sq) a.delta[lrow + qi] = acc;
+      if (qi < a.sq && c0 == 0) a.delta[lrow + qi] = acc;
     }
   }
   __syncthreads();
@@ -233,7 +254,7 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
       }
     __syncwarp();  // a row group's dS is read only by its own warp
 
-    // dQ[row r, cg + 8 c] += dS[row r, :] . k[:, cg + 8 c]
+    // dQ[row r, c0 + cg + 8 c] += dS[row r, :] . k[:, c0 + cg + 8 c]
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
       float dsr[4];
@@ -241,7 +262,7 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
       for (int r = 0; r < 4; ++r) dsr[r] = ds_s[(rg * 4 + r) * (BK + 1) + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float kv = k_s[j * LD + cg + 8 * c];
+        const float kv = k_s[j * LD + c0 + cg + 8 * c];
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[r][c] = fmaf(dsr[r], kv, acc[r][c]);
       }
@@ -254,19 +275,20 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dq_kernel(BwdArgs a) {
   for (int r = 0; r < 4; ++r) {
     if (q_pos[r] >= a.sq) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store_f(dq + q_pos[r] * a.dq_st.s + cg + 8 * c, acc[r][c] * a.scale);
+    for (int c = 0; c < DC; ++c)
+      store_f(dq + q_pos[r] * a.dq_st.s + c0 + cg + 8 * c, acc[r][c] * a.scale);
   }
 }
 
 // --------------------------------------------------------------------------
-// Pass 2: dK and dV. One CTA per (b, KV head, 64 key rows); thread
-// (rg, cg) = (tid / 8, tid % 8) owns key rows 4 rg .. 4 rg + 3, the tile's
-// queries 4 cg .. 4 cg + 3 and dK / dV columns cg + 8 c. The g query heads
-// of the KV head run one after the other inside the CTA.
+// Pass 2: dK and dV. One CTA per (b, column half, KV head, 64 key rows);
+// thread (rg, cg) = (tid / 8, tid % 8) owns key rows 4 rg .. 4 rg + 3, the
+// tile's queries 4 cg .. 4 cg + 3 and dK / dV columns c0 + cg + 8 c. The g
+// query heads of the KV head run one after the other inside the CTA.
 // --------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdNT) flash_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int BR = kKvRows, BQ = kKvQs, LD = D + 1, DC = D / 8, PL = BQ + 1;
+  constexpr int BR = kKvRows, BQ = kKvQs, LD = D + 1, DC = AccCols<D>::DA / 8, PL = BQ + 1;
   static_assert(kBwdNT == 2 * BR && BQ == 32, "16 row groups of 4 keys, 8 query groups of 4");
   extern __shared__ float smem[];
   float* k_s = smem;                 // [BR][LD]
@@ -278,7 +300,8 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dkv_kernel(BwdArgs a) {
   float* lse_s = ds_s + BR * PL;     // [BQ]
   float* delta_s = lse_s + BQ;       // [BQ]
 
-  const int b = blockIdx.x, kvh = blockIdx.y, t0 = blockIdx.z * BR;
+  const int b = blockIdx.x / AccCols<D>::NCH, kvh = blockIdx.y, t0 = blockIdx.z * BR;
+  const int c0 = (blockIdx.x % AccCols<D>::NCH) * AccCols<D>::DA;
   const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
   load_rows<T, D, BR, LD>(k_s, static_cast<const T*>(a.k) + b * a.k_st.b + kvh * a.k_st.h,
                           a.k_st.s, t0, a.sk, tid);
@@ -369,8 +392,8 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dkv_kernel(BwdArgs a) {
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          const float qv = q_s[j * LD + cg + 8 * c];
-          const float ov = do_s[j * LD + cg + 8 * c];
+          const float qv = q_s[j * LD + c0 + cg + 8 * c];
+          const float ov = do_s[j * LD + c0 + cg + 8 * c];
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             dv[r][c] = fmaf(pr[r], ov, dv[r][c]);
@@ -389,8 +412,8 @@ __global__ void __launch_bounds__(kBwdNT) flash_bwd_dkv_kernel(BwdArgs a) {
     if (k_pos[r] >= a.sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      store_f(dkp + k_pos[r] * a.dk_st.s + cg + 8 * c, dk[r][c] * a.scale);
-      store_f(dvp + k_pos[r] * a.dv_st.s + cg + 8 * c, dv[r][c]);
+      store_f(dkp + k_pos[r] * a.dk_st.s + c0 + cg + 8 * c, dk[r][c] * a.scale);
+      store_f(dvp + k_pos[r] * a.dv_st.s + c0 + cg + 8 * c, dv[r][c]);
     }
   }
 }
@@ -870,25 +893,26 @@ static int launch_bwd(const BwdArgs& a, int B, int KV, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   // pass 1 writes Delta, which pass 2 reads: the same stream orders them
   if (a.sq > 0) {
-    const dim3 grid(B, a.h, (a.sq + kDqRows - 1) / kDqRows);
+    const dim3 grid(B * AccCols<D>::NCH, a.h, (a.sq + kDqRows - 1) / kDqRows);
     flash_bwd_dq_kernel<T, D><<<grid, kBwdNT, smem_dq, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (a.sk > 0) {
-    const dim3 grid(B, KV, (a.sk + kKvRows - 1) / kKvRows);
+    const dim3 grid(B * AccCols<D>::NCH, KV, (a.sk + kKvRows - 1) / kKvRows);
     flash_bwd_dkv_kernel<T, D><<<grid, kBwdNT, smem_dkv, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-// the CUDA-core body: float32 at head_dim 16 / 32 / 64 / 128, bf16 at 16 / 32
-// (bf16 at 64 / 128 runs on the tensor cores)
+// the CUDA-core body: float32 at head_dim 16 / 32 / 64 / 128 / 256, bf16 at
+// 16 / 32 / 256 (bf16 at 64 / 128 runs on the tensor cores)
 template <typename T>
 static int dispatch_bwd(const BwdArgs& a, int B, int KV, int D, cudaStream_t s) {
   switch (D) {
     case 16: return launch_bwd<T, 16>(a, B, KV, s);
     case 32: return launch_bwd<T, 32>(a, B, KV, s);
+    case 256: return launch_bwd<T, 256>(a, B, KV, s);
   }
   if constexpr (sizeof(T) == 4) {
     switch (D) {

@@ -12,7 +12,9 @@ kernel for it.
   ``(B, H, Sq, D)``, ``k``, ``v`` ``(B, KV, Sk, D)``, ``lse`` the forward's
   float32 ``(B, H, Sq)``. bf16 at head_dim 64 and 128 runs the wgmma body,
   the rest a CUDA-core body (``variant``; ``launch_count_by_variant``
-  counts launches by body). ``backward_plan`` says from shapes and mask
+  counts launches by body), which at head_dim 256 (RecurrentGemma-9B's)
+  splits each row tile's accumulator columns over two CTAs
+  (``column_chunks``). ``backward_plan`` says from shapes and mask
   what a call launches: the body, the tiles, the grids, the scratch, and
   the device kernels in order (the dQ pass, the dK/dV pass and, where the
   plan splits the GQA group over CTAs, the fixed-order sum of the group's
@@ -22,7 +24,7 @@ kernel for it.
   ``(B, H, S, D)``), makes ``d_out`` contiguous only where its strides
   break the vector alignment, and returns gradients laid out like their
   inputs. It checks as the forward checks and raises on what the kernel
-  does not take (head_dim other than 16, 32, 64 or 128, before a launch).
+  does not take (head_dim other than 16, 32, 64, 128 or 256, before a launch).
   For a CUDA tensor it launches the plan's kernels (``launch_count``
   counts the calls, each all the kernels of its plan); for a CPU tensor it
   runs ``flash_attention_backward_plain``, and only then.
@@ -56,7 +58,7 @@ launch_count = 0
 #: the same launches by the body that served them
 launch_count_by_variant = dict.fromkeys(VARIANTS, 0)
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _TENSOR_CORE_HEAD_DIMS = (64, 128)
 #: rows a CTA owns (queries in the dQ pass, keys in the dK/dV pass) and
 #: rows of each tile its inner loop streams (keys, queries), by body
@@ -81,7 +83,7 @@ def reset_launch_count() -> None:
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The device body that serves ``dtype`` at ``head_dim``: bf16 at 64 and
     128 on the tensor cores (wgmma); float32 (which the tensor cores would
-    compute as TF32) and bf16 at 16 and 32 on the CUDA cores."""
+    compute as TF32) and bf16 at 16, 32 and 256 on the CUDA cores."""
     if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS:
         return "tensor_cores"
     return "cuda_cores"
@@ -96,6 +98,14 @@ class BackwardPlan(NamedTuple):
     kernels: Tuple[str, ...]                # device kernels a call launches, in order
     grids: Tuple[Tuple[int, int, int], ...] # each kernel's grid (x, y, z)
     scratch_bytes: int                      # Delta, and the float32 partials where split
+
+
+def column_chunks(body: str, d: int) -> int:
+    """CTAs that split one row tile's accumulator columns: the CUDA-core
+    body owns at most 128 columns a CTA (two at head_dim 256, where dK and
+    dV of 64 rows would take 256 registers a thread); the grid's x is
+    batch x chunks."""
+    return -(-d // 128) if body == "cuda_cores" else 1
 
 
 def query_tiles(t0: int, sq: int, sk: int, causal: bool, window: int, rows: int = 64) -> int:
@@ -139,8 +149,9 @@ def backward_plan(b: int, h: int, kv: int, sq: int, sk: int, d: int, dtype: torc
     scratch = b * h * sq * 4                              # Delta
     if body == "cuda_cores":
         split = False
-        launches = [("flash_bwd_dq_kernel", (b, h, -(-sq // rows)), sq),
-                    ("flash_bwd_dkv_kernel", (b, kv, -(-sk // rows)), sk)]
+        x = b * column_chunks(body, d)
+        launches = [("flash_bwd_dq_kernel", (x, h, -(-sq // rows)), sq),
+                    ("flash_bwd_dkv_kernel", (x, kv, -(-sk // rows)), sk)]
     else:
         if split is None:
             split = split_group(b, h, kv, sq, sk, d, causal, window, n_sms)

@@ -12,6 +12,12 @@ The wrapper checks device and shapes and raises on what the kernel does not
 take. For a CUDA tensor it launches the kernel on the current stream
 (``launch_count`` counts those launches); for a CPU tensor it runs
 ``rglru_scan_plain``, and only then.
+
+Training: where autograd records (grad enabled and an input requires grad)
+``rglru_scan`` goes through ``RGLRUScanFn``, whose backward is the reverse
+scan ``rglru_bwd.rglru_scan_backward`` (``csrc/rglru_bwd.cu``, with its own
+``launch_count``). It saves ``a``, ``h0`` and the forward's ``h``, never ``x``. Serving calls
+run the forward kernel alone, so their counts do not change.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from .rglru_bwd import rglru_scan_backward
 
 #: launches of the CUDA kernel since the last reset
 launch_count = 0
@@ -58,6 +65,15 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,    # (B, R) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(h (B, S, R), h_final (B, R))``, float32."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, x, h0)):
+        if h0 is None:
+            h0 = torch.zeros((a.shape[0], a.shape[-1]), dtype=torch.float32, device=a.device)
+        return RGLRUScanFn.apply(a, x, h0)
+    return _scan(a, x, h0)
+
+
+def _scan(a, x, h0):
     global launch_count
     if a.dim() != 3 or x.shape != a.shape:
         raise ValueError(
@@ -89,3 +105,24 @@ def rglru_scan(
         raise RuntimeError(f"rglru_scan: CUDA launch failed with error {err}")
     launch_count += 1
     return out, h_final
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """``rglru_scan`` with its gradient: ``apply(a, x, h0) -> (h, h_final)``.
+    Saves ``a``, ``h0`` and the forward's ``h`` (not ``x``: the reverse scan
+    does not read it) and returns the gradients of ``a``, ``x`` and ``h0``
+    in their input dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        out, h_final = _scan(a, x, h0)
+        ctx.save_for_backward(a, h0, out)
+        ctx.dtypes = (a.dtype, x.dtype, h0.dtype)
+        return out, h_final
+
+    @staticmethod
+    def backward(ctx, g, g_fin):
+        a, h0, out = ctx.saved_tensors
+        da, dx, dh0 = rglru_scan_backward(a, out, h0, g, g_fin)
+        ta, tx, th = ctx.dtypes
+        return da.to(ta), dx.to(tx), dh0.to(th)

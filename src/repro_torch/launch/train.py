@@ -7,34 +7,26 @@
 The reference's command line (``repro.launch.train``) plus ``--device``
 (default ``cuda``; the launcher raises where there is no CUDA device, and
 ``--device cpu`` runs the kernels' plain versions). ``--arch`` offers the
-archs whose ``loss`` the port has: the ``TransformerLM`` families (dense,
-MoE, VLM backbone). RecurrentGemma, xLSTM and Whisper are refused with the
-ROADMAP item that brings them. Checkpoints are in the reference's format, so
-a run the reference started resumes here and the reverse.
+archs whose model has a ``loss``: every family the reference trains (the
+``TransformerLM`` families, RecurrentGemma, xLSTM and Whisper). Checkpoints
+are in the reference's format, so a run the reference started resumes here
+and the reverse.
 """
 from __future__ import annotations
 
 import argparse
 
 from ..configs import ARCH_IDS, get_config, get_smoke_config
-from ..models.transformer import TransformerLM
+from ..models.registry import model_class
 from ..train.optimizer import AdamWConfig
 from ..train.train_loop import TrainConfig, train
 
-TRAIN_ARCHS = tuple(a for a in ARCH_IDS if get_smoke_config(a).family in TransformerLM.FAMILIES)
-
-# the reference's training archs that the port cannot train yet, by the
-# title of the ROADMAP.md item (queue 1) that brings each
-NOT_YET = {
-    "recurrentgemma_9b": "ROADMAP.md, \"RecurrentGemma training\" (its loss, with a backward of kernel 4)",
-    "xlstm_350m": "ROADMAP.md, \"xLSTM\" (models/xlstm.py)",
-    "whisper_small": "ROADMAP.md, \"Whisper\" (models/whisper.py)",
-}
+TRAIN_ARCHS = tuple(a for a in ARCH_IDS if hasattr(model_class(get_smoke_config(a)), "loss"))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=TRAIN_ARCHS + tuple(NOT_YET), required=True)
+    ap.add_argument("--arch", choices=TRAIN_ARCHS, required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -44,8 +36,6 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch in NOT_YET:
-        ap.error(f"--arch {args.arch}: the port cannot train it yet; {NOT_YET[args.arch]}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tc = TrainConfig(

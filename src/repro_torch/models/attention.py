@@ -1,9 +1,9 @@
 """Attention with GQA and position-based masks (counterpart of
-``attention``, ``attention_any`` and ``attention_paged`` in
-``repro.models.attention``).
+``attention``, ``attention_any``, ``attention_cross`` and
+``attention_paged`` in ``repro.models.attention``).
 
-``attention`` and ``attention_paged`` are the plain versions the tests hold
-the port against the reference with. The serving path itself calls the
+``attention``, ``attention_cross_plain`` and ``attention_paged`` are the
+plain versions the tests hold the port against the reference with. The serving path itself calls the
 kernels in ``repro_torch.kernels`` (whose own plain versions run on CPU
 tensors) — ``attention_any`` routes a dense prefill to one; the two differ
 only on rows with no valid key, where these functions return the mean of V
@@ -84,6 +84,42 @@ def attention_any(
     else:
         out = flash_attention(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
+
+
+def attention_cross(
+    q: torch.Tensor,                  # (B, Sq, H, D)
+    k: torch.Tensor,                  # (B, Sk, KV, D)
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Bidirectional or cross attention (Whisper's encoder and cross blocks),
+    ``bshk`` in and out, every key visible to every query and Sq free of
+    Sk: kernel 2's dense entry without a mask (``attention_any`` with
+    ``causal=False``), and under autograd its backward kernel."""
+    return attention_any(q, k, v, causal=False, scale=scale)
+
+
+def attention_cross_plain(
+    q: torch.Tensor,                  # (B, Sq, H, D)
+    k: torch.Tensor,                  # (B, Sk, KV, D)
+    v: torch.Tensor,
+    k_valid: Optional[torch.Tensor] = None,   # (B, Sk) bool
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The plain version (the reference's ``attention_cross``): float32
+    softmax attention over the keys ``k_valid`` allows (all by default)."""
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    qf = (q.float() * scale).reshape(b, sq, kv, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    if k_valid is not None:
+        scores = torch.where(k_valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 def attention_paged(

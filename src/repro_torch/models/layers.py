@@ -54,6 +54,73 @@ def tree_map(fn, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def layer_slice(stack: Tree, i: int) -> Tree:
+    """Layer ``i`` of a stacked subtree (each leaf ``(L, ...)``), or of a
+    list of per-layer trees (what ``train.train_step`` differentiates)."""
+    if isinstance(stack, list):
+        return stack[i]
+    return tree_map(lambda w: w[i], stack)
+
+
+def records_grad(*trees: Tree) -> bool:
+    """Whether autograd records a computation on these trees: grad mode is
+    on and a leaf (of a dict tree or a list of them) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    todo = list(trees)
+    while todo:
+        t = todo.pop()
+        if isinstance(t, dict):
+            todo.extend(t.values())
+        elif isinstance(t, list):
+            todo.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
+def _refresh(old: Any, new: Any) -> None:
+    if isinstance(old, dict):
+        for k in old:
+            _refresh(old[k], new[k])
+    elif isinstance(old, list):
+        for a, b in zip(old, new):
+            _refresh(a, b)
+    elif old.data_ptr() != new.data_ptr():
+        old.copy_(new)
+
+
+class ViewCache:
+    """The serving paths' views of parameter subtrees (float32 copies of
+    norm scales and gates, flattened projections), built by ``build(*trees)``
+    once for the trees given and kept while the same tree objects come back.
+    An optimizer step updates leaves in place, so each call also reads the
+    leaves' version counters: where one moved, the views are built again
+    and copied into the cached tensors where they lie (a view that aliases
+    its leaf needs no copy). The cached tensors never move, so a CUDA graph
+    captured over them replays the current parameters once a call has
+    refreshed them: a graph's owner calls the model's ``refresh_views``
+    before every replay (``serving.graphs.Dispatches``)."""
+
+    def __init__(self, build):
+        self._build = build
+        self._src: Optional[Tuple[Tree, ...]] = None
+        self._stamp: Optional[Tuple[int, ...]] = None
+        self._views: Any = None
+
+    def __call__(self, *trees: Tree) -> Any:
+        stamp = tuple(leaf._version for tree in trees for _, leaf in _leaves(tree))
+        same = self._src is not None and len(self._src) == len(trees) and all(
+            a is b for a, b in zip(self._src, trees))
+        if not same:
+            self._views, self._src = self._build(*trees), trees
+        elif stamp != self._stamp:
+            with torch.no_grad():
+                _refresh(self._views, self._build(*trees))
+        self._stamp = stamp
+        return self._views
+
+
 @torch.no_grad()
 def init_params(
     defs: Tree, generator: torch.Generator, device="cuda"
@@ -121,6 +188,21 @@ def norm_defs(d_model: int, kind: str, dtype, layers: Optional[int] = None):
     if kind == "layernorm":
         defs["bias"] = ParamDef(lead + (d_model,), dtype, "zeros")
     return defs
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoid table (seq, d_model), float32: sin then cos
+    of pos / 10000^(2i / d_model) for i < d_model / 2."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    return sinusoid_at(pos, d_model)
+
+
+def sinusoid_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoid rows at float32 positions ``pos`` (..., 1): the closed
+    form a decode step evaluates at each slot's own position."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    angle = pos / torch.pow(10000.0, 2 * dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # --------------------------------------------------------------------------- #

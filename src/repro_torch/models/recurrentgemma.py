@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin (arXiv:2402.19427): RG-LRU + local attention,
-serving paths (counterpart of ``repro.models.recurrentgemma``).
+serving and training paths (counterpart of ``repro.models.recurrentgemma``).
 
 The layer pattern is (recurrent, recurrent, local attention) repeated, each
 temporal block followed by a gated-MLP block, both residual; 38 layers are
@@ -33,10 +33,23 @@ per attention layer.
 * Caches are updated in place (the reference returns new ones); every
   method still returns the cache.
 * What XLA hoists out of the reference's scan is hoisted by hand, once per
-  parameter tree: float32 norm scales, conv kernels and recurrence gates,
-  and -c·softplus(Λ). In a bf16 model the float32 gates cost 2 x R² x 4
-  bytes a recurrent layer (3.5 GB at full size) where the reference casts
-  them on every call.
+  parameter tree, for the serving paths: float32 norm scales, conv kernels
+  and recurrence gates, and -c·softplus(Λ) (``layers.ViewCache``, which
+  rewrites them in place after an optimizer step has updated the leaves in
+  place). In a bf16 model the float32 gates cost 2 x R² x 4 bytes a
+  recurrent layer (3.5 GB at full size) where the reference casts them on
+  every call.
+* Training: ``forward(params, tokens, patch_embeds, remat)`` / ``loss`` as
+  in the reference (every state from zero, float32 logits and a zero aux
+  loss). Where autograd records they build each layer's views inside the
+  layer (no cache: every call has its own graph, and a rematerialised
+  layer rebuilds them from the leaves), ``remat`` checkpoints each layer
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
+  period), the recurrence runs ``RGLRUScanFn`` (the reverse-scan kernel
+  ``csrc/rglru_bwd.cu`` in its backward) and attention ``FlashAttentionFn``
+  (the flash backward at head_dim 256). Without autograd ``forward`` runs
+  the serving path's layers. ``prefill`` and ``decode_step`` stay under
+  ``no_grad`` with their in-place caches.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -62,13 +76,17 @@ from .cache import (
 from .layers import (
     DTYPES,
     ParamDef,
+    ViewCache,
     apply_rope_tables,
+    cross_entropy_loss,
     embed_defs,
     embed_tokens,
     init_params,
+    layer_slice,
     mlp_apply,
     mlp_defs,
     norm_defs,
+    records_grad,
     rms_norm,
     rope_tables,
     unembed,
@@ -86,6 +104,9 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 class RecurrentGemma:
     """RecurrentGemma on ``device`` (default the CUDA device; raises if there
     is none — pass ``device="cpu"`` for the plain path)."""
+
+    #: the stacked subtrees, one entry a layer (``train.train_step``)
+    STACKS = ("rec_a", "rec_b", "attn", "rec_tail")
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         pattern = cfg.block_pattern or ("rec", "rec", "attn")
@@ -112,8 +133,7 @@ class RecurrentGemma:
         self.window = cfg.sliding_window or 2048
         self.dtype = DTYPES[cfg.dtype]
         self.device = resolve_device(device)
-        self._views_src: Optional[Params] = None
-        self._views: Dict[str, List[Params]] = {}
+        self._views = ViewCache(self._build_views)
 
     # ------------------------------------------------------------------ #
     # Parameters                                                          #
@@ -168,48 +188,61 @@ class RecurrentGemma:
         return init_params(self.param_defs(), gen, self.device)
 
     def _rec_view(self, p: Params, i: int) -> Params:
-        f32 = lambda x: x[i].float()
+        """Layer ``i`` of a recurrent stack (stacked, or a list of layers)
+        with float32 norm scales, conv kernel, gates and -c·softplus(Λ)."""
+        p = layer_slice(p, i)
+        f32 = lambda x: x.float()
         return {
             "norm": f32(p["norm"]["scale"]),
-            "w_x": p["w_x"][i],
-            "w_gate": p["w_gate"][i],
+            "w_x": p["w_x"],
+            "w_gate": p["w_gate"],
             "conv_k": f32(p["conv_k"]),                           # (c, R)
             "w_rgate": f32(p["w_rgate"]),
             "w_igate": f32(p["w_igate"]),
             "neg_c_lam": -_C_RGLRU * _softplus(f32(p["lam"])),   # (R,)
-            "w_out": p["w_out"][i],
+            "w_out": p["w_out"],
             "norm_mlp": f32(p["norm_mlp"]["scale"]),
-            "mlp": {k: w[i] for k, w in p["mlp"].items()},
+            "mlp": dict(p["mlp"]),
         }
 
     def _attn_view(self, p: Params, i: int) -> Params:
         cfg, hd = self.cfg, self.hd
         d = cfg.d_model
+        p = layer_slice(p, i)
         return {
-            "norm": p["norm"]["scale"][i].float(),
-            "wq": p["wq"][i].reshape(d, cfg.n_heads * hd),
-            "wk": p["wk"][i].reshape(d, cfg.n_kv_heads * hd),
-            "wv": p["wv"][i].reshape(d, cfg.n_kv_heads * hd),
-            "wo": p["wo"][i].reshape(cfg.n_heads * hd, d),
-            "norm_mlp": p["norm_mlp"]["scale"][i].float(),
-            "mlp": {k: w[i] for k, w in p["mlp"].items()},
+            "norm": p["norm"]["scale"].float(),
+            "wq": p["wq"].reshape(d, cfg.n_heads * hd),
+            "wk": p["wk"].reshape(d, cfg.n_kv_heads * hd),
+            "wv": p["wv"].reshape(d, cfg.n_kv_heads * hd),
+            "wo": p["wo"].reshape(cfg.n_heads * hd, d),
+            "norm_mlp": p["norm_mlp"]["scale"].float(),
+            "mlp": dict(p["mlp"]),
         }
 
+    def _stacks(self, params: Params) -> Tuple[Params, ...]:
+        return tuple(params[k] for k in self.STACKS if k in params)
+
+    def _build_views(self, *stacks: Params) -> Dict[str, List[Params]]:
+        n = {"rec_a": self.n_periods, "rec_b": self.n_periods, "attn": self.n_periods,
+             "rec_tail": self.n_tail_rec}
+        view = {"rec_a": self._rec_view, "rec_b": self._rec_view, "attn": self._attn_view,
+                "rec_tail": self._rec_view}
+        return {k: [view[k](p, i) for i in range(n[k])] for k, p in zip(self.STACKS, stacks)}
+
     def _layer_views(self, params: Params) -> Dict[str, List[Params]]:
-        """Per-layer views of the stacked weights (cached for the last
-        parameter tree): ``rec_a`` / ``rec_b`` / ``attn`` per period and
-        ``rec_tail``. Recurrent states are ordered A's, B's, tail."""
-        if self._views_src is not params["rec_a"]:
-            n = self.n_periods
-            self._views = {
-                "rec_a": [self._rec_view(params["rec_a"], i) for i in range(n)],
-                "rec_b": [self._rec_view(params["rec_b"], i) for i in range(n)],
-                "attn": [self._attn_view(params["attn"], i) for i in range(n)],
-                "rec_tail": [self._rec_view(params["rec_tail"], i)
-                             for i in range(self.n_tail_rec)],
-            }
-            self._views_src = params["rec_a"]
-        return self._views
+        """The serving paths' per-layer views of the stacked weights:
+        ``rec_a`` / ``rec_b`` / ``attn`` per period and ``rec_tail``, cached
+        for the last parameter tree and refreshed in place after an in-place
+        update (``ViewCache``). Recurrent states are ordered A's, B's,
+        tail."""
+        views = self._views(*self._stacks(params))
+        return {k: views.get(k, []) for k in self.STACKS}
+
+    def refresh_views(self, params: Params) -> None:
+        """Bring the serving views up to date with ``params`` (after an
+        in-place update): a captured decode step reads them without
+        rebuilding them (``serving.graphs``)."""
+        self._views(*self._stacks(params))
 
     # ------------------------------------------------------------------ #
     # State                                                               #
@@ -226,6 +259,11 @@ class RecurrentGemma:
                                      cfg.n_kv_heads, self.hd),
             "length": (batch,),
         }
+
+    def decode_attention_caches(self, batch: int, max_len: int) -> List[Tuple[int, ...]]:
+        """The (L, B, S, KV, D) caches a decode step's attention kernel
+        reads: the rings."""
+        return [self.cache_shape(batch, max_len)["attn"]["k"]]
 
     def cache_init(self, batch: int, max_len: int) -> Dict[str, Any]:
         cfg, dev = self.cfg, self.device
@@ -338,32 +376,90 @@ class RecurrentGemma:
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
         rope = rope_tables(positions, self.hd, cfg.rope_theta)
         len_vec = None if lengths is None else lengths.to(torch.int32)
-        pa = self.n_periods
         if cache is not None:
             ring = cache["attn"]
             new_len = torch.full((b,), s, dtype=torch.int32, device=dev) if len_vec is None else len_vec
             pos_map = ring_positions_prefill(b, ring["k"].shape[2], new_len)
         views = self._layer_views(params)
-        for p in range(pa):
-            h = self._rec_layer(h, views["rec_a"][p], cache, p, len_vec)
-            h = self._rec_layer(h, views["rec_b"][p], cache, pa + p, len_vec)
+
+        def rec(h, stack, i, state):
+            return self._rec_layer(h, views[stack][i], cache, state, len_vec)
+
+        def attn(h, p):
             at = views["attn"][p]
             h, (k, v) = self._attn_block_seq(h, at, rope)
             if cache is not None:
                 ring_cache_write_prefill(ring["k"][p], ring["v"][p], k, v, pos_map)
-            h = self._mlp_block(h, at)
-        for t, lp in enumerate(views["rec_tail"]):
-            h = self._rec_layer(h, lp, cache, 2 * pa + t, len_vec)
+            return self._mlp_block(h, at)
+
+        h = self._run_layers(h, rec, attn, lambda fn, *a: fn(*a))
         if cache is not None:
             ring["pos"].copy_(pos_map)
             ring["length"].copy_(new_len)
             cache["length"].copy_(new_len)
         return rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
 
-    @torch.no_grad()
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits (B, S, V) float32 of a full sequence, every state from zero."""
-        return unembed(self._forward_seq(params, tokens), params["embed"]).float()
+    def _run_layers(self, h: torch.Tensor, rec, attn, run) -> torch.Tensor:
+        """Every layer in order, each period's recurrent A and B blocks and
+        its attention block, then the recurrent tail: ``h = run(rec, h,
+        stack, i, state)`` for layer ``i`` of the recurrent stack ``stack``
+        whose state is ``state`` (A's, B's, tail), ``h = run(attn, h, p)``
+        for period ``p``'s attention block."""
+        pa = self.n_periods
+        for p in range(pa):
+            h = run(rec, h, "rec_a", p, p)
+            h = run(rec, h, "rec_b", p, pa + p)
+            h = run(attn, h, p)
+        for t in range(self.n_tail_rec):
+            h = run(rec, h, "rec_tail", t, 2 * pa + t)
+        return h
+
+    def _train_seq(self, params: Params, tokens: torch.Tensor, remat: bool) -> torch.Tensor:
+        """Final-normed hidden states of the training forward: the serving
+        path's layers in order, every state from zero, each layer's views
+        built inside it (a rematerialised layer rebuilds them from the
+        leaves) and each layer checkpointed under ``remat``."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        h = embed_tokens(tokens, params["embed"]).to(self.dtype)
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        rope = rope_tables(positions, self.hd, cfg.rope_theta)
+
+        def rec(h, stack, i, state):
+            return self._rec_layer(h, self._rec_view(params[stack], i), None, 0)
+
+        def attn(h, p):
+            at = self._attn_view(params["attn"], p)
+            h, _ = self._attn_block_seq(h, at, rope)
+            return self._mlp_block(h, at)
+
+        run = ((lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat
+               else (lambda fn, *a: fn(*a)))
+        h = self._run_layers(h, rec, attn, run)
+        return rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
+
+    def forward(
+        self,
+        params: Params,
+        tokens: torch.Tensor,                         # (B, S) int32
+        patch_embeds: Optional[torch.Tensor] = None,  # unused: the uniform interface
+        remat: bool = True,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full forward → (logits (B, S, V) f32, aux loss 0 f32), every state
+        from zero. Where autograd records it is the training forward
+        (``_train_seq``); otherwise the serving path's layers."""
+        if records_grad(params):
+            h = self._train_seq(params, tokens, remat)
+        else:
+            h = self._forward_seq(params, tokens)
+        logits = unembed(h, params["embed"]).float()
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
+        """Cross-entropy of ``batch["labels"]`` (masked by ``batch["mask"]``
+        where given)."""
+        logits, _ = self.forward(params, batch["tokens"], remat=remat)
+        return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
     @torch.no_grad()
     def prefill(
@@ -410,21 +506,21 @@ class RecurrentGemma:
         new_pos = ring_positions_write_token(ring["pos"], lengths)
         kv_lens = torch.clamp(lengths + 1, max=w)
         views = self._layer_views(params)
-        pa = self.n_periods
 
-        for p in range(pa):
-            h = self._rec_layer(h[:, None], views["rec_a"][p], cache, p)[:, 0]
-            h = self._rec_layer(h[:, None], views["rec_b"][p], cache, pa + p)[:, 0]
+        def rec(h, stack, i, state):
+            return self._rec_layer(h[:, None], views[stack][i], cache, state)[:, 0]
+
+        def attn(h, p):
             at = views["attn"][p]
             x = rms_norm(h, at["norm"], cfg.norm_eps)[:, None]
             q, k, v = self._qkv(x, at, rope)
             kc, vc = ring["k"][p], ring["v"][p]
             write_token(kc, vc, k, v, plan)
             # (B, W, KV, D) slices seen as (B, KV, W, D): no copy of the ring
-            attn = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
-            h = self._mlp_block(h + attn.reshape(b, -1) @ at["wo"], at)
-        for t, lp in enumerate(views["rec_tail"]):
-            h = self._rec_layer(h[:, None], lp, cache, 2 * pa + t)[:, 0]
+            out = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
+            return self._mlp_block(h + out.reshape(b, -1) @ at["wo"], at)
+
+        h = self._run_layers(h, rec, attn, lambda fn, *a: fn(*a))
         h = rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
         logits = unembed(h, params["embed"]).float()
         ring["pos"].copy_(new_pos)

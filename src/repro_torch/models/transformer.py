@@ -31,7 +31,10 @@ families).
 * What XLA hoists out of the reference's layer scan is hoisted here by hand:
   each step computes its RoPE tables and its KV write plan once, and the
   per-layer weights (with float32 norm scales) are sliced once per
-  parameter tree.
+  parameter tree (``layers.ViewCache``: the float32 copies are refreshed
+  in place when an optimizer step has updated the leaves, by the next
+  eager call or, before a captured dispatch replays, by
+  ``refresh_views``).
 * Training: ``forward`` / ``loss`` as in the reference (full causal forward,
   float32 logits, the MoE aux loss summed over layers). They carry no
   ``no_grad`` and build each layer's views on every call (no cache, so an
@@ -82,6 +85,7 @@ from .layers import (
     embed_defs,
     embed_tokens,
     init_params,
+    layer_slice,
     m_rope_tables,
     mlp_apply,
     mlp_defs,
@@ -90,6 +94,7 @@ from .layers import (
     rms_norm,
     rope_tables,
     unembed,
+    ViewCache,
 )
 from .moe import moe_apply, moe_defs
 
@@ -113,6 +118,8 @@ class TransformerLM:
     plain path)."""
 
     FAMILIES = ("dense", "moe", "vlm")
+    #: the stacked subtrees, one entry a layer (``train.train_step``)
+    STACKS = ("blocks",)
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if cfg.family not in self.FAMILIES:
@@ -124,8 +131,8 @@ class TransformerLM:
         self.hd = cfg.resolved_head_dim
         self.dtype = DTYPES[cfg.dtype]
         self.device = resolve_device(device)
-        self._layers_src: Optional[Params] = None
-        self._layers: List[Params] = []
+        self._layers = ViewCache(
+            lambda blocks: [self._layer_view(blocks, l) for l in range(cfg.n_layers)])
 
     # ------------------------------------------------------------------ #
     # Parameters                                                          #
@@ -175,33 +182,35 @@ class TransformerLM:
         d = cfg.d_model
         f32 = lambda x: x.float()
         ffn = "moe" if cfg.is_moe else "mlp"
-        at = (lambda w: w[l]) if isinstance(blocks, dict) else (lambda w: w)
-        layer = blocks if isinstance(blocks, dict) else blocks[l]
+        layer = layer_slice(blocks, l)
         lp: Params = {
-            "norm_attn": {k: f32(at(w)) for k, w in layer["norm_attn"].items()},
-            "norm_mlp": {k: f32(at(w)) for k, w in layer["norm_mlp"].items()},
-            "wq": at(layer["wq"]).reshape(d, cfg.n_heads * hd),
-            "wk": at(layer["wk"]).reshape(d, cfg.n_kv_heads * hd),
-            "wv": at(layer["wv"]).reshape(d, cfg.n_kv_heads * hd),
-            "wo": at(layer["wo"]).reshape(cfg.n_heads * hd, d),
-            ffn: {k: at(w) for k, w in layer[ffn].items()},
+            "norm_attn": {k: f32(w) for k, w in layer["norm_attn"].items()},
+            "norm_mlp": {k: f32(w) for k, w in layer["norm_mlp"].items()},
+            "wq": layer["wq"].reshape(d, cfg.n_heads * hd),
+            "wk": layer["wk"].reshape(d, cfg.n_kv_heads * hd),
+            "wv": layer["wv"].reshape(d, cfg.n_kv_heads * hd),
+            "wo": layer["wo"].reshape(cfg.n_heads * hd, d),
+            ffn: dict(layer[ffn]),
         }
         if cfg.use_bias:
             for name in ("bq", "bk", "bv", "bo"):
-                lp[name] = at(layer[name])
+                lp[name] = layer[name]
         if cfg.qk_norm:
-            lp["q_norm"] = f32(at(layer["q_norm"]))
-            lp["k_norm"] = f32(at(layer["k_norm"]))
+            lp["q_norm"] = f32(layer["q_norm"])
+            lp["k_norm"] = f32(layer["k_norm"])
         return lp
 
     def _layer_params(self, params: Params) -> List[Params]:
         """Every layer's ``_layer_view`` for serving, cached for the last
-        parameter tree."""
-        blocks = params["blocks"]
-        if self._layers_src is not blocks:
-            self._layers = [self._layer_view(blocks, l) for l in range(self.cfg.n_layers)]
-            self._layers_src = blocks
-        return self._layers
+        parameter tree and refreshed in place after an in-place update of
+        its leaves (``ViewCache``)."""
+        return self._layers(params["blocks"])
+
+    def refresh_views(self, params: Params) -> None:
+        """Bring the serving views up to date with ``params`` (after an
+        in-place update): a captured dispatch reads them without rebuilding
+        them (``serving.graphs``)."""
+        self._layer_params(params)
 
     # ------------------------------------------------------------------ #
     # Serving: cache declaration (dense layout)                           #

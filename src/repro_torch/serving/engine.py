@@ -307,6 +307,7 @@ class Engine:
             self.device, self._build_dispatch,
             scratch=(decode_scratch(self.slots.cache, model.cfg.n_heads, sm_count(self.device))
                      if self.device.type == "cuda" else (0, 0)),
+            refresh=lambda: model.refresh_views(self.params),
         )
         self.decode_dispatches = 0
         self.decoded_tokens = 0

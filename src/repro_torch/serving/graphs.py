@@ -46,6 +46,12 @@ Hazards, each handled here or by the owner, and checked:
 * **State updated in place.** The caches a graph reads and writes are the
   owner's, updated in place by every other path (slot binding, merges,
   migration, checkpoint restore) and never reassigned.
+* **Parameter views.** A model's serving views of its parameters (float32
+  copies of bf16 norm scales and gates; ``models.layers.ViewCache``) are
+  refreshed by an eager call after an in-place optimizer step, and a replay
+  runs none: the owner's ``refresh`` (the model's ``refresh_views`` on its
+  parameters) runs before every replay, so a graph never reads views older
+  than the parameters.
 """
 from __future__ import annotations
 
@@ -146,12 +152,15 @@ class Dispatches:
     ``build(key)`` returns the key's static inputs, at the values of its
     all-inactive call, and the function of those inputs to capture.
     ``scratch`` is the split scratch (floats, counters) the largest plan of
-    every key needs, reserved before the first capture."""
+    every key needs, reserved before the first capture. ``refresh``, where
+    given, runs before every replay (the parameter-views hazard)."""
 
-    def __init__(self, device: torch.device, build: Build, scratch: Tuple[int, int] = (0, 0)):
+    def __init__(self, device: torch.device, build: Build, scratch: Tuple[int, int] = (0, 0),
+                 refresh: Optional[Callable[[], Any]] = None):
         self.device = device
         self.build = build
         self.scratch = scratch
+        self.refresh = refresh
         self._entries: Dict[Key, Dispatch] = {}
         self.captures = 0
         self.replays = 0          # on a CPU device: calls in place of replays
@@ -236,6 +245,8 @@ class Dispatches:
     def replay(self, key: Key) -> Any:
         """Run the key's call on its static buffers; returns its outputs."""
         entry = self._entry(key)
+        if self.refresh is not None:
+            self.refresh()
         counts = launch_counts()
         if entry.graph is None:
             out = entry.fn(entry.inputs)

@@ -46,9 +46,10 @@ def synthetic_batches(
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Deterministic synthetic LM data: modular successor sequences
     (tokens[t+1] = tokens[t] + stride mod V) from numpy's generator seeded
-    with ``tc.seed``, as the reference draws them; a VLM config's
-    ``patch_embeds`` come from the same stream, rounded to bf16 through
-    float32 as the reference's ``jnp.asarray`` rounds them."""
+    with ``tc.seed``, as the reference draws them; an audio config's
+    ``frames`` (B, seq, d_model) and a VLM config's ``patch_embeds`` come
+    from the same stream, rounded to bf16 through float32 as the
+    reference's ``jnp.asarray`` rounds them."""
     rng = np.random.default_rng(tc.seed)
     v = max(cfg.vocab_size - 1, 2)
     t = np.arange(tc.seq + 1)[None, :]
@@ -60,6 +61,9 @@ def synthetic_batches(
             "tokens": torch.from_numpy(seqs[:, :-1].astype(np.int32)).to(device),
             "labels": torch.from_numpy(seqs[:, 1:].astype(np.int32)).to(device),
         }
+        if cfg.family == "audio":
+            frames = rng.normal(size=(tc.batch, tc.seq, cfg.d_model)).astype(np.float32)
+            batch["frames"] = torch.from_numpy(frames).to(device=device, dtype=torch.bfloat16)
         if cfg.family == "vlm":
             pe = rng.normal(size=(tc.batch, cfg.num_patch_tokens, cfg.d_model))
             batch["patch_embeds"] = torch.from_numpy(pe.astype(np.float32)).to(

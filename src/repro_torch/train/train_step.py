@@ -9,10 +9,14 @@ sum that starts from zeros in that dtype. The step then runs
 ``adamw_update``, in place.
 
 The gradient is taken with respect to per-layer leaves: each stacked
-``(L, ...)`` block weight is seen as L tensors that share its storage, each
-accumulating its gradient in place into its layer's slice of one gradient
-buffer shaped like the parameters (differentiating the stacked leaf through
-L slices would build and add L full-size zero-filled gradients). The values
+``(L, ...)`` weight of the subtrees the model names in ``STACKS`` (the
+transformer's ``blocks``, RecurrentGemma's ``rec_a`` / ``rec_b`` / ``attn``
+/ ``rec_tail``, xLSTM's ``pairs``, Whisper's ``encoder`` / ``decoder``) is
+seen as L tensors that share its storage, each accumulating its gradient in
+place into its layer's slice of one gradient buffer shaped like the
+parameters (differentiating the stacked leaf through L slices would build
+and add L full-size zero-filled gradients). The model takes a list of
+per-layer trees where it takes a stack (``layers.layer_slice``). The values
 are the reference's.
 """
 from __future__ import annotations
@@ -52,11 +56,12 @@ def _value_and_grad(model, params: Tree, batch, remat: bool, grads: Tree) -> tor
         t.grad = g
         return t
 
-    view = {k: _map2(leaf, v, grads[k]) for k, v in params.items() if k != "blocks"}
-    view["blocks"] = [
-        _map2(lambda w, g, l=l: leaf(w[l], g[l]), params["blocks"], grads["blocks"])
-        for l in range(model.cfg.n_layers)
-    ]
+    stacks = [k for k in model.STACKS if k in params]
+    view = {k: _map2(leaf, v, grads[k]) for k, v in params.items() if k not in stacks}
+    for k in stacks:
+        n = next(w for _, w in _leaves(params[k])).shape[0]
+        view[k] = [_map2(lambda w, g, l=l: leaf(w[l], g[l]), params[k], grads[k])
+                   for l in range(n)]
     loss = model.loss(view, batch, remat=remat)
     loss.backward()
     return loss.detach()

@@ -21,8 +21,10 @@ from repro_torch.models import attention as port_attention
 
 TOL = 2e-5
 
-# (H, KV, head_dim, causal, window): MHA, GQA groups 1, 2, 4 and 9, head_dims
-# 12 (the smoke StarCoder2's), 16 (the smoke configs') and 128 (full width)
+# (H, KV, head_dim, causal, window): MHA, GQA groups 1, 2, 4, 9 and 16,
+# head_dims 12 (the smoke StarCoder2's), 16 (the smoke configs'), 128 (full
+# width) and 256 (RecurrentGemma-9B's 16 query heads on one KV head, with
+# its window cutting the sequence)
 CASES = [
     (4, 4, 16, True, 0),      # g = 1 (MHA)
     (4, 2, 16, True, 0),      # g = 2
@@ -31,6 +33,8 @@ CASES = [
     (4, 1, 128, True, 7),     # g = 4, windowed, head_dim 128
     (6, 3, 128, False, 0),    # g = 2, no causal mask
     (4, 2, 12, False, 6),     # a window without the causal mask
+    (16, 1, 256, True, 8),    # g = 16, windowed, head_dim 256
+    (16, 1, 256, True, 0),    # g = 16, head_dim 256, causal only
 ]
 
 
@@ -146,10 +150,13 @@ def test_backward_checks_its_inputs():
 
 def test_backward_body_by_dtype_and_head_dim():
     """bf16 at head_dim 64 and 128 runs the tensor-core body; float32 at any
-    head_dim and bf16 at 16 and 32 the CUDA-core body."""
-    assert [fb.variant(torch.bfloat16, d) for d in (16, 32, 64, 128)] == [
-        "cuda_cores", "cuda_cores", "tensor_cores", "tensor_cores"]
-    assert {fb.variant(torch.float32, d) for d in (16, 32, 64, 128)} == {"cuda_cores"}
+    head_dim and bf16 at 16, 32 and 256 the CUDA-core body, which splits
+    each row tile's columns over two CTAs at 256 only."""
+    assert [fb.variant(torch.bfloat16, d) for d in (16, 32, 64, 128, 256)] == [
+        "cuda_cores", "cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"]
+    assert {fb.variant(torch.float32, d) for d in (16, 32, 64, 128, 256)} == {"cuda_cores"}
+    assert [fb.column_chunks("cuda_cores", d) for d in (16, 32, 64, 128, 256)] == [1, 1, 1, 1, 2]
+    assert fb.column_chunks("tensor_cores", 128) == 1
     fb.reset_launch_count()
     assert fb.launch_count == 0 and set(fb.launch_count_by_variant.values()) == {0}
 
@@ -182,3 +189,30 @@ def test_group_sum_adds_in_head_order():
     assert float(parts.double().sum()) == 2.0 ** -23
     dk, _ = fb.group_sum_plain(parts.flip(1), parts.flip(1), 1, torch.float32)
     assert float(dk) == 2.0 ** -23
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,d", [(7, 19, 4, 4, 16), (24, 9, 4, 2, 64), (5, 30, 2, 2, 256)])
+def test_cross_attention_backward_matches_jax_grad_of_the_reference(sq, sk, h, kv, d):
+    """``causal=False`` with Sq != Sk (Whisper's cross-attention over the
+    encoder states): the dense entry's plain forward and log-sum-exp and the
+    plain backward against jax.vjp of the reference's ``attention_cross``,
+    and ``attention_cross`` under autograd (``FlashAttentionFn``)."""
+    from repro.models.attention import attention_cross as ref_cross
+
+    rng = np.random.default_rng(sq * sk)
+    q, do = (rng.standard_normal((2, sq, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((2, sk, kv, d)).astype(np.float32) for _ in range(2))
+    ref_out, vjp = jax.vjp(ref_cross, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (_bhsd(x) for x in (q, k, v, do))
+    out, lse = fa.flash_attention(tq, tk, tv, causal=False, return_lse=True)
+    assert _rel(out.transpose(1, 2).numpy(), ref_out) < TOL
+    got = fb.flash_attention_backward(tq, tk, tv, out, lse, tdo, causal=False)
+    for g, want in zip(got, ref):
+        assert _rel(g.transpose(1, 2).numpy(), want) < TOL
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = port_attention.attention_cross(*leaves)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    for leaf, want in zip(leaves, ref):
+        assert _rel(leaf.grad.numpy(), want) < TOL

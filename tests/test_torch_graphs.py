@@ -13,8 +13,8 @@ a replay:
 * the split scratch sized for an engine covers every plan its dispatches
   hand the decode kernels, at the H100's 132 SMs;
 * a replay adds the launches its dispatch recorded, whatever the call
-  itself counts (on the card a replay counts nothing on the host), and a
-  key never prepared raises;
+  itself counts (on the card a replay counts nothing on the host), runs
+  the owner's view refresh first, and a key never prepared raises;
 * the pool, slot cache and pending buffer are never reassigned: restore,
   migration and serves update them in place."""
 import dataclasses
@@ -222,6 +222,24 @@ def test_replay_adds_the_recorded_launches():
     assert len(calls) == 6
     rglru.reset_launch_count()
     flash_attention.reset_launch_count()
+
+
+def test_replay_runs_the_refresh_first():
+    """The owner's ``refresh`` (a model's ``refresh_views``) runs before
+    every replay, not at prepare: a replay reads views no older than the
+    parameters."""
+    order = []
+
+    def build(key):
+        return dict(x=torch.zeros(1)), lambda x: order.append("call")
+
+    d = Dispatches(torch.device("cpu"), build, refresh=lambda: order.append("refresh"))
+    key = Key("decode", (1,), False)
+    d.prepare(key)
+    assert order == ["call"]
+    d.replay(key)
+    d.run(key, x=np.ones(1, np.float32))
+    assert order == ["call", "refresh", "call", "refresh", "call"]
 
 
 def test_unprepared_key_raises():

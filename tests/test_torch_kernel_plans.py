@@ -319,7 +319,15 @@ BACKWARD_SHAPES = [
     (2, 8, 2, 200, 200, d, dt, causal, w)
     for d in (16, 32, 64, 128) for causal, w in ((True, 0), (True, 64), (True, 1), (False, 0), (False, 40))
     for dt in (BF16, F32)
-] + [(2, 8, 2, sq, sk, 128, dt, True, 0) for sq, sk in ((100, 160), (160, 100)) for dt in (BF16, F32)]
+] + [(2, 8, 2, sq, sk, 128, dt, True, 0) for sq, sk in ((100, 160), (160, 100)) for dt in (BF16, F32)
+] + [
+    # RecurrentGemma-9B's attention (16 query heads on one KV head, head_dim
+    # 256, window 2048) at its training shape, and cross-attention shapes
+    (1, 16, 1, 4096, 4096, 256, BF16, True, 2048),
+    (2, 16, 1, 300, 300, 256, F32, True, 100),
+    (2, 12, 12, 70, 1500, 64, BF16, False, 0),
+    (2, 4, 4, 37, 90, 256, BF16, False, 0),
+]
 
 
 def _key_tiles_of_query_tile(i0, sq, sk, causal, window, rows=64):
@@ -344,7 +352,8 @@ def test_backward_plan(b, h, kv, sq, sk, d, dtype, causal, window):
         assert p.grids[0][:2] == (h, b) and p.grids[1][:2] == (h if p.split_group else kv, b)
     else:
         want = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-        assert not p.split_group and p.grids[0][:2] == (b, h) and p.grids[1][:2] == (b, kv)
+        x = b * fb.column_chunks(p.body, d)                     # two CTAs a row tile at 256
+        assert not p.split_group and p.grids[0][:2] == (x, h) and p.grids[1][:2] == (x, kv)
     assert p.kernels == want and len(p.grids) == len(want)
     for (_, _, z), n in ((p.grids[0], sq), (p.grids[1], sk)):
         assert (z - 1) * p.rows < n <= z * p.rows              # every tile, none past the end

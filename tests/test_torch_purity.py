@@ -3,12 +3,12 @@ the reference package, importing the port leaves JAX unloaded, and the entry
 points refuse to fall back to the CPU when no CUDA device exists."""
 import ast
 import os
-import re
 import runpy
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -119,42 +119,41 @@ def test_serve_timer_needs_the_card(monkeypatch):
         time_serves.main(["--label", "this"])
 
 
-def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys):
-    """``--arch`` takes the archs whose loss the port has (the TransformerLM
-    families); RecurrentGemma, xLSTM and Whisper are refused with the title
-    of the ROADMAP item that brings them (a title, not a number, which a
-    re-anchor of the queue would stale)."""
-    from repro_torch.launch import serve
+def test_train_launcher_offers_the_transformer_archs_and_names_the_rest(capsys, monkeypatch):
+    """``--arch`` takes every arch of the registry (each model has a
+    ``loss``, as in the reference), and nothing is refused any more: each
+    smoke arch trains 2 steps on the CPU. Without ``--device cpu`` on a
+    machine without CUDA the launcher raises."""
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import train as train_launcher
 
-    assert train_launcher.TRAIN_ARCHS == serve.ENGINE_ARCHS
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    for arch, item in (("recurrentgemma_9b", "RecurrentGemma training"), ("xlstm_350m", "xLSTM"),
-                       ("whisper_small", "Whisper")):
-        with pytest.raises(SystemExit):
-            train_launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
-        err = capsys.readouterr().err
-        assert "cannot train it yet" in err and f'"{item}"' in err, err
-        assert not re.search(r"item \d", err), err
-        assert f"**{item}" in roadmap, item
-    out = train_launcher.main(["--arch", "qwen3_8b", "--smoke", "--steps", "2", "--batch", "2",
-                               "--seq", "8", "--device", "cpu"])
-    assert out["steps_run"] == 2 and "done: arch=qwen3-8b-smoke device=cpu" in capsys.readouterr().out
+    assert train_launcher.TRAIN_ARCHS == tuple(ARCH_IDS)
+    assert not hasattr(train_launcher, "NOT_YET")
+    for arch in ARCH_IDS:
+        out = train_launcher.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                                   "--seq", "8", "--device", "cpu"])
+        assert out["steps_run"] == 2 and all(np.isfinite(out["losses"])), arch
+        name = train_launcher.get_smoke_config(arch).name
+        assert f"done: arch={name} device=cpu" in capsys.readouterr().out, arch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launcher.main(["--arch", "whisper_small", "--smoke", "--steps", "1"])
 
 
 def test_serve_launcher_offers_only_the_archs_the_engine_serves(capsys):
     """The reference launcher's archs (``repro/launch/serve.py:53``) less what
-    the port's Engine cannot take: RecurrentGemma has no fused
-    ``decode_steps``, so the Engine's launcher refuses it (the reference's
-    offers it and crashes at the first decode stage; ``generate_waves``
-    serves it), and xLSTM is not ported. LLaMA-65B is off both lists."""
+    the port's Engine cannot take: RecurrentGemma, xLSTM and Whisper have
+    no fused ``decode_steps``, so the Engine's launcher refuses them (the
+    reference's offers RecurrentGemma and xLSTM and crashes at the first
+    decode stage; ``generate_waves`` serves all three). LLaMA-65B is off
+    both lists."""
     from repro_torch.configs import ARCH_IDS, EXTRA_IDS
     from repro_torch.launch import serve
 
     assert "recurrentgemma_9b" in ARCH_IDS and EXTRA_IDS == ["llama_65b"]
     assert serve.ENGINE_ARCHS == ("mixtral_8x22b", "olmoe_1b_7b", "qwen3_8b", "starcoder2_7b",
                                   "granite_3_8b", "nemotron_4_15b", "qwen2_vl_7b")
-    for arch in ("recurrentgemma_9b", "llama_65b"):
+    for arch in ("recurrentgemma_9b", "xlstm_350m", "whisper_small", "llama_65b"):
         with pytest.raises(SystemExit):
             serve.main(["--arch", arch, "--device", "cpu"])
         assert "invalid choice" in capsys.readouterr().err

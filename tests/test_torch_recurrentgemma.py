@@ -150,17 +150,20 @@ def test_full_size_config_and_parameter_count():
 
 
 def test_registry_maps_families():
-    """hybrid → RecurrentGemma; dense, moe and vlm → TransformerLM, as in the
-    reference; the families still unported (ssm, audio) raise."""
+    """hybrid → RecurrentGemma; dense, moe and vlm → TransformerLM; ssm →
+    XLSTM; audio → Whisper, as in the reference; an unknown family raises."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.whisper import Whisper
+    from repro_torch.models.xlstm import XLSTM
 
     assert isinstance(get_model(CFG, device="cpu"), RecurrentGemma)
     for arch in ("qwen3_8b", "olmoe_1b_7b", "qwen2_vl_7b"):
         assert isinstance(get_model(get_smoke_config(arch), device="cpu"), TransformerLM)
-    for family in ("ssm", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(dataclasses.replace(CFG, family=family), device="cpu")
+    assert isinstance(get_model(get_smoke_config("xlstm_350m"), device="cpu"), XLSTM)
+    assert isinstance(get_model(get_smoke_config("whisper_small"), device="cpu"), Whisper)
+    with pytest.raises(KeyError, match="family"):
+        get_model(dataclasses.replace(CFG, family="diffusion"), device="cpu")
 
 
 def test_prefill_matches_reference(runs):
@@ -183,7 +186,8 @@ def test_forward_matches_reference(models):
     ref_model, ref_params, model, params = models
     tok = _prompts()[:1]
     jl, _ = ref_model.forward(ref_params, jnp.asarray(tok), remat=False)
-    tl = model.forward(params, torch.from_numpy(tok))
+    tl, aux = model.forward(params, torch.from_numpy(tok), remat=False)
+    assert float(aux) == 0.0
     np.testing.assert_allclose(to_np(tl), np.asarray(jl), rtol=TOL, atol=TOL)
 
 

@@ -258,7 +258,7 @@ def test_smoke_forward_and_train_step(arch):
 # --------------------------------------------------------------------------- #
 # The train loop                                                              #
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", ["qwen3_8b", "qwen2_vl_7b"])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "qwen2_vl_7b", "whisper_small"])
 def test_synthetic_batches_equal_the_reference(arch):
     tc = train_loop.TrainConfig(batch=3, seq=12, seed=5)
     ref = ref_loop.synthetic_batches(ref_smoke_config(arch),

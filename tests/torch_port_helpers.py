@@ -94,3 +94,94 @@ def family_models(arch, seed=0):
     tree = perturbed(tree, seed)
     return (ref_model, jax.tree_util.tree_map(jnp.asarray, tree),
             TransformerLM(cfg, device="cpu"), params_from_numpy(tree, cfg, "cpu"))
+
+
+def seq_models(arch, seed=0, dtype="float32"):
+    """The smoke config of a model family without the Engine (RecurrentGemma,
+    xLSTM, Whisper) in both packages, in ``dtype``, on the same perturbed
+    parameters: (reference model, its params, port model, its params)."""
+    from repro.models.registry import get_model as ref_get_model
+    from repro_torch.models.registry import get_model
+
+    ref_cfg = dataclasses.replace(ref_smoke_config(arch), dtype=dtype)
+    cfg = ArchConfig(**dataclasses.asdict(ref_cfg))
+    ref_model = ref_get_model(ref_cfg)
+    tree = jax.tree_util.tree_map(
+        np.asarray, init_params(jax.random.key(0), ref_model.param_defs()))
+    tree = perturbed(tree, seed)
+    return (ref_model, jax.tree_util.tree_map(jnp.asarray, tree),
+            get_model(cfg, device="cpu"), params_from_numpy(tree, cfg, "cpu"))
+
+
+def ref_loss_and_grads(ref_model, ref_params, batch):
+    """The reference's loss and gradient leaves (numpy, by path) of a numpy
+    batch, without remat."""
+    from repro_torch.models.layers import _leaves
+
+    fn = jax.jit(jax.value_and_grad(lambda p, b: ref_model.loss(p, b, remat=False)))
+    loss, grads = fn(ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(loss), dict(_leaves(jax.tree_util.tree_map(np.asarray, grads)))
+
+
+def port_loss_and_grads(model, params, batch, remat):
+    """The port's loss and gradient leaves (numpy, by path) of a numpy batch,
+    every leaf a fresh tensor that requires grad."""
+    from repro_torch.models.layers import _leaves
+
+    leaves = {path: t.detach().clone().requires_grad_(True) for path, t in _leaves(params)}
+    tree = {}
+    for path, t in leaves.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    loss = model.loss(tree, {k: torch.from_numpy(v) for k, v in batch.items()}, remat=remat)
+    loss.backward()
+    return float(loss.detach()), {path: t.grad.numpy() for path, t in leaves.items()}
+
+
+def worst_grad_error(grads, ref_grads):
+    """The largest gradient error of any leaf, relative to that leaf's
+    largest reference magnitude, and the leaf."""
+    assert set(grads) == set(ref_grads)
+    return max((float(np.abs(grads[p] - ref_grads[p]).max()
+                      / max(np.abs(ref_grads[p]).max(), 1e-30)), p) for p in ref_grads)
+
+
+def reference_waves(ref_model, ref_params, reqs, n_slots, max_len, width, enc_len=None):
+    """The wave loop of ``launch.generate.WaveServer`` driven on the
+    reference model: each wave one prefill (ragged with its lengths; for an
+    encoder-decoder model unpadded, with each request's ``request_frames``)
+    then greedy decode steps until every request has its budget. Returns
+    (rid → tokens, decode steps)."""
+    from repro_torch.launch.generate import request_frames
+    from repro_torch.serving.engine import prompt_tokens
+
+    vocab = ref_model.cfg.vocab_size
+    decode = jax.jit(ref_model.decode_step)
+    generated, steps = {}, 0
+    for w0 in range(0, len(reqs), n_slots):
+        wave = reqs[w0: w0 + n_slots]
+        tok = np.zeros((len(wave), width), np.int32)
+        for i, r in enumerate(wave):
+            tok[i, : r.n_prefill] = prompt_tokens(r, vocab)
+        lens = np.array([r.n_prefill for r in wave], np.int32)
+        if enc_len is None:
+            cache = ref_model.cache_init(len(wave), max_len)
+            logits, cache = ref_model.prefill(ref_params, jnp.asarray(tok), cache,
+                                              lengths=jnp.asarray(lens))
+        else:
+            frames = np.stack([request_frames(r.rid, enc_len, ref_model.cfg.d_model) for r in wave])
+            cache = ref_model.cache_init(len(wave), max_len, enc_len=enc_len)
+            logits, cache = ref_model.prefill(ref_params, jnp.asarray(tok[:, : lens[0]]), cache,
+                                              patch_embeds=jnp.asarray(frames))
+        cur = jnp.argmax(logits, -1).astype(jnp.int32)
+        out = [np.asarray(cur)]
+        for _ in range(max(r.n_decode for r in wave) - 1):
+            logits, cache = decode(ref_params, cur, cache)
+            cur = jnp.argmax(logits, -1).astype(jnp.int32)
+            out.append(np.asarray(cur))
+        steps += len(out) - 1
+        for i, r in enumerate(wave):
+            generated[r.rid] = [int(t[i]) for t in out[: r.n_decode]]
+    return generated, steps
