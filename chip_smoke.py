@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --sweep    # kernel plans and L2 states, timed
     python3 chip_smoke.py --train    # the training path's kernels and phase train alone
+    python3 chip_smoke.py --profiler-cost   # train steps before and after profiler sessions
 
 Phases, each printing its seconds on a line of its own:
 
@@ -55,13 +56,20 @@ Phases, each printing its seconds on a line of its own:
              fastest backward alone is the library time), and kernel 2's
              forward with its log-sum-exp beside its bound, its plain
              version and SDPA's fastest forward; the same for the backward
-             at RecurrentGemma-9B's attention (B 1 x 4096, 16/1 heads,
-             head_dim 256, window 2048, bf16: the CUDA-core body, two CTAs
-             a row tile; SDPA under the window's boolean mask, the math
-             backend included); and the RG-LRU backward (rglru_bwd.cu) at
+             and the forward at RecurrentGemma-9B's attention (B 1 x 4096,
+             16/1 heads, head_dim 256, window 2048, bf16: the
+             two-warpgroup wgmma body, every sub-group count of the dK/dV
+             grid checked and timed beside the plan's; SDPA under the
+             window's boolean mask, the math backend included) and for the
+             backward at Whisper-small's encoder (B 8 x 256, 12 heads of
+             64, no mask); the RG-LRU backward (rglru_bwd.cu) at
              RecurrentGemma-9B's training shape (1, 4096, 4096) float32,
-             chained across two calls, against its plain reverse scan,
-             timed beside its bound (bytes);
+             chained across two calls, against its plain reverse scan, its
+             device kernels those of its scan_plan, two calls bit-equal,
+             timed beside its bound (bytes) and the design's floor, and
+             kernel 4 timed at that shape; and kernels 2 and 3 at
+             Whisper-small's serving shapes (the encoder's 8 x 1500
+             frames, no mask; decode over 1500 cross keys);
 4. parity  — float32 smoke models on the card (kernels) against the same
              models on the CPU (plain versions): the paged path (chunked
              prefill, decode, fused decode) and the dense path (whole-prompt
@@ -168,8 +176,11 @@ Phases, each printing its seconds on a line of its own:
              decode step, launches exact (Whisper: kernels 2 and 3; xLSTM
              none, its cells are plain PyTorch), the first wave equal to
              direct calls; tok/s and ms a decode step printed;
-7. train   — the training path (repro_torch.train, its kernels checked
-             in phase kernels): the float32 smoke Qwen3, OLMoE, Qwen2-VL and Mixtral, card
+7. train   — run right after build, so that its timed steps follow no
+             torch.profiler session (Qwen3-8B's profiled step runs last,
+             profile_train_step): the training
+             path (repro_torch.train, its kernels checked in phase
+             kernels): the float32 smoke Qwen3, OLMoE, Qwen2-VL and Mixtral, card
              against CPU: loss and every gradient leaf, one AdamW step on
              identical gradients, three train() steps (two microbatches,
              remat) from one step-0 checkpoint, flash launches exact; the
@@ -188,7 +199,10 @@ Phases, each printing its seconds on a line of its own:
              4 x 128 (two time chunks) and Whisper-small whole at 8 x 256,
              remat, lr 1e-4 warmup 2, a few steps of train() each: losses
              finite, grad_norm > 0, launches exact (the RG-LRU and flash
-             backward kernels once a layer a step), and from the same
+             backward kernels once a layer a step), every flash backward
+             launch of these bf16 runs on the tensor-core body,
+             RecurrentGemma's step printed beside its time before the
+             head_dim 256 wgmma body and the chunked scan, and from the same
              init 3 steps on the first batch alone bring its loss below the
              initial one; losses, step ms, tokens/s and peak memory
              printed.
@@ -199,15 +213,22 @@ card's name and power limit), one JSON line naming every
 ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
 RecurrentGemma's shapes, kernels 1-3 again at LLaMA-65B's and
 StarCoder2-7B's, the flash backward and kernel 2's dense entry at the
-training shape, the RG-LRU backward and the flash backward at
-RecurrentGemma-9B's training shapes, and kernels 2 and 3 at LLaMA-65B's on phase paper's four
-serves) with its launches on each path (flash's also by device
+training shape, the RG-LRU backward, the flash backward and kernels 4
+and 2 at RecurrentGemma-9B's training shapes, kernels 2 and 3 on
+Whisper-small's serve and the flash backward on its training run, and
+kernels 2 and 3 at LLaMA-65B's on phase paper's four serves) with its launches on each path (flash's also by device
 body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
-``--train`` builds the kernels and runs the training path's kernel checks
-and phase 7 (train) alone, printing their numbers as one JSON line.
+``--train`` builds the kernels and runs phase 7 (train) and the training
+path's kernel checks alone, printing their numbers as one JSON line.
+
+``--profiler-cost`` builds the kernels and times Whisper-small's and
+Qwen3-8B's train steps before and after 300 torch.profiler sessions in
+the CUPTI mode the environment sets (TEARDOWN_CUPTI: 1 tears CUPTI down
+after each session, 0 keeps it attached, the default here); run both
+modes in turns in one call.
 
 ``--sweep`` builds the kernels and times, each checked against its plain
 version: paged decode attention at the Qwen3-8B serving shape at every
@@ -228,6 +249,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -342,32 +364,43 @@ def max_err(torch, out, ref, tol):
     return float(err.max())
 
 
-def device_kernel_us(torch, fn, attempts=8):
+def device_kernel_us(torch, fn, attempts=10, expect=None):
     """(name, device µs) of each device kernel one call of ``fn`` runs, in
     the order they started (torch.profiler). A trace that holds no device
     event at all missed the call (on the card a process's traces now and
-    then come back empty, several in a row), so the call is traced again,
-    after a pause that grows with each retry, up to ``attempts`` times;
-    every retry is printed."""
+    then come back empty, several in a row), and one that holds fewer than
+    ``expect`` kernels (the caller's plan) dropped some, so the call is
+    traced again, after a pause that grows with each retry, up to
+    ``attempts`` times; every retry is printed. The caller still holds the
+    last trace's kernels to its plan."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
+        # the device's timestamps, read against the host's clock, drift
+        # early over a long process, and the profiler drops a kernel that
+        # seems to start before its session: launch after a pause (and end
+        # after one), doubled at each retry
+        pause = 0.01 * 2 ** (attempt - 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        if events:
+            time.sleep(pause)
+        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                        key=lambda e: e.time_range.start)
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in events
+                   if "emcpy" not in e.name and "emset" not in e.name]
+        if events and (expect is None or len(kernels) >= expect):
             break
-        print(f"  device_kernels: trace {attempt} of {attempts} held no device event", flush=True)
+        print(f"  device_kernels: trace {attempt} of {attempts} held "
+              + (f"{len(kernels)} of {expect} device kernels" if events else "no device event"), flush=True)
         time.sleep(0.25 * attempt)
-    events.sort(key=lambda e: e.time_range.start)
-    return [(e.name, e.time_range.elapsed_us()) for e in events
-            if "emcpy" not in e.name and "emset" not in e.name]
+    return kernels
 
 
-def device_kernels(torch, fn, attempts=8):
+def device_kernels(torch, fn, attempts=10):
     """Names of the device kernels one call of ``fn`` runs, in order."""
     return [name for name, _ in device_kernel_us(torch, fn, attempts)]
 
@@ -479,10 +512,11 @@ def dense_decode_bound(q, k, lengths):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def dense_flash_bound(q, k):
+def dense_flash_bound(q, k, causal=True, window=0):
     b, h, s, d = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()   # q, out, k, v
-    flops = 4 * d * h * b * s * (s + 1) // 2                      # causal pairs
+    pairs = attention_pairs(s, window) if causal else s * k.shape[2]
+    flops = 4 * d * h * b * pairs                                 # the visible pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -682,6 +716,7 @@ def run_kernel_checks(torch, np):
         results.update(check_attention_kernels(torch, np, F, flush, label, h, kv, 128,
                                                timed=label in TIMED_FAMILY))
     results.update(run_recurrentgemma_kernel_checks(torch, np, F, flush))
+    results.update(run_whisper_kernel_checks(torch, np, F, flush))
     for key, row in run_train_kernel_checks(torch, np, F).items():
         results[key if isinstance(key, tuple) else (key, "qwen3-8b train")] = row
     for (name, label), r in results.items():
@@ -783,23 +818,92 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
         library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
     )
-    results[("rglru_scan_backward", "recurrentgemma-9b train")] = check_rglru_backward(torch, flush)
+    (results[("rglru_scan_backward", "recurrentgemma-9b train")],
+     results[("rglru_scan", "recurrentgemma-9b train")]) = check_rglru_backward(torch, flush)
     return results
+
+
+WHISPER_FRAMES = 1500             # Whisper-small's encoder positions (30 s of audio)
+
+
+def run_whisper_kernel_checks(torch, np, F, flush):
+    """Kernels 2 and 3 at Whisper-small's serving shapes (12 heads of 64, no
+    GQA, 8 slots): kernel 2's dense entry at the encoder's self-attention
+    (8 x 1500 frames, no mask; the wave's decoder self- and
+    cross-attention launches are shorter) and kernel 3 over the 1500 cross
+    keys of every slot (the decoder's self rows are shorter), each against
+    its plain version and timed beside its bound and SDPA on the same
+    inputs."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    label, (h, kv, d) = "whisper-small", (12, 12, 64)
+    results = {}
+    q, k, v = dense_prefill_case(torch, h, kv, d, 8, WHISPER_FRAMES)
+    out = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = max_err(torch, out, fa.flash_attention_plain(q, k, v, causal=False), KERNEL_TOL["bfloat16"])
+    qs, ks, vs = (x.contiguous() for x in (q, k, v))
+    results[("flash_attention_dense", label)] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=False), flush),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=False), flush, iters=5,
+                         warmup=1),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs), flush),
+        **dict(zip(("bound_ms", "bound_by"), dense_flash_bound(q, k, causal=False))),
+    )
+    print(f"  flash_attention dense [{label}] encoder (8, 12, {WHISPER_FRAMES}, 64), no mask: max_abs_err={err:.4g}",
+          flush=True)
+    del q, k, v, qs, ks, vs, out
+    q, k, v, lengths = dense_decode_case(torch, np, h, kv, d, torch.bfloat16, WHISPER_FRAMES)
+    lengths = torch.full_like(lengths, WHISPER_FRAMES)           # every slot reads all the frames
+    out = da.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err = max_err(torch, out, da.decode_attention_plain(q, k, v, lengths), KERNEL_TOL["bfloat16"])
+    kname = check_one_kernel_and_repeat(
+        torch, f"decode_attention [{label}]", lambda: da.decode_attention(q, k, v, lengths), out)
+    print(f"  decode_attention [{label}] cross keys ({WHISPER_FRAMES}): max_abs_err={err:.4g}, "
+          f"{dense_plan(torch, da, q, k)}, one device kernel ({kname[:60]}), two calls equal", flush=True)
+    qs, ks, vs = q[:, :, None], k.contiguous(), v.contiguous()
+    results[("decode_attention", label)] = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: da.decode_attention(q, k, v, lengths), flush),
+        plain_ms=time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lengths), flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs), flush),
+        **dict(zip(("bound_ms", "bound_by"), dense_decode_bound(q, k, lengths))),
+    )
+    return results
+
+
+def model_decays(torch, b, s, r, gen):
+    """RG-LRU decays in RecurrentGemma's trained range, float32 (b, s, r) on
+    the card: a_t = base^{r_t}, with base (= sigma(Lambda)^c) uniform in
+    [0.9, 0.999] a channel, Griffin's init of Lambda, and the recurrence
+    gate r_t = sigmoid(N(0, 1)). A chunk of 128 steps passes on about 1e-3
+    to 0.94 of the carry it receives, so every chunk's carry shows."""
+    base = torch.rand((1, 1, r), device="cuda", generator=gen) * 0.099 + 0.9
+    return base ** torch.sigmoid(torch.randn((b, s, r), device="cuda", generator=gen))
 
 
 def check_rglru_backward(torch, flush):
     """The RG-LRU backward (csrc/rglru_bwd.cu) at RecurrentGemma-9B's
-    training shape (1, 4096, 4096) float32, from the states of two chained
-    forward calls (the second seeded with the first's final state), each
-    call's gradients against the plain reverse scan; the gradient the first
-    call's final state receives is the second's dh0. Timed beside its bound
-    (bytes: a, h and g read, da and dx written, once) and its plain
-    version; no library call computes it."""
+    training shape (1, 4096, 4096) float32, decays in the model's range
+    (``model_decays``: the slowest channels carry over all 32 chunks),
+    from the states of two chained forward calls (the second seeded with
+    the first's final state), each call's gradients against the plain
+    reverse scan; the gradient the first call's final state receives is
+    the second's dh0. A call runs exactly
+    the device kernels of its scan_plan, in order (each one's device µs
+    printed), and two calls give the same bits. Timed beside its bound
+    (bytes: a, h and g read, da and dx written, once), the design's floor
+    (a and g read twice) and its plain version; no library call computes
+    it. Kernel 4 (the forward) timed at the same shape, the training
+    path's. Returns the backward's row and the forward's."""
     from repro_torch.kernels import rglru, rglru_bwd
 
     b, s, r = RG_TRAIN_SCAN
     g = torch.Generator(device="cuda").manual_seed(11)
-    a = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
+    a = model_decays(torch, b, s, r, g)
     x, gg = (torch.randn(b, s, r, device="cuda", generator=g) for _ in range(2))
     h0, g_fin = (torch.randn(b, r, device="cuda", generator=g) for _ in range(2))
     cut = s // 2
@@ -814,20 +918,68 @@ def check_rglru_backward(torch, flush):
     ref1 = rglru_bwd.rglru_scan_backward_plain(a1, h1, h0, gg1, ref2[2])
     err = max(max_err(torch, u, v, RGLRU_TOL * (1 + float(v.abs().max())))
               for u, v in zip(first + second, ref1 + ref2))
+    plan = rglru_bwd.scan_plan(b, s, r)
+    # the carry is of leading order across chunks: a chunk's product of a,
+    # and in the slowest channels the product over every step
+    chunk_prod = a[:, :plan.chunk].prod(1)
+    whole = float(a.prod(1).max())
+    check(whole > 1e-2, f"rglru_scan_backward: the decays keep at most {whole:.3g} of a carry over "
+          f"{s} steps; the chunks' carries would not show")
     print(f"  rglru_scan_backward {(b, s, r)} chained across two calls (cut at {cut}): "
-          f"max_abs_err={err:.4g}", flush=True)
+          f"max_abs_err={err:.4g}; decays a = base^r (base U[0.9, 0.999] a channel, r = sigmoid(N(0, 1))): "
+          f"a chunk of {plan.chunk} keeps {float(chunk_prod.min()):.3g} to {float(chunk_prod.max()):.3g} of its "
+          f"carry, all {s} steps at most {whole:.3g}", flush=True)
     h, _ = rglru.rglru_scan(a, x, h0)
+    call = lambda: rglru_bwd.rglru_scan_backward(a, h, h0, gg, g_fin)
+    passes = device_kernel_us(torch, call, expect=len(plan.kernels))
+    names = [n for n, _ in passes]
+    check(len(names) == len(plan.kernels) and all(k_ in n for k_, n in zip(plan.kernels, names)),
+          f"rglru_scan_backward ran {names}, its plan {plan.kernels}")
+    once, again = call(), call()
+    check(all(bool(torch.equal(u, w)) for u, w in zip(once, again)), "rglru_scan_backward: two calls differ")
+    del once, again
     nbytes = 5 * a.numel() * 4 + 3 * b * r * 4
     row = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: rglru_bwd.rglru_scan_backward(a, h, h0, gg, g_fin), flush),
+        max_abs_err=err, plan=plan._asdict(), pass_us=[[n, us] for n, us in passes],
+        ms=time_ms(torch, call, flush),
         plain_ms=time_ms(torch, lambda: rglru_bwd.rglru_scan_backward_plain(a, h, h0, gg, g_fin), flush,
                          iters=3, warmup=1),
         library_ms=None, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+        design_floor_ms=1e3 * (nbytes + 2 * a.numel() * 4) / HBM_BYTES_PER_S,
     )
+    print(f"  rglru_scan_backward {(b, s, r)}: the plan's {len(names)} device kernels ({plan.n_chunks} chunks "
+          f"of {plan.chunk}), two calls equal; device µs a kernel "
+          f"{json.dumps([[n.split('(')[0].split('::')[-1], round(us, 1)] for n, us in passes])}", flush=True)
     print(f"  rglru_scan_backward {(b, s, r)} timed: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"(bytes, {row['bound_ms'] / row['ms']:.2f} of it), plain {row['plain_ms']:.4f} ms", flush=True)
-    return row
+          f"(bytes, {row['bound_ms'] / row['ms']:.2f} of it), the design's floor {row['design_floor_ms']:.4f} "
+          f"ms, plain {row['plain_ms']:.4f} ms", flush=True)
+    # kernel 4 at the same shape: at the model's decays held as the
+    # backward is, to RGLRU_TOL of the largest magnitude (over memories of
+    # ~1000 steps its fma and the plain version's multiply-then-add round
+    # apart by more than RGLRU_TOL of a small |h|); at sigmoid(N(0, 1))
+    # decays element by element, as phase kernels holds it
+    ref, ref_hf = rglru.rglru_scan_plain(a, x, h0)
+    out, hf = rglru.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    model_err = max(max_err(torch, u, v, RGLRU_TOL * (1 + float(v.abs().max())))
+                    for u, v in ((out, ref), (hf, ref_hf)))
+    fast = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
+    ref, ref_hf = rglru.rglru_scan_plain(fast, x, h0)
+    out, hf = rglru.rglru_scan(fast, x, h0)
+    torch.cuda.synchronize()
+    elem_err = max(max_err(torch, out, ref, RGLRU_TOL), max_err(torch, hf, ref_hf, RGLRU_TOL))
+    del fast, ref, ref_hf, out, hf
+    print(f"  rglru_scan {(b, s, r)}: max_abs_err={model_err:.4g} at the model's decays (to {RGLRU_TOL} of "
+          f"the largest |h|), {elem_err:.4g} at sigmoid(N(0, 1)) decays (element by element)", flush=True)
+    forward = dict(
+        max_abs_err=max(model_err, elem_err),
+        ms=time_ms(torch, lambda: rglru.rglru_scan(a, x, h0), flush),
+        plain_ms=time_ms(torch, lambda: rglru.rglru_scan_plain(a, x, h0), flush, iters=3, warmup=1),
+        library_ms=None, **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
+    )
+    print(f"  rglru_scan {(b, s, r)} (the training path's forward) timed: {forward['ms']:.4f} ms, bound "
+          f"{forward['bound_ms']:.4f} ms ({forward['bound_by']}), plain {forward['plain_ms']:.4f} ms", flush=True)
+    return row, forward
 
 
 # --------------------------------------------------------------------------- #
@@ -2210,6 +2362,22 @@ KERNELS = (
      "flash_attention_backward", "recurrentgemma train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
      "(the gradient of kernel 2's function; no Pallas kernel)"),
+    # kernels 4 and 2 (with its log-sum-exp) at RecurrentGemma-9B's training shape
+    ("rglru_scan_recurrentgemma_train", "rglru_scan", "recurrentgemma-9b train", "rglru_scan",
+     "recurrentgemma train", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81"),
+    ("flash_attention_dense_recurrentgemma_train", "flash_attention_dense", "recurrentgemma-9b train",
+     "flash_attention", "recurrentgemma train",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    # Whisper-small: kernels 2 and 3 on its wave serve, the flash backward at
+    # head_dim 64 on its train run
+    ("flash_attention_dense_whisper", "flash_attention_dense", "whisper-small", "flash_attention", "whisper",
+     "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
+    ("decode_attention_whisper", "decode_attention", "whisper-small", "decode_attention", "whisper",
+     "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
+    ("flash_attention_backward_whisper", "flash_attention_backward", "whisper-small train",
+     "flash_attention_backward", "whisper train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
+     "(the gradient of kernel 2's function; no Pallas kernel)"),
     # phase paper: LLaMA-65B served under the four modes (launches summed)
     ("flash_attention_dense_paper", "flash_attention_dense", "llama-65b", "flash_attention", "paper",
      "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:131"),
@@ -2447,7 +2615,9 @@ def run_sweep(torch, np):
 # --------------------------------------------------------------------------- #
 # The backward kernel's shapes: Qwen3-8B's attention at the check's batch of
 # 2 (timed, the kernels line's row) and at the train step's microbatch of 1
-# (timed), a sliding window, LLaMA-65B's MHA, and float32 at the smoke shape.
+# (timed), a sliding window, LLaMA-65B's MHA, float32 at the smoke shape,
+# RecurrentGemma-9B's (timed) and Whisper-small's encoder self-attention at
+# its training shape (no mask; timed). Causal unless ``causal`` says not.
 TRAIN_KERNEL_CASES = (
     ("qwen3-8b", dict(b=2, h=32, kv=8, s=2048, d=128, window=0, dtype="bfloat16")),
     ("qwen3-8b microbatch", dict(b=1, h=32, kv=8, s=2048, d=128, window=0, dtype="bfloat16")),
@@ -2457,8 +2627,19 @@ TRAIN_KERNEL_CASES = (
     # RecurrentGemma-9B's attention at its training shape: 16 query heads on
     # one KV head at head_dim 256, a window of 2048 inside 4096 tokens
     ("recurrentgemma-9b", dict(b=1, h=16, kv=1, s=4096, d=256, window=2048, dtype="bfloat16")),
+    # Whisper-small's encoder at its training batch of 8 x 256 frames: 12
+    # heads of 64, no GQA, no mask
+    ("whisper-small", dict(b=8, h=12, kv=12, s=256, d=64, window=0, dtype="bfloat16", causal=False)),
 )
-TIMED_TRAIN_CASES = ("qwen3-8b", "qwen3-8b microbatch", "recurrentgemma-9b")
+TIMED_TRAIN_CASES = ("qwen3-8b", "qwen3-8b microbatch", "recurrentgemma-9b", "whisper-small")
+# kernel 2's dense entry with its log-sum-exp, timed at these cases as the
+# training path runs it: the kernels line's row key of each
+DENSE_TRAIN_ROWS = {"qwen3-8b": "flash_attention_dense",
+                    "recurrentgemma-9b": ("flash_attention_dense", "recurrentgemma-9b train")}
+# RecurrentGemma-9B's training step (8 of 38 layers, 1 x 4096, remat)
+# before the head_dim 256 wgmma body and the chunked RG-LRU scan: the
+# median of steps 2-5 on an NVIDIA H100 80GB HBM3 at 700.00 W
+RG_TRAIN_STEP_MS_BEFORE = 678.2
 RG_TRAIN_SCAN = (1, 4096, 4096)   # RecurrentGemma-9B's recurrence at batch 1 x 4096 tokens
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 TRAIN_LAYERS = 12                 # full-width Qwen3-8B cut to 12 of its 36 layers
@@ -2471,7 +2652,7 @@ def attention_pairs(s, window):
     return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
 
-def flash_backward_bound(q, k, window, flops_per_pair=10):
+def flash_backward_bound(q, k, window, flops_per_pair=10, causal=True):
     """Five products of the visible pairs (S, dP, dV, dQ, dK: 10 D flops a
     pair and head) against reading q, k, v, o, dO and lse once and writing
     dq, dk and dv once. With ``flops_per_pair=14`` the same count for the
@@ -2480,7 +2661,8 @@ def flash_backward_bound(q, k, window, flops_per_pair=10):
     b, h, s, d = q.shape
     e = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * e + b * h * s * 4
-    flops = flops_per_pair * d * h * b * attention_pairs(s, window)
+    pairs = attention_pairs(s, window) if causal else s * k.shape[2]
+    flops = flops_per_pair * d * h * b * pairs
     peak = F32_FLOPS_PER_S if e == 4 else BF16_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -2497,7 +2679,7 @@ def rel_err(torch, out, ref, tol, what):
     return err
 
 
-def sdpa_times(torch, F, flush, q, k, v, do, window=0):
+def sdpa_times(torch, F, flush, q, k, v, do, window=0, causal=True):
     """The library yardstick, timed here only and never called by the port:
     scaled_dot_product_attention (causal; under a window, the same mask as
     a boolean band, which only backends that take a mask run, the math
@@ -2518,8 +2700,8 @@ def sdpa_times(torch, F, flush, q, k, v, do, window=0):
         for gqa in (True, False):
             kk, vv = (k, v) if gqa else (k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
             leaves = [x.detach().clone().requires_grad_(True) for x in (q, kk, vv)]
-            fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=mask is None,
-                                                         enable_gqa=gqa)
+            fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                         is_causal=mask is None and causal, enable_gqa=gqa)
             try:
                 with sdpa_kernel(getattr(SDPBackend, name)):
                     o = fwd()
@@ -2557,13 +2739,14 @@ def run_train_kernel_checks(torch, np, F):
     TRAIN_KERNEL_CASES against their plain versions: one device kernel a
     forward, the device kernels of ``backward_plan`` a backward (the same
     names, count and order; each pass's device µs printed), two calls equal
-    bit for bit, and at the bf16 cases the wgmma body's other plan (the GQA
-    group split or not) checked and timed beside the plan's. At
-    TIMED_TRAIN_CASES the cold-L2 times of the backward, its plain version,
-    the forward with the log-sum-exp, our forward + backward, and SDPA on
-    the same inputs under each backend (sdpa_times; the yardstick, never
-    called by the port). Returns the rows of the kernels line: the
-    backward's and kernel 2's dense entry at the training shape."""
+    bit for bit, and at the bf16 cases with a group the wgmma body's other
+    plans (the GQA group split or not; at head_dim 256 every sub-group
+    count) checked and timed beside the plan's. At TIMED_TRAIN_CASES the
+    cold-L2 times of the backward, its plain version, the forward with the
+    log-sum-exp, our forward + backward, and SDPA on the same inputs under
+    each backend (sdpa_times; the yardstick, never called by the port).
+    Returns the rows of the kernels line: the backward's at the timed
+    cases and kernel 2's dense entry at DENSE_TRAIN_ROWS."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
 
@@ -2574,76 +2757,81 @@ def run_train_kernel_checks(torch, np, F):
         dt = getattr(torch, c["dtype"])
         mk = lambda n: torch.randn(c["b"], c["s"], n, c["d"], device="cuda", generator=g).to(dt).transpose(1, 2)
         q, k, v, do = mk(c["h"]), mk(c["kv"]), mk(c["kv"]), mk(c["h"])
-        w, scale = c["window"], c["d"] ** -0.5
-        out, lse = fa.flash_attention(q, k, v, causal=True, window=w, return_lse=True)
-        grads = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
+        w, scale, causal = c["window"], c["d"] ** -0.5, c.get("causal", True)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=w, return_lse=True)
+        grads = fb.flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=w)
         torch.cuda.synchronize()
         tol = KERNEL_TOL[c["dtype"]]
-        ref_lse = fa.flash_attention_lse_plain(q, k, causal=True, window=w)
+        ref_lse = fa.flash_attention_lse_plain(q, k, causal=causal, window=w)
         err_lse = float((lse - ref_lse).abs().max())
         check(err_lse <= KERNEL_TOL["float32"] * (1 + float(ref_lse.abs().max())),
               f"flash lse [{label}]: max err {err_lse:.3g}")
-        refs = fb.flash_attention_backward_plain(q, k, v, out, ref_lse, do, causal=True, window=w)
+        refs = fb.flash_attention_backward_plain(q, k, v, out, ref_lse, do, causal=causal, window=w)
         errs = {f"d{n}": rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] d{n}")
                 for n, a, b in zip("qkv", grads, refs)}
         max_abs = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads, refs))
-        plan = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=True, window=w,
+        plan = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=causal, window=w,
                                 n_sms=n_sms(torch))
         fwd_names = device_kernels(torch, lambda: fa.flash_attention(
-            q, k, v, causal=True, window=w, return_lse=True))
+            q, k, v, causal=causal, window=w, return_lse=True))
         passes = device_kernel_us(torch, lambda: fb.flash_attention_backward(
-            q, k, v, out, lse, do, causal=True, window=w))
+            q, k, v, out, lse, do, causal=causal, window=w), expect=len(plan.kernels))
         names = [n for n, _ in passes]
         check(len(fwd_names) == 1, f"flash forward [{label}] ran {fwd_names}")
         check(len(names) == len(plan.kernels) and all(k_ in n for k_, n in zip(plan.kernels, names)),
               f"flash backward [{label}] ran {names}, its plan {plan.kernels}")
-        again = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True, window=w)
+        again = fb.flash_attention_backward(q, k, v, out, lse, do, causal=causal, window=w)
         check(all(bool(torch.equal(a, b)) for a, b in zip(grads, again)),
               f"flash backward [{label}]: two calls differ")
         del again
-        print(f"  flash_attention_backward [{label}] {tuple(q.shape)} kv {c['kv']} window {w} {c['dtype']}: "
-              f"lse max err {err_lse:.3g}, rel err {json.dumps(errs)} (tol {tol}), forward one device "
-              f"kernel, backward the plan's {len(names)} ({plan.body}, split group {plan.split_group}, "
-              f"scratch {plan.scratch_bytes} B), two calls equal; device µs a pass "
+        print(f"  flash_attention_backward [{label}] {tuple(q.shape)} kv {c['kv']} window {w} causal {causal} "
+              f"{c['dtype']}: lse max err {err_lse:.3g}, rel err {json.dumps(errs)} (tol {tol}), forward one "
+              f"device kernel, backward the plan's {len(names)} ({plan.body}, split group {plan.split_group}, "
+              f"{plan.subgroups} sub-groups, scratch {plan.scratch_bytes} B), two calls equal; device µs a pass "
               f"{json.dumps([[n.split('(')[0].split('::')[-1], round(us, 1)] for n, us in passes])}",
               flush=True)
         ms_by_plan = {}
         if plan.body == "tensor_cores" and c["h"] > c["kv"]:
-            # the other dK/dV grid: the GQA group split over CTAs, or not
-            alt = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=True,
-                                   window=w, split=not plan.split_group)
-            alt_grads = fb._launch(q, k, v, out, lse, do, True, w, scale, alt)
-            torch.cuda.synchronize()
-            alt_errs = [rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] other plan")
-                        for a, b in zip(alt_grads, refs)]
-            del alt_grads
-            for p in (plan, alt):
-                key = "split" if p.split_group else "grouped"
-                ms_by_plan[key] = time_ms(torch, lambda: fb._launch(q, k, v, out, lse, do, True, w, scale, p),
-                                          flush, iters=10, warmup=2)
-            print(f"  flash_attention_backward [{label}] by plan (the plan: "
-                  f"{'split' if plan.split_group else 'grouped'}): "
-                  f"{json.dumps({k_: round(ms, 4) for k_, ms in ms_by_plan.items()})} ms, the other's rel err "
+            # the other dK/dV grids: the GQA group split over CTAs or not
+            # (at head_dim 256 every sub-group count), keyed "grouped",
+            # "split" (one head a CTA) or "<n> sub-groups"
+            counts = fb.subgroup_counts(c["h"] // c["kv"], c["d"])
+            key = lambda p: ("grouped" if not p.split_group else "split" if len(counts) <= 2
+                             else f"{p.subgroups} sub-groups")
+            alt_errs = []
+            for n in counts:
+                p = fb.backward_plan(c["b"], c["h"], c["kv"], c["s"], c["s"], c["d"], dt, causal=causal,
+                                     window=w, subgroups=n)
+                if p != plan:
+                    alt_grads = fb._launch(q, k, v, out, lse, do, causal, w, scale, p)
+                    torch.cuda.synchronize()
+                    alt_errs += [rel_err(torch, a, b, tol, f"flash_attention_backward [{label}] plan {key(p)}")
+                                 for a, b in zip(alt_grads, refs)]
+                    del alt_grads
+                ms_by_plan[key(p)] = time_ms(torch, lambda: fb._launch(q, k, v, out, lse, do, causal, w, scale, p),
+                                             flush, iters=10, warmup=2)
+            print(f"  flash_attention_backward [{label}] by plan (the plan: {key(plan)}): "
+                  f"{json.dumps({k_: round(ms, 4) for k_, ms in ms_by_plan.items()})} ms, the others' rel err "
                   f"{max(alt_errs):.3g}", flush=True)
         del refs
         if label in TIMED_TRAIN_CASES:
             def ours_fwd_bwd():
-                o, l = fa.flash_attention(q, k, v, causal=True, window=w, return_lse=True)
-                return fb.flash_attention_backward(q, k, v, o, l, do, causal=True, window=w)
+                o, l = fa.flash_attention(q, k, v, causal=causal, window=w, return_lse=True)
+                return fb.flash_attention_backward(q, k, v, o, l, do, causal=causal, window=w)
 
-            bound_ms, bound_by = flash_backward_bound(q, k, w)
-            floor_ms, _ = flash_backward_bound(q, k, w, flops_per_pair=14)
-            sdpa = sdpa_times(torch, F, flush, q, k, v, do, window=w)
+            bound_ms, bound_by = flash_backward_bound(q, k, w, causal=causal)
+            floor_ms, _ = flash_backward_bound(q, k, w, flops_per_pair=14, causal=causal)
+            sdpa = sdpa_times(torch, F, flush, q, k, v, do, window=w, causal=causal)
             library_ms, library_backend = fastest(sdpa, "backward_ms")
             row = dict(
                 max_abs_err=max_abs, rel_err=max(errs.values()), plan=plan._asdict(),
                 pass_us=[[n, us] for n, us in passes], ms_by_plan=ms_by_plan,
                 ms=time_ms(torch, lambda: fb.flash_attention_backward(
-                    q, k, v, out, lse, do, causal=True, window=w), flush, iters=10, warmup=2),
+                    q, k, v, out, lse, do, causal=causal, window=w), flush, iters=10, warmup=2),
                 plain_ms=time_ms(torch, lambda: fb.flash_attention_backward_plain(
-                    q, k, v, out, lse, do, causal=True, window=w), flush, iters=5, warmup=1),
+                    q, k, v, out, lse, do, causal=causal, window=w), flush, iters=5, warmup=1),
                 forward_lse_ms=time_ms(torch, lambda: fa.flash_attention(
-                    q, k, v, causal=True, window=w, return_lse=True), flush, iters=10, warmup=2),
+                    q, k, v, causal=causal, window=w, return_lse=True), flush, iters=10, warmup=2),
                 forward_backward_ms=time_ms(torch, ours_fwd_bwd, flush, iters=10, warmup=2),
                 library_ms=library_ms, library_backend=library_backend,
                 library_forward_backward_ms=fastest(sdpa, "forward_backward_ms")[0], sdpa=sdpa,
@@ -2656,28 +2844,28 @@ def run_train_kernel_checks(torch, np, F):
                   f"{floor_ms:.4f} ms; SDPA's backward alone {library_ms:.4f} ms ({library_backend}); forward "
                   f"with lse {row['forward_lse_ms']:.4f} ms; forward + backward {row['forward_backward_ms']:.4f} "
                   f"ms against SDPA's {row['library_forward_backward_ms']:.4f} ms", flush=True)
-            if label == "qwen3-8b":
+            if label in DENSE_TRAIN_ROWS:
                 # kernel 2's dense entry as the training path runs it: with
                 # its log-sum-exp, against the plain forward and lse
-                fwd_bound_ms, fwd_bound_by = dense_flash_bound(q, k)
-                out_ref = fa.flash_attention_plain(q, k, v, causal=True)
-                rows["flash_attention_dense"] = dict(
+                fwd_bound_ms, fwd_bound_by = dense_flash_bound(q, k, causal=causal, window=w)
+                out_ref = fa.flash_attention_plain(q, k, v, causal=causal, window=w)
+                dense = rows[DENSE_TRAIN_ROWS[label]] = dict(
                     max_abs_err=max_err(torch, out, out_ref, KERNEL_TOL[c["dtype"]]),
                     ms=row["forward_lse_ms"],
-                    plain_ms=time_ms(torch, lambda: (fa.flash_attention_plain(q, k, v, causal=True),
-                                                     fa.flash_attention_lse_plain(q, k, causal=True)),
+                    plain_ms=time_ms(torch, lambda: (fa.flash_attention_plain(q, k, v, causal=causal, window=w),
+                                                     fa.flash_attention_lse_plain(q, k, causal=causal, window=w)),
                                      flush, iters=5, warmup=1),
                     library_ms=fastest(sdpa, "forward_ms")[0], library_backend=fastest(sdpa, "forward_ms")[1],
                     bound_ms=fwd_bound_ms, bound_by=fwd_bound_by)
-                print(f"  flash_attention_dense [qwen3-8b train] timed: forward with lse {row['forward_lse_ms']:.4f} "
-                      f"ms, plain {rows['flash_attention_dense']['plain_ms']:.4f} ms, SDPA's forward "
-                      f"{rows['flash_attention_dense']['library_ms']:.4f} ms, bound {fwd_bound_ms:.4f} ms "
-                      f"({fwd_bound_by})", flush=True)
+                print(f"  flash_attention_dense [{label} train] timed: forward with lse {row['forward_lse_ms']:.4f} "
+                      f"ms, plain {dense['plain_ms']:.4f} ms, SDPA's forward {dense['library_ms']:.4f} ms "
+                      f"({dense['library_backend']}), bound {fwd_bound_ms:.4f} ms ({fwd_bound_by})", flush=True)
                 del out_ref
         del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
     rows["flash_attention_backward"] = dict(timed["qwen3-8b"], microbatch=timed["qwen3-8b microbatch"])
     rows[("flash_attention_backward", "recurrentgemma-9b train")] = timed["recurrentgemma-9b"]
+    rows[("flash_attention_backward", "whisper-small train")] = timed["whisper-small"]
     return rows
 
 
@@ -2852,14 +3040,13 @@ def run_full_width_train(torch, np, smi):
     TRAIN_STEPS steps of train() at batch TRAIN_BATCH x TRAIN_SEQ with
     TRAIN_MICROBATCHES microbatches and remat. Gates: every loss finite,
     grad_norm finite and > 0, count == TRAIN_STEPS, parameters changed,
-    exact flash launches. Then one more step under torch.profiler (device
-    busy share). Returns the launches and the measured numbers."""
+    exact flash launches; one adamw_update alone (CUDA events). Its step
+    under torch.profiler is profile_train_step's. Returns the launches and
+    the measured numbers."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.profile_step import _measure
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_loop import TrainConfig, synthetic_batches, train
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_loop import TrainConfig, train
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2913,20 +3100,6 @@ def run_full_width_train(torch, np, smi):
     model_flops = (6 * (n_blocks + cfg.d_model * cfg.vocab_size) * tokens
                    + 12 * hd * cfg.n_heads * cfg.n_layers * TRAIN_BATCH * attention_pairs(s, 0))
     mfu = model_flops / step_s / BF16_FLOPS_PER_S
-    # one more step of the same work under the profiler
-    model = TransformerLM(cfg, device="cuda")
-    step_fn = make_train_step(model, opt_cfg, microbatches=TRAIN_MICROBATCHES, remat=True)
-    batch = next(synthetic_batches(cfg, tc, "cuda"))
-    prof = _measure("train step", lambda: step_fn(params, state, batch), iters=1, kernels=True)
-    if not prof["kernels_launched"]:
-        # every trace came back empty: the profiled numbers are not measured
-        prof.update(device_busy_share=None, device_ms=None)
-    by_kind = {}
-    for name, us in prof["kernel_us"]:
-        kind = ("flash backward" if "flash_bwd" in name else "flash forward" if "flash_" in name else
-                "gemm" if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
-                "elementwise, reductions, copies")
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     # the optimizer alone: one adamw_update (global norm, clip, moments,
     # the in-place parameter update) on a gradient tree of the params' size
     from repro_torch.models.layers import tree_map
@@ -2939,10 +3112,7 @@ def run_full_width_train(torch, np, smi):
         layers=f"{cfg.n_layers} of {full.n_layers}", parameters=n_params, losses=out["losses"],
         grad_norms=out["grad_norms"], step_s=out["step_s"], step_ms_median=step_s * 1e3,
         changed_share=changed,
-        tokens_per_s=tokens / step_s, model_flops=model_flops, mfu=mfu, peak_gib=peak,
-        device_busy_share=prof["device_busy_share"], profiled_step_wall_ms=prof["traced_wall_ms"],
-        profiled_step_device_ms=prof["device_ms"], top_kernels=prof["top_kernels"][:6],
-        device_ms_by_kind=by_kind, adamw_update_ms=opt_ms,
+        tokens_per_s=tokens / step_s, model_flops=model_flops, mfu=mfu, peak_gib=peak, adamw_update_ms=opt_ms,
         launches=launches, flash_launches_by_variant=flash_by_variant, card=smi,
     )
     print(f"  qwen3-8b train ({res['layers']} layers, {n_params / 1e9:.3f} B parameters, bf16, batch "
@@ -2950,11 +3120,54 @@ def run_full_width_train(torch, np, smi):
           f"{json.dumps([round(x, 4) for x in out['losses']])}, step ms {json.dumps([round(1e3 * x, 1) for x in out['step_s']])}, "
           f"median of steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} tokens/s, "
           f"model FLOPs {model_flops / 1e12:.2f} T a step, MFU {mfu:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOPS, "
-          f"peak {peak:.2f} GiB, device busy share of one step {prof['device_busy_share']} "
-          f"({prof['device_ms']} of {prof['traced_wall_ms']:.1f} ms), device ms by kind "
-          f"{json.dumps(by_kind)}, one adamw_update {opt_ms:.1f} ms, top kernels "
-          f"{json.dumps(prof['top_kernels'][:6])}", flush=True)
-    del model, params, state, out, step_fn, batch
+          f"peak {peak:.2f} GiB, one adamw_update {opt_ms:.1f} ms", flush=True)
+    del params, state, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_train_step(torch, smi):
+    """One step of run_full_width_train's work (Qwen3-8B at TRAIN_LAYERS
+    layers, TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICROBATCHES, remat) from a
+    fresh init under torch.profiler: the device busy share, device ms by
+    kind (GEMM, flash forward, flash backward, the rest) and the top
+    kernels. main runs it last, after every timed step. Returns the
+    numbers (None where every trace came back empty)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import _measure
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import TrainConfig, synthetic_batches
+    from repro_torch.train.train_step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=TRAIN_LAYERS)
+    tc = TrainConfig(steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICROBATCHES, remat=True)
+    model = TransformerLM(cfg, device="cuda")
+    params = model.init_params(tc.seed)
+    state = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2), microbatches=TRAIN_MICROBATCHES,
+                              remat=True)
+    batch = next(synthetic_batches(cfg, tc, "cuda"))
+    prof = _measure("train step", lambda: step_fn(params, state, batch), iters=1, kernels=True)
+    if not prof["kernels_launched"]:
+        # every trace came back empty: the profiled numbers are not measured
+        prof.update(device_busy_share=None, device_ms=None)
+    by_kind = {}
+    for name, us in prof["kernel_us"]:
+        kind = ("flash backward" if "flash_bwd" in name else "flash forward" if "flash_" in name else
+                "gemm" if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
+                "elementwise, reductions, copies")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    res = dict(device_busy_share=prof["device_busy_share"], profiled_step_wall_ms=prof["traced_wall_ms"],
+               profiled_step_device_ms=prof["device_ms"], top_kernels=prof["top_kernels"][:6],
+               device_ms_by_kind=by_kind)
+    print(f"  qwen3-8b train step profiled on {smi}: device busy share {prof['device_busy_share']} "
+          f"({prof['device_ms']} of {prof['traced_wall_ms']:.1f} ms), device ms by kind {json.dumps(by_kind)}, "
+          f"top kernels {json.dumps(prof['top_kernels'][:6])}", flush=True)
+    del model, params, state, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -3027,6 +3240,11 @@ def run_family_train(torch, np, smi):
         path = f"{arch.split('_')[0]} train"
         launches[path] = {name: mod.launch_count for name, mod in kernels.items()}
         check_launches(path, launches[path], family_train_launches(model, cfg, steps))
+        by_body = kernels["flash_attention_backward"].launch_count_by_variant
+        if launches[path]["flash_attention_backward"]:
+            print(f"  {path} flash backward launches by body: {json.dumps(by_body)}", flush=True)
+            check(by_body["tensor_cores"] == launches[path]["flash_attention_backward"],
+                  f"{path}: bf16 flash backward off the tensor-core body: {by_body}")
         check(all(np.isfinite(out["losses"])), f"{path}: losses not finite: {out['losses']}")
         check(all(np.isfinite(out["grad_norms"])) and min(out["grad_norms"]) > 0,
               f"{path}: grad norms {out['grad_norms']}")
@@ -3035,6 +3253,7 @@ def run_family_train(torch, np, smi):
         step_s = statistics.median(out["step_s"][1:])
         res[arch] = dict(
             layers=f"{cfg.n_layers} of {full.n_layers}", parameters=n_params, batch=batch, seq=seq,
+            flash_backward_launches_by_body=dict(by_body),
             losses=out["losses"], grad_norms=out["grad_norms"], step_s=out["step_s"],
             step_ms_median=step_s * 1e3, tokens_per_s=batch * seq / step_s, peak_gib=peak,
             opt=FAMILY_TRAIN_OPT, card=smi)
@@ -3042,7 +3261,10 @@ def run_family_train(torch, np, smi):
               f"{batch} x {seq}, remat, lr {FAMILY_TRAIN_OPT['lr']} warmup {FAMILY_TRAIN_OPT['warmup_steps']}) "
               f"on {smi}: losses {json.dumps([round(x, 4) for x in out['losses']])}, step ms "
               f"{json.dumps([round(1e3 * x, 1) for x in out['step_s']])}, median of steps 2-{steps} "
-              f"{step_s * 1e3:.1f} ms, {batch * seq / step_s:.0f} tokens/s, peak {peak:.2f} GiB", flush=True)
+              f"{step_s * 1e3:.1f} ms"
+              + (f" (before the head_dim 256 wgmma body and the chunked RG-LRU scan: {RG_TRAIN_STEP_MS_BEFORE} "
+                 f"ms on NVIDIA H100 80GB HBM3, 700.00 W)" if arch == "recurrentgemma_9b" else "")
+              + f", {batch * seq / step_s:.0f} tokens/s, peak {peak:.2f} GiB", flush=True)
         del out
         gc.collect()
         torch.cuda.empty_cache()
@@ -3081,10 +3303,12 @@ def fixed_batch_losses(torch, model, batch, seed):
 def run_train_phase(torch, np, smi):
     """Phase train: smoke parity card against CPU, the smoke loop and resume
     on the card, full-width Qwen3-8B at 12 of 36 layers, then FAMILY_TRAINS
-    (run_family_train) (the kernels at the training shapes run in phase
-    kernels, where torch.profiler's traces still hold their device events:
-    late in a long process they come back empty). Returns (the launches by
-    path, the full-width numbers with the families' under "families")."""
+    (run_family_train), opening no torch.profiler session; main runs it
+    first, since CUPTI, kept attached between sessions, slows host-paced
+    steps after many of them (``--profiler-cost``). The kernels at the
+    training shapes run in phase kernels, Qwen3's profiled step last
+    (profile_train_step). Returns (the launches by path, the full-width
+    numbers with the families' under "families")."""
     run_train_parity(torch, np)
     run_train_loop_checks(torch)
     full = run_full_width_train(torch, np, smi)
@@ -3092,13 +3316,73 @@ def run_train_phase(torch, np, smi):
     return dict(launches, train=full["launches"]), full
 
 
+# torch.profiler sessions between the two timings of run_profiler_cost
+PROFILER_COST_SESSIONS = 300
+
+
+def run_profiler_cost(torch, smi):
+    """Whether CUPTI kept attached between torch.profiler sessions
+    (TEARDOWN_CUPTI=0, what main sets unless the caller set it) slows the
+    training steps: Whisper-small's (as FAMILY_TRAINS runs it; paced by the
+    host) and Qwen3-8B's at TRAIN_LAYERS layers (TRAIN_BATCH x TRAIN_SEQ,
+    TRAIN_MICROBATCHES, 5 steps), timed before any profiler session and
+    again after PROFILER_COST_SESSIONS sessions, each tracing one call of
+    kernel 2's dense entry. Run it once a CUPTI mode (the environment's
+    TEARDOWN_CUPTI), in turns. Returns the medians of steps 2-5 (ms), the
+    steps, and the sessions whose trace held no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    runs = {"whisper-small": (get_config("whisper_small"), dict(batch=8, seq=256)),
+            "qwen3-8b": (dataclasses.replace(get_config("qwen3_8b"), n_layers=TRAIN_LAYERS),
+                         dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICROBATCHES))}
+
+    def steps_ms():
+        out = {}
+        for name, (cfg, shape) in runs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = train(cfg, TrainConfig(steps=5, remat=True, log_every=0, **shape),
+                        AdamWConfig(**FAMILY_TRAIN_OPT), device="cuda")
+            out[name] = dict(median_ms=1e3 * statistics.median(run["step_s"][1:]),
+                             step_ms=[1e3 * t for t in run["step_s"]])
+            del run
+        return out
+
+    res = dict(teardown_cupti=os.environ.get("TEARDOWN_CUPTI"), card=smi, before=steps_ms())
+    q, k, v = dense_prefill_case(torch, 32, 8, 128, 1, 128)
+    empty = 0
+    for _ in range(PROFILER_COST_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        empty += not any(e.device_type.name == "CUDA" for e in prof.events())
+    del q, k, v
+    res.update(sessions=PROFILER_COST_SESSIONS, empty_traces=empty, after=steps_ms())
+    print(f"  profiler cost, TEARDOWN_CUPTI={res['teardown_cupti']}, {smi}: median step ms before any "
+          f"session / after {PROFILER_COST_SESSIONS} ({empty} traces empty): "
+          + ", ".join(f"{n} {res['before'][n]['median_ms']:.1f} / {res['after'][n]['median_ms']:.1f}"
+                      for n in runs), flush=True)
+    return res
+
+
 def main() -> int:
     sweep = sys.argv[1:] == ["--sweep"]
     train_only = sys.argv[1:] == ["--train"]
-    if sys.argv[1:] and not (sweep or train_only):
-        print("usage: chip_smoke.py [--sweep | --train]", file=sys.stderr)
+    profiler_cost = sys.argv[1:] == ["--profiler-cost"]
+    if sys.argv[1:] and not (sweep or train_only or profiler_cost):
+        print("usage: chip_smoke.py [--sweep | --train | --profiler-cost]", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    # keep CUPTI attached between the many short torch.profiler sessions of
+    # this process: torn down and re-attached each time, half of its traces
+    # come back empty (--profiler-cost). Kept attached, it slows host-paced
+    # work after many sessions, so phase train runs first
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import numpy as np
     import torch
 
@@ -3136,16 +3420,28 @@ def main() -> int:
         phase("sweep", t0)
         print(json.dumps({"sweep": res, "device": smi}))
         return 0
+    if profiler_cost:
+        t0 = time.perf_counter()
+        res = run_profiler_cost(torch, smi)
+        phase("profiler cost", t0)
+        print(json.dumps({"profiler_cost": res}))
+        return 0
     if train_only:
         import torch.nn.functional as F
 
         t0 = time.perf_counter()
-        rows = run_train_kernel_checks(torch, np, F)
         _, res = run_train_phase(torch, np, smi)
+        rows = run_train_kernel_checks(torch, np, F)
+        res.update(profile_train_step(torch, smi))
         phase("train", t0)
         print(json.dumps({"train": res, **{k if isinstance(k, str) else " ".join(k): v
                                            for k, v in rows.items()}}))
         return 0
+
+    # phase train first: its timed steps follow no torch.profiler session
+    t0 = time.perf_counter()
+    train_launches, train_res = run_train_phase(torch, np, smi)
+    phase("train", t0)
 
     t0 = time.perf_counter()
     kres = run_kernel_checks(torch, np)
@@ -3234,11 +3530,11 @@ def main() -> int:
         launches[arch.split("_")[0]] = run_wave_family_serve(torch, arch)
     phase("family", t0)
 
-    t0 = time.perf_counter()
-    train_launches, train_res = run_train_phase(torch, np, smi)
     launches.update(train_launches)
     by_variant["train"] = train_res["flash_launches_by_variant"]
-    phase("train", t0)
+    t0 = time.perf_counter()
+    train_res.update(profile_train_step(torch, smi))
+    phase("train profile", t0)
 
     kernels = []
     for kname, key, label, count, layout, source, replaces in KERNELS:
@@ -3250,12 +3546,13 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **({"launches_by_variant": by_variant[layout],
+            **({"launches_by_variant": by_variant.get(layout),
                 "ms_by_tile": r.get("ms_by_tile")} if count == "flash_attention" else {}),
             **({k: r[k] for k in ("rel_err", "forward_lse_ms", "forward_backward_ms", "library_backend",
                                   "library_forward_backward_ms", "design_floor_ms", "ms_by_plan", "pass_us",
                                   "plan")}
                if key == "flash_attention_backward" else {}),
+            **({k: r[k] for k in ("plan", "pass_us", "design_floor_ms")} if key == "rglru_scan_backward" else {}),
             **({"microbatch": {k: r["microbatch"][k] for k in (
                 "ms", "ms_by_plan", "pass_us", "plan", "bound_ms", "design_floor_ms", "library_ms",
                 "library_backend", "forward_backward_ms", "library_forward_backward_ms")}}

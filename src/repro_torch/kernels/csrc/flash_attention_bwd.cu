@@ -58,18 +58,43 @@
 //     CTA would be the pass's tail (the train step's batch of 1);
 //   * fully masked tiles are skipped; only tiles on the diagonal, the
 //     window's edge or the ragged ends test the mask element by element.
-// float32 at head_dim 16 / 32 / 64 / 128 / 256, and bf16 at 16 / 32 / 256,
-// run the CUDA-core body: the same two passes in float32 FMAs on tiles
-// widened to float32 in shared memory (rows padded by one against bank
-// conflicts), each thread a 4 x 4 block of a tile's scores (and of dP) and
-// 4 rows x DA/8 columns of its accumulators, the group's heads inside the
-// CTA. At head_dim 256 (RecurrentGemma-9B's attention) a CTA owns DA = 128
-// of the 256 accumulator columns and two CTAs split each row tile's columns
-// (blockIdx.x = batch x 2 + half): dK and dV of 64 rows at 256 columns
-// alone would take 256 registers a thread. Each CTA still computes S and
-// dP over the full head_dim, so those products run twice; the tiles take
-// 206 KB (dQ pass) and 215 KB (dK/dV pass) of shared memory, one CTA an
-// SM. A tensor-core body at 256 is later work (ROADMAP.md).
+// The bf16 body at head_dim 256 (RecurrentGemma-9B's attention: 16 query
+// heads on one KV head, window 2048) runs the same two passes on wgmma
+// with two consumer warpgroups a CTA (flash_bwd_*_wgmma_d256_kernel):
+//   * registers: a 64 x 256 float32 accumulator is 128 registers a thread
+//     in one warpgroup, so dK and dV of 64 keys would take 256. Each
+//     warpgroup owns 128 of the 256 accumulator columns (64 registers per
+//     accumulator, the budget of the 128 body);
+//   * the products over the whole head_dim run once, not in both
+//     warpgroups: warpgroup 0 computes the scores and P, warpgroup 1 the
+//     product with dO (dP or dP^T), and the two trade these float32
+//     64 x 64 tiles through shared memory (32 KB); both then form dS from
+//     the same values in the same order. Seven products a pair, as at
+//     64 / 128. In the dQ pass warpgroup 1 subtracts Delta before the
+//     trade, and a streamed tile takes one barrier besides the trade's
+//     (the next tile's copy starts right after it, into the stage the
+//     previous tile used). The dK/dV pass, at 255 registers, does neither:
+//     there the early subtraction cost the unsplit variant 24 bytes of
+//     spills, and the one-barrier loop alone timed no faster;
+//   * shared memory: resident tiles 64 KB, a two-stage ring of 64-row tiles
+//     128 KB, lse / Delta and the trade: 226 KB, one CTA (8 warps) an SM;
+//   * the grid: at batch 1 and one KV head the dK/dV pass has only
+//     Sk / 64 key tiles (64 at 4096 tokens) for 132 SMs, so the plan splits
+//     the group of g query heads into n sub-groups of CTAs (any divisor of
+//     g; split_group picks n), each running g / n heads in turn and writing
+//     float32 partials (B, KV x n, Sk, D) that flash_bwd_dkv_sum_kernel
+//     adds in sub-group order.
+// float32 at head_dim 16 / 32 / 64 / 128 / 256, and bf16 at 16 / 32, run
+// the CUDA-core body: the same two passes in float32 FMAs on tiles widened
+// to float32 in shared memory (rows padded by one against bank conflicts),
+// each thread a 4 x 4 block of a tile's scores (and of dP) and 4 rows x
+// DA/8 columns of its accumulators, the group's heads inside the CTA. At
+// head_dim 256 a CTA owns DA = 128 of the 256 accumulator columns and two
+// CTAs split each row tile's columns (blockIdx.x = batch x 2 + half): dK
+// and dV of 64 rows at 256 columns alone would take 256 registers a
+// thread. Each CTA still computes S and dP over the full head_dim, so
+// those products run twice; the tiles take 206 KB (dQ pass) and 215 KB
+// (dK/dV pass) of shared memory, one CTA an SM.
 // Float32 must not run as TF32, which misses the float32 tolerance.
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -95,7 +120,8 @@ struct BwdArgs {
   int h, g, sq, sk, causal, window;
   Strides q_st, o_st, do_st, dq_st, k_st, v_st, dk_st, dv_st;
   float scale;
-  float *dk_part, *dv_part;   // (B, H, Sk, D) float32: the split group's partials
+  float *dk_part, *dv_part;   // (B, KV x n_sub, Sk, D) float32: the split group's partials
+  int n_sub;                  // sub-groups a KV head's group is split into (1: not split)
 };
 
 // rows [row0, row0 + ROWS) of a strided (S, D) slice into shared memory as
@@ -453,13 +479,13 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
 
 // rows [row0, row0 + 64) of a strided (S, D) bf16 slice into a swizzled
 // tile with cp.async; rows at or past n are zero. Not waited on.
-template <int D>
+template <int D, int NT = 128>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long long stride,
                                           int row0, int n, int tid) {
   constexpr int CPR = D / 8;
 #pragma unroll
-  for (int u = 0; u < kWgRows * CPR / 128; ++u) {
-    const int i = tid + u * 128, r = i / CPR, c = (i % CPR) * 8;
+  for (int u = 0; u < kWgRows * CPR / NT; ++u) {
+    const int i = tid + u * NT, r = i / CPR, c = (i % CPR) * 8;
     const bool ok = row0 + r < n;
     cp_async16(dst + swz_offset(r, c, kWgRows), ok ? src + (row0 + r) * stride + c : src, ok);
   }
@@ -819,9 +845,10 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_wgmma_kernel(BwdArgs a) {
   }
 }
 
-// dK and dV of each KV head: the g float32 partials of its query heads
-// added in head order (a fixed order, so two runs give the same bits) and
-// cast to bf16. One thread a (b, KV head, key, 8 values of head_dim).
+// dK and dV of each KV head: the n_sub float32 partials of its sub-groups
+// (at head_dim 64 / 128 one a query head) added in order (a fixed order, so
+// two runs give the same bits) and cast to bf16. One thread a (b, KV head,
+// key, 8 values of head_dim).
 template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_dkv_sum_kernel(BwdArgs a, int B, int KV) {
   using T = __nv_bfloat16;
@@ -834,8 +861,8 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_sum_kernel(BwdArgs a, int B
     r /= a.sk;
     const int kvh = (int)(r % KV), b = (int)(r / KV);
     float k8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int hh = 0; hh < a.g; ++hh) {
-      const long long off = (((long long)b * a.h + kvh * a.g + hh) * a.sk + t) * D + c;
+    for (int hh = 0; hh < a.n_sub; ++hh) {
+      const long long off = (((long long)b * KV * a.n_sub + kvh * a.n_sub + hh) * a.sk + t) * D + c;
       const float4 k0 = *reinterpret_cast<const float4*>(a.dk_part + off);
       const float4 k1 = *reinterpret_cast<const float4*>(a.dk_part + off + 4);
       const float4 v0 = *reinterpret_cast<const float4*>(a.dv_part + off);
@@ -850,6 +877,382 @@ __global__ void __launch_bounds__(256) flash_bwd_dkv_sum_kernel(BwdArgs a, int B
     *reinterpret_cast<uint4*>(static_cast<T*>(a.dk) + b * a.dk_st.b + kvh * a.dk_st.h + t * a.dk_st.s + c) = kw;
     *reinterpret_cast<uint4*>(static_cast<T*>(a.dv) + b * a.dv_st.b + kvh * a.dv_st.h + t * a.dv_st.s + c) = vw;
   }
+}
+
+// --------------------------------------------------------------------------
+// wgmma body at head_dim 256 (bf16; RecurrentGemma-9B's attention): two
+// consumer warpgroups a CTA (256 threads) over the same 64 rows, each owning
+// 128 of the 256 accumulator columns (dQ in pass 1, dK and dV in pass 2:
+// 64 float32 registers a thread each, the head_dim 128 body's budget). The
+// products that reduce over the whole head_dim are not computed twice:
+// warpgroup 0 computes the scores (S, or S^T = K Q^T) and the
+// probabilities, warpgroup 1 the products with dO (dP, or dP^T = V dO^T),
+// both over all 256 columns, and they trade the two float32 accumulators
+// through shared memory (16 KB each). Both then form dS = P (dP - Delta)
+// from the same values and run their half of the accumulating products.
+// Seven products a (query, key) pair, as at 64 / 128.
+// The tiles (64 rows, 32 KB each in the 128-byte swizzle), the two-stage
+// cp.async ring and the two traded accumulators take 226 KB of shared
+// memory: one CTA (8 warps) an SM.
+// --------------------------------------------------------------------------
+constexpr int kPairThreads = 256;
+
+struct PairShape {
+  static constexpr int D = 256;
+  static constexpr uint32_t TILE = kWgRows * D * 2;                // one swizzled 64-row tile
+  static constexpr uint32_t ROWS = kWgStages * 2 * kWgRows * 4;    // lse and Delta (a stage each in pass 2)
+  static constexpr uint32_t XCH = 2 * kWgRows * kWgRows * 4;       // the two traded 64 x 64 accumulators
+  // two resident tiles, kWgStages stages of two streamed tiles, lse / Delta, the trade
+  static constexpr size_t SMEM = 1024 + 2 * TILE + kWgStages * 2 * TILE + ROWS + XCH;
+};
+static_assert(PairShape::SMEM <= 232448, "one CTA's shared memory on an H100");
+
+// a 64 x 64 accumulator (32 floats a thread) written to this warpgroup's
+// half of the trade and the other warpgroup's read back: element i of
+// thread t at [i][t], so a warp's accesses are 32 consecutive words
+__device__ __forceinline__ void trade_put(float* xch, int wg, int wtid, const float* acc) {
+  float* mine = xch + wg * (kWgRows / 2) * 128 + wtid;
+#pragma unroll
+  for (int i = 0; i < kWgRows / 2; ++i) mine[i * 128] = acc[i];
+}
+__device__ __forceinline__ void trade_get(const float* xch, int wg, int wtid, float* acc) {
+  const float* theirs = xch + (1 - wg) * (kWgRows / 2) * 128 + wtid;
+#pragma unroll
+  for (int i = 0; i < kWgRows / 2; ++i) acc[i] = theirs[i * 128];
+}
+
+// Pass 1 at head_dim 256: Delta and dQ. One CTA per (head, b, 64 query
+// rows), the query tiles last first under a causal mask; K/V tiles of 64
+// keys stream through the ring. Warpgroup 0: S = Q K^T and P; warpgroup 1:
+// dP = dO V^T; each: dQ[:, 128 wg ..] += dS K[:, 128 wg ..].
+__global__ void __launch_bounds__(kPairThreads, 1) flash_bwd_dq_wgmma_d256_kernel(BwdArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int D = PairShape::D, BQ = kWgRows, BK = kWgRows, STAGES = kWgStages, NT = kPairThreads;
+  constexpr uint32_t TILE = PairShape::TILE;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t q_sm = (raw + 1023u) & ~1023u;
+  const uint32_t do_sm = q_sm + TILE;
+  const uint32_t kv_sm = do_sm + TILE;               // stage s: K at kv_sm + 2 s TILE, then V
+  uint8_t* base = wg_smem + (q_sm - raw);
+  float* row_s = reinterpret_cast<float*>(base + 2 * TILE + STAGES * 2 * TILE);   // lse[64], Delta[64]
+  float* xch = reinterpret_cast<float*>(base + 2 * TILE + STAGES * 2 * TILE + PairShape::ROWS);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = a.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int i0 = qt * BQ, tid = threadIdx.x, kvh = h / a.g;
+  const int wg = tid >> 7, wtid = tid & 127;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_st.b + h * a.q_st.h;
+  const T* o = static_cast<const T*>(a.o) + b * a.o_st.b + h * a.o_st.h;
+  const T* d_o = static_cast<const T*>(a.d_o) + b * a.do_st.b + h * a.do_st.h;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_st.b + kvh * a.k_st.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_st.b + kvh * a.v_st.h;
+  const long long lrow = ((long long)b * a.h + h) * a.sq;
+
+  load_tile<D, NT>(q_sm, q, a.q_st.s, i0, a.sq, tid);
+  load_tile<D, NT>(do_sm, d_o, a.do_st.s, i0, a.sq, tid);
+  cp_async_commit();
+
+  // keys any row of this tile may see: [lo, hi)
+  const int qi_last = min(a.sq, i0 + BQ) - 1;
+  int hi = a.sk;
+  if (a.causal) hi = min(hi, qi_last + 1);
+  int lo = 0;
+  if (a.window > 0) lo = max(0, i0 - a.window + 1);
+  lo = (lo / BK) * BK;
+  const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+  auto load_kv = [&](int it, int st) {
+    const uint32_t k_dst = kv_sm + st * 2 * TILE;
+    load_tile<D, NT>(k_dst, kb, a.k_st.s, lo + it * BK, a.sk, tid);
+    load_tile<D, NT>(k_dst + TILE, vb, a.v_st.s, lo + it * BK, a.sk, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_kv(s, s);
+    cp_async_commit();
+  }
+
+  // Delta = rowsum(dO o): four threads a row, each 64 columns, then the
+  // four partial sums in a fixed order
+  cp_async_wait<STAGES - 1>();
+  __syncthreads();
+  {
+    const int r = tid >> 2, part = tid & 3, qi = i0 + r;
+    float acc = 0.f;
+    if (qi < a.sq) {
+#pragma unroll
+      for (int c = part * D / 4; c < (part + 1) * D / 4; c += 8) {
+        float of[8], df[8];
+        unpack_vec<T>(load_vec(o + qi * a.o_st.s + c), of);
+        unpack_vec<T>(*reinterpret_cast<const uint4*>(base + TILE + swz_offset(r, c, BQ)), df);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(of[e], df[e], acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      row_s[r] = qi < a.sq ? a.lse[lrow + qi] : 0.f;
+      row_s[BQ + r] = acc;
+      if (qi < a.sq) a.delta[lrow + qi] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, warp = wtid >> 5, quad = lane & 3;
+  int q_pos[2];
+  float lse2[2], delta_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = warp * 16 + (lane >> 2) + 8 * hf;
+    q_pos[hf] = i0 + r;
+    lse2[hf] = row_s[r] * kLog2e;
+    delta_r[hf] = row_s[BQ + r];
+  }
+  const float scale_log2 = a.scale * kLog2e;
+  const bool rows_full = i0 + BQ <= a.sq;
+  // warpgroup 0 multiplies Q by K, warpgroup 1 dO by V
+  const uint32_t a_sm = wg ? do_sm : q_sm;
+  float dq[D / 4], mine[BK / 2], theirs[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mine[i] = 0.f;
+
+  static_assert(STAGES == 2, "the next tile goes to the stage the previous one used");
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    // one barrier: tile it has landed, and every warp is done with tile
+    // it - 1 (its stage, which the next load takes, and the trade)
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) % STAGES);
+    cp_async_commit();
+
+    const int kt = lo + it * BK;
+    const uint32_t k_sm = kv_sm + st * 2 * TILE, v_sm = k_sm + TILE;
+    wgmma_fence();
+    wgmma_rows_rows<D>(mine, a_sm, wg ? v_sm : k_sm);   // S = Q K^T, or dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(mine);
+    if (wg == 0) {
+      // P recomputed from the forward's lse; only tiles on the diagonal,
+      // the window's edge or the ragged ends test the mask
+      const bool interior = rows_full && kt + BK <= a.sk && (!a.causal || kt + BK - 1 <= i0) &&
+                            (a.window <= 0 || i0 + BQ - 1 - kt < a.window);
+      if (interior) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) mine[i] = exp2_ftz(fmaf(mine[i], scale_log2, -lse2[acc_half(i)]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int hf = acc_half(i);
+          mine[i] = visible(a, q_pos[hf], kt + acc_col(i, quad))
+                        ? exp2_ftz(fmaf(mine[i], scale_log2, -lse2[hf])) : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mine[i] -= delta_r[acc_half(i)];   // dP - Delta
+    }
+    trade_put(xch, wg, wtid, mine);
+    __syncthreads();
+    trade_get(xch, wg, wtid, theirs);
+    // dS = P (dP - Delta), the same product in both warpgroups
+    float ds[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) ds[i] = mine[i] * theirs[i];
+    uint32_t dsf[BK / 16][4];
+    to_a_fragments(ds, dsf);
+    fence_regs<D / 4>(dq);
+    wgmma_fence();
+    wgmma_regs_tile<128>(dq, dsf, k_sm + wg * 2 * kWgRows * 128);   // dQ[:, 128 wg ..] += dS K[:, 128 wg ..]
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 4>(dq);
+  }
+  cp_async_wait<0>();
+
+  T* dqp = static_cast<T*>(a.dq) + b * a.dq_st.b + h * a.dq_st.h + wg * (D / 2);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (q_pos[hf] >= a.sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      *reinterpret_cast<uint32_t*>(dqp + q_pos[hf] * a.dq_st.s + 8 * j + 2 * quad) =
+          pack2(dq[4 * j + 2 * hf] * a.scale, dq[4 * j + 2 * hf + 1] * a.scale);
+  }
+}
+
+// Pass 2 at head_dim 256: dK and dV. One CTA per (x, b, 64 keys), the key
+// tiles first to last. SPLIT: x = KV head x n_sub + sub-group, the CTA runs
+// the g / n_sub query heads of its sub-group in turn and writes their
+// float32 share of dK and dV to the partials (B, KV x n_sub, Sk, D), which
+// flash_bwd_dkv_sum_kernel adds up in sub-group order. Otherwise x is a KV
+// head, the CTA runs its g heads and writes dK and dV itself. Warpgroup 0:
+// S^T = K Q^T and P^T; warpgroup 1: dP^T = V dO^T; each: dV[:, 128 wg ..]
+// += P^T dO[:, 128 wg ..] and dK[:, 128 wg ..] += dS^T Q[:, 128 wg ..].
+template <bool SPLIT>
+__global__ void __launch_bounds__(kPairThreads, 1) flash_bwd_dkv_wgmma_d256_kernel(BwdArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int D = PairShape::D, BR = kWgRows, BQ = kWgRows, STAGES = kWgStages, NT = kPairThreads;
+  constexpr uint32_t TILE = PairShape::TILE;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t k_sm = (raw + 1023u) & ~1023u;
+  const uint32_t v_sm = k_sm + TILE;
+  const uint32_t qd_sm = v_sm + TILE;                // stage s: Q at qd_sm + 2 s TILE, then dO
+  const uint32_t col_sm = qd_sm + STAGES * 2 * TILE; // stage s: lse[64], Delta[64] at col_sm + 512 s
+  const float* col_s = reinterpret_cast<const float*>(wg_smem + (col_sm - raw));
+  float* xch = reinterpret_cast<float*>(wg_smem + (col_sm - raw) + PairShape::ROWS);
+
+  const int x = blockIdx.x, b = blockIdx.y, t0 = blockIdx.z * BR, tid = threadIdx.x;
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int n_heads = SPLIT ? a.g / a.n_sub : a.g;
+  const int kvh = SPLIT ? x / a.n_sub : x;
+  const int h0 = kvh * a.g + (SPLIT ? (x % a.n_sub) * n_heads : 0);
+  load_tile<D, NT>(k_sm, static_cast<const T*>(a.k) + b * a.k_st.b + kvh * a.k_st.h, a.k_st.s, t0, a.sk, tid);
+  load_tile<D, NT>(v_sm, static_cast<const T*>(a.v) + b * a.v_st.b + kvh * a.v_st.h, a.v_st.s, t0, a.sk, tid);
+  cp_async_commit();
+
+  // queries that may see any key of this tile: [qlo, qhi)
+  const int t_last = min(a.sk, t0 + BR) - 1;
+  const int qlo = a.causal ? t0 : 0;
+  int qhi = a.sq;
+  if (a.window > 0) qhi = min(qhi, t_last + a.window);
+  const int n_qt = qhi > qlo ? (qhi - qlo + BQ - 1) / BQ : 0;
+  const int n_tiles = n_heads * n_qt;
+  auto load_q = [&](int it, int st) {
+    const int h = h0 + it / n_qt, i0 = qlo + (it % n_qt) * BQ;
+    const uint32_t q_dst = qd_sm + st * 2 * TILE;
+    load_tile<D, NT>(q_dst, static_cast<const T*>(a.q) + b * a.q_st.b + h * a.q_st.h, a.q_st.s, i0, a.sq, tid);
+    load_tile<D, NT>(q_dst + TILE, static_cast<const T*>(a.d_o) + b * a.do_st.b + h * a.do_st.h, a.do_st.s,
+                     i0, a.sq, tid);
+    // lse (threads 0-63) and Delta (64-127) of the tile's queries, 0 past Sq
+    if (tid < 2 * BQ) {
+      const int c = tid & (BQ - 1), qi = i0 + c;
+      const float* src = (tid < BQ ? a.lse : a.delta) + ((long long)b * a.h + h) * a.sq;
+      cp_async4(col_sm + st * 2 * BQ * 4 + tid * 4, qi < a.sq ? src + qi : src, qi < a.sq);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_q(s, s);
+    cp_async_commit();
+  }
+
+  const int lane = tid & 31, warp = wtid >> 5, quad = lane & 3;
+  int t_pos[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) t_pos[hf] = t0 + warp * 16 + (lane >> 2) + 8 * hf;
+  const float scale_log2 = a.scale * kLog2e;
+  // warpgroup 0 multiplies K by Q, warpgroup 1 V by dO
+  const uint32_t a_sm = wg ? v_sm : k_sm;
+  float dk[D / 4], dv[D / 4], mine[BQ / 2], theirs[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) mine[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    if (it + STAGES - 1 < n_tiles) load_q(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const int i0 = qlo + (it % n_qt) * BQ;
+    const uint32_t q_sm = qd_sm + st * 2 * TILE, do_sm = q_sm + TILE;
+    const float* lse_c = col_s + st * 2 * BQ;
+    const float* delta_c = lse_c + BQ;
+    wgmma_fence();
+    wgmma_rows_rows<D>(mine, a_sm, wg ? do_sm : q_sm);   // S^T = K Q^T, or dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BQ / 2>(mine);
+    if (wg == 0) {
+      // P^T; lse belongs to the columns
+      const bool interior = t0 + BR <= a.sk && i0 + BQ <= a.sq && (!a.causal || t0 + BR - 1 <= i0) &&
+                            (a.window <= 0 || i0 + BQ - 1 - t0 < a.window);
+      if (interior) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i)
+          mine[i] = exp2_ftz(fmaf(mine[i], scale_log2, -lse_c[acc_col(i, quad)] * kLog2e));
+      } else {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int c = acc_col(i, quad);
+          mine[i] = visible(a, i0 + c, t_pos[acc_half(i)])
+                        ? exp2_ftz(fmaf(mine[i], scale_log2, -lse_c[c] * kLog2e)) : 0.f;
+        }
+      }
+    }
+    trade_put(xch, wg, wtid, mine);
+    __syncthreads();
+    trade_get(xch, wg, wtid, theirs);
+    // dS^T = P^T (dP^T - Delta), the same operands in both warpgroups
+    float p[BQ / 2], ds[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      p[i] = wg ? theirs[i] : mine[i];
+      ds[i] = p[i] * ((wg ? mine[i] : theirs[i]) - delta_c[acc_col(i, quad)]);
+    }
+    uint32_t pt[BQ / 16][4], dst[BQ / 16][4];
+    to_a_fragments(p, pt);
+    to_a_fragments(ds, dst);
+    fence_regs<D / 4>(dv);
+    fence_regs<D / 4>(dk);
+    wgmma_fence();
+    wgmma_regs_tile<128>(dv, pt, do_sm + wg * 2 * kWgRows * 128);   // dV[:, 128 wg ..] += P^T dO
+    wgmma_regs_tile<128>(dk, dst, q_sm + wg * 2 * kWgRows * 128);   // dK[:, 128 wg ..] += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 4>(dv);
+    fence_regs<D / 4>(dk);
+    __syncthreads();   // every warp is done with this stage and with the trade
+  }
+  cp_async_wait<0>();   // a CTA with no query tile still drains its K/V copies
+
+  const int c0 = wg * (D / 2) + 2 * quad;
+  if constexpr (SPLIT) {
+    const long long row = ((long long)b * gridDim.x + x) * a.sk;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (t_pos[hf] >= a.sk) continue;
+      float* kp = a.dk_part + (row + t_pos[hf]) * D + c0;
+      float* vp = a.dv_part + (row + t_pos[hf]) * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        *reinterpret_cast<float2*>(kp + 8 * j) =
+            make_float2(dk[4 * j + 2 * hf] * a.scale, dk[4 * j + 2 * hf + 1] * a.scale);
+        *reinterpret_cast<float2*>(vp + 8 * j) = make_float2(dv[4 * j + 2 * hf], dv[4 * j + 2 * hf + 1]);
+      }
+    }
+  } else {
+    T* dkp = static_cast<T*>(a.dk) + b * a.dk_st.b + kvh * a.dk_st.h + c0;
+    T* dvp = static_cast<T*>(a.dv) + b * a.dv_st.b + kvh * a.dv_st.h + c0;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (t_pos[hf] >= a.sk) continue;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        *reinterpret_cast<uint32_t*>(dkp + t_pos[hf] * a.dk_st.s + 8 * j) =
+            pack2(dk[4 * j + 2 * hf] * a.scale, dk[4 * j + 2 * hf + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvp + t_pos[hf] * a.dv_st.s + 8 * j) =
+            pack2(dv[4 * j + 2 * hf], dv[4 * j + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+static void launch_dkv_sum(const BwdArgs& a, int B, int KV, cudaStream_t stream) {
+  const long long n = (long long)B * KV * a.sk * (D / 8);
+  const int blocks = (int)((n + 255) / 256 < (1 << 20) ? (n + 255) / 256 : (1 << 20));
+  flash_bwd_dkv_sum_kernel<D><<<blocks, 256, 0, stream>>>(a, B, KV);
 }
 
 template <int D>
@@ -871,9 +1274,33 @@ static int launch_bwd_wgmma(const BwdArgs& a, int B, int KV, bool split, cudaStr
     dkv<<<dim3(split ? a.h : KV, B, (a.sk + kWgRows - 1) / kWgRows), 128, smem, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess || !split) return (int)err;
-    const long long n = (long long)B * KV * a.sk * (D / 8);
-    const int blocks = (int)((n + 255) / 256 < (1 << 20) ? (n + 255) / 256 : (1 << 20));
-    flash_bwd_dkv_sum_kernel<D><<<blocks, 256, 0, stream>>>(a, B, KV);
+    launch_dkv_sum<D>(a, B, KV, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the two-warpgroup body at head_dim 256; split: the group over a.n_sub
+// sub-groups of CTAs and their partials summed
+static int launch_bwd_wgmma_d256(const BwdArgs& a, int B, int KV, bool split, cudaStream_t stream) {
+  const size_t smem = PairShape::SMEM;
+  auto dkv = split ? flash_bwd_dkv_wgmma_d256_kernel<true> : flash_bwd_dkv_wgmma_d256_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_d256_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // pass 1 writes Delta, which pass 2 reads: the same stream orders them
+  if (a.sq > 0) {
+    flash_bwd_dq_wgmma_d256_kernel<<<dim3(a.h, B, (a.sq + kWgRows - 1) / kWgRows), kPairThreads, smem,
+                                     stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (a.sk > 0) {
+    dkv<<<dim3(KV * a.n_sub, B, (a.sk + kWgRows - 1) / kWgRows), kPairThreads, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !split) return (int)err;
+    launch_dkv_sum<PairShape::D>(a, B, KV, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -906,18 +1333,18 @@ static int launch_bwd(const BwdArgs& a, int B, int KV, cudaStream_t stream) {
 }
 
 // the CUDA-core body: float32 at head_dim 16 / 32 / 64 / 128 / 256, bf16 at
-// 16 / 32 / 256 (bf16 at 64 / 128 runs on the tensor cores)
+// 16 / 32 (bf16 at 64 / 128 / 256 runs on the tensor cores)
 template <typename T>
 static int dispatch_bwd(const BwdArgs& a, int B, int KV, int D, cudaStream_t s) {
   switch (D) {
     case 16: return launch_bwd<T, 16>(a, B, KV, s);
     case 32: return launch_bwd<T, 32>(a, B, KV, s);
-    case 256: return launch_bwd<T, 256>(a, B, KV, s);
   }
   if constexpr (sizeof(T) == 4) {
     switch (D) {
       case 64: return launch_bwd<T, 64>(a, B, KV, s);
       case 128: return launch_bwd<T, 128>(a, B, KV, s);
+      case 256: return launch_bwd<T, 256>(a, B, KV, s);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -934,29 +1361,39 @@ using namespace repro_torch;
 // key j sit at positions i and j. body, as the host planned it
 // (flash_attention_bwd.py :: backward_plan): 0 the CUDA-core body, 1 the
 // wgmma body with a KV head's group inside the CTA, 2 the wgmma body with
-// the group split over CTAs (dk_part / dv_part: float32 (B, H, Sk, D)
-// scratch, fully written). Launches the plan's kernels
-// in order on ``stream``; returns cudaGetLastError() after the launches.
+// the group split over CTAs into `subgroups` sub-groups (dk_part / dv_part:
+// float32 (B, KV x subgroups, Sk, D) scratch, fully written; at head_dim
+// 64 / 128 a sub-group is one query head, subgroups = H / KV). Launches the
+// plan's kernels in order on ``stream``; returns cudaGetLastError() after
+// the launches.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o, const void* d_o,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int KV,
     int Sq, int Sk, int D, int causal, int window, const long long* strides, float scale,
-    int dtype, int body, void* dk_part, void* dv_part, void* stream) {
+    int dtype, int body, int subgroups, void* dk_part, void* dv_part, void* stream) {
   if (KV <= 0 || H % KV != 0 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  const int g = H / KV;
   auto st = [&](int i) { return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]}; };
   BwdArgs a{q, k, v, o, d_o, static_cast<const float*>(lse), static_cast<float*>(delta),
-            dq, dk, dv, H, H / KV, Sq, Sk, causal, window,
+            dq, dk, dv, H, g, Sq, Sk, causal, window,
             st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7), scale,
-            static_cast<float*>(dk_part), static_cast<float*>(dv_part)};
+            static_cast<float*>(dk_part), static_cast<float*>(dv_part), subgroups};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0) {
+    if (subgroups != 1) return (int)cudaErrorInvalidValue;
     if (dtype == kF32) return dispatch_bwd<float>(a, B, KV, D, s);
     if (dtype == kBF16) return dispatch_bwd<__nv_bfloat16>(a, B, KV, D, s);
     return (int)cudaErrorInvalidValue;
   }
-  // the tensor-core bodies: bf16 at head_dim 64 / 128
-  if (dtype != kBF16 || (D != 64 && D != 128) || body > 2) return (int)cudaErrorInvalidValue;
-  if (body == 2 && (dk_part == nullptr || dv_part == nullptr)) return (int)cudaErrorInvalidValue;
+  // the tensor-core bodies: bf16 at head_dim 64 / 128 / 256
+  if (dtype != kBF16 || (D != 64 && D != 128 && D != 256) || body > 2) return (int)cudaErrorInvalidValue;
+  if (body == 1 && subgroups != 1) return (int)cudaErrorInvalidValue;
+  if (body == 2) {
+    if (dk_part == nullptr || dv_part == nullptr) return (int)cudaErrorInvalidValue;
+    // 64 / 128: one query head a CTA; 256: any divisor of the group
+    if (subgroups < 1 || g % subgroups != 0 || (D != 256 && subgroups != g)) return (int)cudaErrorInvalidValue;
+  }
+  if (D == 256) return launch_bwd_wgmma_d256(a, B, KV, body == 2, s);
   return D == 64 ? launch_bwd_wgmma<64>(a, B, KV, body == 2, s) : launch_bwd_wgmma<128>(a, B, KV, body == 2, s);
 }

@@ -10,18 +10,19 @@ kernel for it.
 * ``flash_attention_backward(q, k, v, out, lse, d_out, causal, window,
   scale) -> (dq, dk, dv)`` — the wrapper: ``q``, ``out``, ``d_out``
   ``(B, H, Sq, D)``, ``k``, ``v`` ``(B, KV, Sk, D)``, ``lse`` the forward's
-  float32 ``(B, H, Sq)``. bf16 at head_dim 64 and 128 runs the wgmma body,
-  the rest a CUDA-core body (``variant``; ``launch_count_by_variant``
-  counts launches by body), which at head_dim 256 (RecurrentGemma-9B's)
-  splits each row tile's accumulator columns over two CTAs
+  float32 ``(B, H, Sq)``. bf16 at head_dim 64, 128 and 256 runs the wgmma
+  body (at 256, RecurrentGemma-9B's, two warpgroups a CTA, each owning half
+  of the accumulator columns), the rest a CUDA-core body (``variant``;
+  ``launch_count_by_variant`` counts launches by body), which at head_dim
+  256 (float32) splits each row tile's accumulator columns over two CTAs
   (``column_chunks``). ``backward_plan`` says from shapes and mask
   what a call launches: the body, the tiles, the grids, the scratch, and
   the device kernels in order (the dQ pass, the dK/dV pass and, where the
-  plan splits the GQA group over CTAs, the fixed-order sum of the group's
-  partials; ``split_group``). It honours the strides of ``q``, ``k``,
-  ``v`` and ``out`` (head_dim contiguous and 16-byte vectors, as the
-  forward takes them; the model passes ``bshk`` tensors seen as
-  ``(B, H, S, D)``), makes ``d_out`` contiguous only where its strides
+  plan splits each GQA group into sub-groups of CTAs, the fixed-order sum
+  of their partials; ``split_group`` picks the count). It honours the
+  strides of ``q``, ``k``, ``v`` and ``out`` (head_dim contiguous and
+  16-byte vectors, as the forward takes them; the model passes ``bshk``
+  tensors seen as ``(B, H, S, D)``), makes ``d_out`` contiguous only where its strides
   break the vector alignment, and returns gradients laid out like their
   inputs. It checks as the forward checks and raises on what the kernel
   does not take (head_dim other than 16, 32, 64, 128 or 256, before a launch).
@@ -36,6 +37,7 @@ kernel for it.
 from __future__ import annotations
 
 import ctypes
+import heapq
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -59,17 +61,24 @@ launch_count = 0
 launch_count_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-_TENSOR_CORE_HEAD_DIMS = (64, 128)
+_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 #: rows a CTA owns (queries in the dQ pass, keys in the dK/dV pass) and
 #: rows of each tile its inner loop streams (keys, queries), by body
 _TILES = {"tensor_cores": (64, 64), "cuda_cores": (64, 32)}
 #: CTAs of the wgmma body an SM holds at once, by head_dim (shared memory
-#: and registers: 2 at 128, 3 at 64)
-_CTAS_PER_SM = {64: 3, 128: 2}
+#: and registers: 2 at 128, 3 at 64; at 256 one CTA of two warpgroups)
+_CTAS_PER_SM = {64: 3, 128: 2, 256: 1}
 #: the dK/dV pass splits the group where its heaviest CTA would run this
 #: many times the work a CTA slot gets on average (the split pays the
 #: partials' traffic and a second kernel)
 _SPLIT_IMBALANCE = 1.25
+#: head_dims whose wgmma dK/dV kernel runs any divisor of the group as its
+#: sub-group count; at 64 and 128 a split CTA runs one query head
+_ANY_SUBGROUPS = (256,)
+#: there, the fewest sub-groups whose dK/dV pass is estimated within this
+#: factor of the best count's length (each further split adds partials to
+#: write and sum)
+_SPLIT_SLACK = 1.05
 _SUM_THREADS = 256
 
 
@@ -81,9 +90,9 @@ def reset_launch_count() -> None:
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The device body that serves ``dtype`` at ``head_dim``: bf16 at 64 and
-    128 on the tensor cores (wgmma); float32 (which the tensor cores would
-    compute as TF32) and bf16 at 16, 32 and 256 on the CUDA cores."""
+    """The device body that serves ``dtype`` at ``head_dim``: bf16 at 64, 128
+    and 256 on the tensor cores (wgmma); float32 (which the tensor cores
+    would compute as TF32) and bf16 at 16 and 32 on the CUDA cores."""
     if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_HEAD_DIMS:
         return "tensor_cores"
     return "cuda_cores"
@@ -92,7 +101,8 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 class BackwardPlan(NamedTuple):
     """What one call of the backward launches, from shapes and mask alone."""
     body: str                               # a name of VARIANTS
-    split_group: bool                       # dK/dV: a CTA per query head, partials summed in head order
+    split_group: bool                       # dK/dV: sub-groups of CTAs, partials summed in order
+    subgroups: int                          # sub-groups of each KV head's group (1 unless split)
     rows: int                               # rows a CTA owns: queries (dQ pass), keys (dK/dV pass)
     cols: int                               # rows of a streamed tile: keys (dQ pass), queries (dK/dV pass)
     kernels: Tuple[str, ...]                # device kernels a call launches, in order
@@ -102,9 +112,9 @@ class BackwardPlan(NamedTuple):
 
 def column_chunks(body: str, d: int) -> int:
     """CTAs that split one row tile's accumulator columns: the CUDA-core
-    body owns at most 128 columns a CTA (two at head_dim 256, where dK and
-    dV of 64 rows would take 256 registers a thread); the grid's x is
-    batch x chunks."""
+    body owns at most 128 columns a CTA (two at head_dim 256, float32 only,
+    where dK and dV of 64 rows would take 256 registers a thread); the
+    grid's x is batch x chunks."""
     return -(-d // 128) if body == "cuda_cores" else 1
 
 
@@ -118,52 +128,87 @@ def query_tiles(t0: int, sq: int, sk: int, causal: bool, window: int, rows: int 
     return -(-(qhi - qlo) // rows) if qhi > qlo else 0
 
 
+def subgroup_counts(g: int, d: int) -> Tuple[int, ...]:
+    """The sub-group counts the wgmma dK/dV kernel at head_dim ``d`` takes
+    for a group of ``g`` query heads, ascending: every divisor of g at
+    256; at 64 and 128 the group whole or one head a CTA."""
+    if d in _ANY_SUBGROUPS:
+        return tuple(n for n in range(1, g + 1) if g % n == 0)
+    return (1, g) if g > 1 else (1,)
+
+
+def dkv_pass_length(b: int, kv: int, g: int, n: int, tiles, slots: int) -> int:
+    """The dK/dV pass's length in (head, query tile) steps with the group
+    split into ``n`` sub-groups: its CTAs (g / n heads times their key
+    tile's ``tiles`` each), taken in launch order (sub-group, batch, key
+    tile, the heaviest key tiles first), each going to the CTA slot that
+    frees first, as the card's block scheduler hands them out."""
+    free = [0] * min(slots, b * kv * n * len(tiles))
+    for t in tiles:
+        for _ in range(b * kv * n):
+            heapq.heapreplace(free, free[0] + g // n * t)
+    return max(free, default=0)
+
+
 def split_group(b: int, h: int, kv: int, sq: int, sk: int, d: int, causal: bool, window: int,
-                n_sms: int) -> bool:
-    """Whether the wgmma body's dK/dV pass splits each KV head's group of g
-    query heads over CTAs. Unsplit, a CTA runs the group's g heads in turn,
-    so under a causal mask the first key tiles' CTAs run g times the most
-    query tiles; split, a CTA runs one head. Split where the unsplit
-    heaviest CTA exceeds the average work of a CTA slot (the card's SMs x
-    CTAs an SM holds) by ``_SPLIT_IMBALANCE``: the tail is then the pass's
-    time, and the split's g-fold grid balances it."""
+                n_sms: int) -> int:
+    """Into how many sub-groups of CTAs the wgmma body's dK/dV pass splits
+    each KV head's group of g query heads (1: not split). A CTA runs its
+    sub-group's g / n heads in turn, so under a causal mask the first key
+    tiles' CTAs run g / n times the most query tiles, and at batch 1 with
+    few KV heads the unsplit grid leaves SMs idle. At 64 and 128 (one head
+    a CTA or the group whole): split where the unsplit heaviest CTA
+    exceeds the average work of a CTA slot (the card's SMs x CTAs an SM
+    holds) by ``_SPLIT_IMBALANCE``. At 256 (any divisor of g): the fewest
+    sub-groups whose pass (``dkv_pass_length``) is within ``_SPLIT_SLACK``
+    of the shortest count's."""
     g = h // kv
     if g == 1 or b * sq * sk == 0:
-        return False
+        return 1
     tiles = [query_tiles(t0, sq, sk, causal, window) for t0 in range(0, sk, 64)]
     slots = n_sms * _CTAS_PER_SM[d]
+    if d in _ANY_SUBGROUPS:
+        length = {n: dkv_pass_length(b, kv, g, n, tiles, slots) for n in subgroup_counts(g, d)}
+        best = min(length.values())
+        return min(n for n, t in length.items() if t <= _SPLIT_SLACK * best)
     heaviest = g * max(tiles)
     average = b * h * sum(tiles) / min(slots, b * kv * len(tiles))
-    return heaviest > _SPLIT_IMBALANCE * average
+    return g if heaviest > _SPLIT_IMBALANCE * average else 1
 
 
 def backward_plan(b: int, h: int, kv: int, sq: int, sk: int, d: int, dtype: torch.dtype, *,
                   causal: bool = True, window: int = 0, n_sms: int = 132,
-                  split: Optional[bool] = None) -> BackwardPlan:
+                  subgroups: Optional[int] = None) -> BackwardPlan:
     """The body (``variant``), tiles, grids, scratch and the ordered device
-    kernels of one call at these shapes and mask; ``split`` forces the wgmma
-    body's group split (default ``split_group``). The wgmma body's grids run
+    kernels of one call at these shapes and mask. ``subgroups`` forces the
+    wgmma body's dK/dV grid to that many sub-groups of each group (one of
+    ``subgroup_counts``: 1 keeps the group in its CTA, g gives each query
+    head a CTA; default ``split_group``'s count). The wgmma body's grids run
     the heaviest tiles first under a causal mask (``tile_in_launch_order``)."""
     body = variant(dtype, d)
     rows, cols = _TILES[body]
     scratch = b * h * sq * 4                              # Delta
+    g = h // kv
     if body == "cuda_cores":
-        split = False
+        n = 1
         x = b * column_chunks(body, d)
         launches = [("flash_bwd_dq_kernel", (x, h, -(-sq // rows)), sq),
                     ("flash_bwd_dkv_kernel", (x, kv, -(-sk // rows)), sk)]
     else:
-        if split is None:
-            split = split_group(b, h, kv, sq, sk, d, causal, window, n_sms)
-        launches = [("flash_bwd_dq_wgmma_kernel", (h, b, -(-sq // rows)), sq),
-                    ("flash_bwd_dkv_wgmma_kernel", (h if split else kv, b, -(-sk // rows)), sk)]
-        if split:
+        n = split_group(b, h, kv, sq, sk, d, causal, window, n_sms) if subgroups is None else subgroups
+        if n not in subgroup_counts(g, d):
+            raise ValueError(f"backward_plan: {n} sub-groups of a group of {g} at head_dim {d}; "
+                             f"the kernel takes {subgroup_counts(g, d)}")
+        pair = "_d256" if d == 256 else ""              # two warpgroups a CTA
+        launches = [(f"flash_bwd_dq_wgmma{pair}_kernel", (h, b, -(-sq // rows)), sq),
+                    (f"flash_bwd_dkv_wgmma{pair}_kernel", (kv * n, b, -(-sk // rows)), sk)]
+        if n > 1:
             blocks = min(-(-b * kv * sk * (d // 8) // _SUM_THREADS), 1 << 20)
             launches.append(("flash_bwd_dkv_sum_kernel", (blocks, 1, 1), sk))
-            scratch += 2 * b * h * sk * d * 4                 # the partials of dK and dV
+            scratch += 2 * b * kv * n * sk * d * 4            # the partials of dK and dV
     # a pass with no rows launches nothing
-    launches = [(name, grid) for name, grid, n in launches if b > 0 and n > 0]
-    return BackwardPlan(body, split, rows, cols, tuple(n for n, _ in launches),
+    launches = [(name, grid) for name, grid, m in launches if b > 0 and m > 0]
+    return BackwardPlan(body, n > 1, n, rows, cols, tuple(m for m, _ in launches),
                         tuple(grid for _, grid in launches), scratch)
 
 
@@ -173,7 +218,7 @@ def tile_in_launch_order(kernel: str, z: int, n_tiles: int, causal: bool) -> int
     see the most keys) and the dK/dV pass the key tiles first to last (the
     first keys are seen by the most queries), so the longest CTAs start
     first and the tail is short."""
-    if kernel == "flash_bwd_dq_wgmma_kernel" and causal:
+    if kernel.startswith("flash_bwd_dq_wgmma") and causal:
         return n_tiles - 1 - z
     return z
 
@@ -210,10 +255,12 @@ def group_partials_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, d_out: torch.Tensor, *,
     causal: bool = True, window: int = 0, scale: Optional[float] = None,
+    subgroups: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each query head's float32 share of dK and dV, ``(B, H, Sk, D)``:
-    what the split plan's dK/dV pass writes to its partials (dK's already
-    scaled)."""
+    """Each sub-group's float32 share of dK and dV, ``(B, KV x n, Sk, D)``
+    for ``subgroups`` = n (default g: one query head each, ``(B, H, Sk,
+    D)``): what the split plan's dK/dV pass writes to its partials (dK's
+    already scaled); a sub-group's heads added in head order."""
     b, h, sq, d = q.shape
     kv = k.shape[1]
     g = h // kv
@@ -226,25 +273,29 @@ def group_partials_plain(
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bhqd,bhsd->bhqs", dof, vf)
     ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
-    return (torch.einsum("bhqs,bhqd->bhsd", ds, qf) * scale,
-            torch.einsum("bhqs,bhqd->bhsd", p, dof))
+    heads = (torch.einsum("bhqs,bhqd->bhsd", ds, qf) * scale, torch.einsum("bhqs,bhqd->bhsd", p, dof))
+    n = g if subgroups is None else subgroups
+    sk = k.shape[2]
+    return tuple(_sum_in_order(part.reshape(b, kv * n, g // n, sk, d)) for part in heads)
+
+
+def _sum_in_order(grouped: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 2 taking its entries in order 0, 1, ... (float32
+    addition is not associative)."""
+    acc = grouped[:, :, 0].clone()
+    for j in range(1, grouped.shape[2]):
+        acc += grouped[:, :, j]
+    return acc
 
 
 def group_sum_plain(dk_part: torch.Tensor, dv_part: torch.Tensor, kv: int,
                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV ``(B, KV, Sk, D)`` from the query heads' float32 partials
-    ``(B, H, Sk, D)``: each KV head's g partials added in head order, in
+    """dK and dV ``(B, KV, Sk, D)`` from the sub-groups' float32 partials
+    ``(B, KV x n, Sk, D)``: each KV head's n partials added in order, in
     float32, then cast, as flash_bwd_dkv_sum_kernel adds them."""
-    b, h, sk, d = dk_part.shape
-    g = h // kv
-    sums = []
-    for part in (dk_part, dv_part):
-        grouped = part.reshape(b, kv, g, sk, d)
-        acc = grouped[:, :, 0].clone()
-        for hh in range(1, g):
-            acc += grouped[:, :, hh]
-        sums.append(acc.to(dtype))
-    return sums[0], sums[1]
+    b, parts, sk, d = dk_part.shape
+    n = parts // kv
+    return tuple(_sum_in_order(part.reshape(b, kv, n, sk, d)).to(dtype) for part in (dk_part, dv_part))
 
 
 def _fn():
@@ -252,7 +303,7 @@ def _fn():
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 8 + [p, ctypes.c_float, i, i, p, p, p]
+        fn.argtypes = [p] * 10 + [i] * 8 + [p, ctypes.c_float, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -308,7 +359,7 @@ def _launch(q, k, v, out, lse, d_out, causal, window, scale, plan: BackwardPlan)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     # the split group's float32 partials: every element is written by the
     # dK/dV pass before the sum reads it
-    parts = (torch.empty((2, b, h, sk, d), dtype=torch.float32, device=q.device)
+    parts = (torch.empty((2, b, kv * plan.subgroups, sk, d), dtype=torch.float32, device=q.device)
              if plan.split_group else None)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, out, d_out, dq, k, v, dk, dv) for s in t.stride()[:3]))
@@ -316,7 +367,7 @@ def _launch(q, k, v, out, lse, d_out, causal, window, scale, plan: BackwardPlan)
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, kv, sq, sk, d, int(causal), int(window), strides, float(scale),
-        _DTYPES[q.dtype], _BODY_CODE[plan.body, plan.split_group],
+        _DTYPES[q.dtype], _BODY_CODE[plan.body, plan.split_group], plan.subgroups,
         parts[0].data_ptr() if parts is not None else None,
         parts[1].data_ptr() if parts is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream,

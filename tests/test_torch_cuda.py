@@ -693,16 +693,18 @@ def test_cuda_flash_backward_more_keys_or_queries(card, sq, sk, dtype):
     _backward_matches_plain(q, k, v, do, True, 0, dtype)
 
 
-def _plan_matches_plain(q, k, v, do, causal, window, split):
-    """The wgmma body under a forced plan (the GQA group split over CTAs or
-    kept in the CTA) against the plain backward, bf16 2e-2 relative to
-    max(|ref|, 1); the plan's kernels ran, and two calls give the same bits."""
+def _plan_matches_plain(q, k, v, do, causal, window, subgroups):
+    """The wgmma body under a forced plan (the GQA group in ``subgroups``
+    sub-groups of CTAs: 1 keeps it in the CTA) against the plain backward,
+    bf16 2e-2 relative to max(|ref|, 1); the plan's kernels ran, and two
+    calls give the same bits."""
     from repro_torch.kernels import flash_attention_bwd as fb
 
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    plan = fb.backward_plan(b, h, kv, sq, sk, d, q.dtype, causal=causal, window=window, split=split)
-    assert plan.body == "tensor_cores" and plan.split_group is split
+    plan = fb.backward_plan(b, h, kv, sq, sk, d, q.dtype, causal=causal, window=window, subgroups=subgroups)
+    assert plan.body == "tensor_cores"
+    assert plan.subgroups == subgroups and plan.split_group is (subgroups > 1)
     out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     grads = fb._launch(q, k, v, out, lse, do, causal, window, d ** -0.5, plan)
     torch.cuda.synchronize()
@@ -722,7 +724,7 @@ def test_cuda_flash_backward_wgmma_both_plans_any_group(card, g, d, split):
     """The wgmma body at every GQA group from 1 to 16 under both dK/dV
     grids (the group split over CTAs and summed in head order, or kept in
     the CTA), causal, S not a multiple of 64, strided bshk views."""
-    _plan_matches_plain(*_grad_case(2, 2 * g, 2, 150, d, "bfloat16", g), True, 0, split)
+    _plan_matches_plain(*_grad_case(2, 2 * g, 2, 150, d, "bfloat16", g), True, 0, g if split else 1)
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -734,7 +736,7 @@ def test_cuda_flash_backward_wgmma_both_plans_masks(card, sq, sk, causal, window
     g = torch.Generator(device="cuda").manual_seed(sq + sk + window)
     q, do = (_bshk(2, sq, 8, 128, "bfloat16", g) for _ in range(2))
     k, v = (_bshk(2, sk, 2, 128, "bfloat16", g) for _ in range(2))
-    _plan_matches_plain(q, k, v, do, causal, window, split)
+    _plan_matches_plain(q, k, v, do, causal, window, 4 if split else 1)
 
 
 @pytest.mark.parametrize("tile", [0, 1, 2])
@@ -791,16 +793,25 @@ def test_cuda_backward_refuses_what_it_does_not_take(card):
 # --------------------------------------------------------------------------- #
 # RecurrentGemma training: the RG-LRU backward and the flash backward at 256  #
 # --------------------------------------------------------------------------- #
+def _model_decays(b, s, r, gen, lo=0.9, hi=0.999):
+    """RG-LRU decays in RecurrentGemma's trained range: a_t = base^{r_t},
+    base (= sigma(Lambda)^c) uniform in [lo, hi] a channel (Griffin's init
+    of Lambda: [0.9, 0.999]), the recurrence gate r_t = sigmoid(N(0, 1)).
+    A chunk of 128 steps passes on about 1e-3 to 0.94 of its carry."""
+    base = torch.rand((1, 1, r), device="cuda", generator=gen) * (hi - lo) + lo
+    return base ** torch.sigmoid(torch.randn((b, s, r), device="cuda", generator=gen))
+
+
 @pytest.mark.parametrize("b,s,r", [(1, 4096, 4096), (2, 300, 256), (3, 1, 100), (2, 9, 33)])
 def test_cuda_rglru_backward_matches_plain(card, b, s, r):
     """The reverse scan (``csrc/rglru_bwd.cu``) against its plain version,
-    float32 1e-5 relative to the largest magnitude, chained across two
-    calls through ``RGLRUScanFn``; its own counter moves, the forward's
-    only for the forward."""
+    float32 1e-5 relative to the largest magnitude, decays in the model's
+    range, chained across two calls through ``RGLRUScanFn``; its own
+    counter moves, the forward's only for the forward."""
     from repro_torch.kernels import rglru, rglru_bwd
 
     g = torch.Generator(device="cuda").manual_seed(s)
-    a = torch.rand((b, s, r), device="cuda", generator=g) * 0.5 + 0.5
+    a = _model_decays(b, s, r, g)
     x, gg = (torch.randn((b, s, r), device="cuda", generator=g) for _ in range(2))
     h0, gf = (torch.randn((b, r), device="cuda", generator=g) for _ in range(2))
     h, _ = rglru.rglru_scan(a, x, h0)
@@ -824,13 +835,100 @@ def test_cuda_rglru_backward_matches_plain(card, b, s, r):
 @pytest.mark.parametrize("causal,window", [(True, 2048), (True, 0), (True, 33), (False, 0)])
 def test_cuda_flash_backward_head_dim_256(card, causal, window, dtype):
     """RecurrentGemma-9B's attention (16 query heads on one KV head, head_dim
-    256) on the CUDA-core body, whose two CTAs a row tile split the
-    accumulator columns: against the plain backward, two calls bit-equal."""
+    256) under its own plan: bf16 on the two-warpgroup wgmma body, float32
+    on the CUDA-core body, whose two CTAs a row tile split the accumulator
+    columns; against the plain backward, two calls bit-equal."""
     from repro_torch.kernels import flash_attention_bwd as fb
 
     s = 2200 if window == 2048 else 150
-    assert fb.backward_plan(1, 16, 1, s, s, 256, TDT[dtype]).body == "cuda_cores"
+    want = "tensor_cores" if dtype == "bfloat16" else "cuda_cores"
+    assert fb.backward_plan(1, 16, 1, s, s, 256, TDT[dtype]).body == want
     _backward_matches_plain(*_grad_case(1, 16, 1, s, 256, dtype, s + window), causal, window, dtype)
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (150, 150, True, 0), (200, 200, True, 33), (300, 300, True, 130), (100, 160, True, 0),
+    (160, 100, True, 0), (70, 200, False, 0)])
+@pytest.mark.parametrize("g", [1, 2, 16])
+def test_cuda_flash_backward_wgmma_256_every_subgroup_count(card, g, sq, sk, causal, window):
+    """The head_dim 256 wgmma body at groups 1, 2 and 16 (one KV head, batch
+    2, strided bshk views) under every dK/dV grid it takes: every divisor of
+    g as the sub-group count (1: the group kept in the CTA, g: one head a
+    CTA), each against the plain backward, two calls bit-equal."""
+    from repro_torch.kernels import flash_attention_bwd as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(g * 1000 + sq + sk + window)
+    q, do = (_bshk(2, sq, g, 256, "bfloat16", gen) for _ in range(2))
+    k, v = (_bshk(2, sk, 1, 256, "bfloat16", gen) for _ in range(2))
+    for n in fb.subgroup_counts(g, 256):
+        _plan_matches_plain(q, k, v, do, causal, window, n)
+
+
+@pytest.mark.parametrize("b,s,r", [(1, 64, 32), (1, 65, 32), (1, 129, 40), (2, 257, 100), (3, 500, 64),
+                                   (1, 1, 4096), (4, 1000, 4096)])
+def test_cuda_rglru_backward_chunked_plan(card, b, s, r):
+    """The chunked reverse scan at chunk edges (S at, one past and not a
+    multiple of the chunk), S = 1, B > 1 and a plan of one chunk, decays in
+    the model's range: against the sequential plain version (float32 1e-5
+    relative to the largest magnitude) and the plain version in the
+    kernel's chunk order; two calls give the same bits; two calls chained
+    through their state match the plain versions chained."""
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    plan = rglru_bwd.scan_plan(b, s, r)
+    g = torch.Generator(device="cuda").manual_seed(s + r)
+    a = _model_decays(b, s, r, g)
+    x, gg = (torch.randn((b, s, r), device="cuda", generator=g) for _ in range(2))
+    h0, gf = (torch.randn((b, r), device="cuda", generator=g) for _ in range(2))
+    h, _ = rglru.rglru_scan(a, x, h0)
+    got = rglru_bwd.rglru_scan_backward(a, h, h0, gg, gf)
+    again = rglru_bwd.rglru_scan_backward(a, h, h0, gg, gf)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(got, again))
+    for ref in (rglru_bwd.rglru_scan_backward_plain(a, h, h0, gg, gf),
+                rglru_bwd.rglru_scan_backward_chunked_plain(a, h, h0, gg, gf, plan.chunk)):
+        for u, w in zip(got, ref):
+            assert float((u - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-5
+    if s < 2:
+        return
+    cut = s // 2
+    h1, f1 = rglru.rglru_scan(a[:, :cut], x[:, :cut], h0)
+    h2, _ = rglru.rglru_scan(a[:, cut:], x[:, cut:], f1)
+    a1, a2, g1, g2 = (t.contiguous() for t in (a[:, :cut], a[:, cut:], gg[:, :cut], gg[:, cut:]))
+    second = rglru_bwd.rglru_scan_backward(a2, h2, f1, g2, gf)
+    first = rglru_bwd.rglru_scan_backward(a1, h1, h0, g1, second[2])
+    ref2 = rglru_bwd.rglru_scan_backward_plain(a2, h2, f1, g2, gf)
+    ref1 = rglru_bwd.rglru_scan_backward_plain(a1, h1, h0, g1, ref2[2])
+    for u, w in zip(first + second, ref1 + ref2):
+        assert float((u - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-5
+
+
+@pytest.mark.parametrize("b,s,r,lo,hi", [(2, 2048, 64, 0.999, 0.9999), (1, 4096, 4096, 0.9, 0.999)])
+def test_cuda_rglru_backward_carries_across_many_chunks(card, b, s, r, lo, hi):
+    """32 chunks whose carry reaches the first chunk at leading order: the
+    decays keep more than 1e-2 of g_fin over every step (all channels at
+    (2, 2048, 64), the slowest at RecurrentGemma's shape), so a fold that
+    skipped a chunk's map, or took another chunk's A, moves the gradients
+    far past the tolerance. Against the sequential plain version, float32 1e-5
+    relative to the largest magnitude."""
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    plan = rglru_bwd.scan_plan(b, s, r)
+    assert plan.n_chunks == 32
+    g = torch.Generator(device="cuda").manual_seed(r)
+    a = _model_decays(b, s, r, g, lo, hi)
+    x, gg = (torch.randn((b, s, r), device="cuda", generator=g) for _ in range(2))
+    h0, gf = (torch.randn((b, r), device="cuda", generator=g) for _ in range(2))
+    assert float(a.prod(1).max()) > 1e-2
+    h, _ = rglru.rglru_scan(a, x, h0)
+    got = rglru_bwd.rglru_scan_backward(a, h, h0, gg, gf)
+    torch.cuda.synchronize()
+    ref = rglru_bwd.rglru_scan_backward_plain(a, h, h0, gg, gf)
+    # g_fin's share of dh0, carried over all 32 chunks, is 100 times the tolerance
+    no_fin = rglru_bwd.rglru_scan_backward_plain(a, h, h0, gg, torch.zeros_like(gf))[2]
+    assert float((ref[2] - no_fin).abs().max() / ref[2].abs().max()) > 1e-3
+    for u, w in zip(got, ref):
+        assert float((u - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-5
 
 
 @pytest.mark.parametrize("d", [16, 64, 256])

@@ -149,11 +149,11 @@ def test_backward_checks_its_inputs():
 
 
 def test_backward_body_by_dtype_and_head_dim():
-    """bf16 at head_dim 64 and 128 runs the tensor-core body; float32 at any
-    head_dim and bf16 at 16, 32 and 256 the CUDA-core body, which splits
-    each row tile's columns over two CTAs at 256 only."""
+    """bf16 at head_dim 64, 128 and 256 runs the tensor-core body; float32 at
+    any head_dim and bf16 at 16 and 32 the CUDA-core body, which splits each
+    row tile's columns over two CTAs at 256 only."""
     assert [fb.variant(torch.bfloat16, d) for d in (16, 32, 64, 128, 256)] == [
-        "cuda_cores", "cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"]
+        "cuda_cores", "cuda_cores", "tensor_cores", "tensor_cores", "tensor_cores"]
     assert {fb.variant(torch.float32, d) for d in (16, 32, 64, 128, 256)} == {"cuda_cores"}
     assert [fb.column_chunks("cuda_cores", d) for d in (16, 32, 64, 128, 256)] == [1, 1, 1, 1, 2]
     assert fb.column_chunks("tensor_cores", 128) == 1
@@ -216,3 +216,24 @@ def test_cross_attention_backward_matches_jax_grad_of_the_reference(sq, sk, h, k
     out.backward(torch.from_numpy(do))
     for leaf, want in zip(leaves, ref):
         assert _rel(leaf.grad.numpy(), want) < TOL
+
+
+@pytest.mark.parametrize("subgroups", [1, 2, 4, 8, 16])
+def test_subgroup_partials_at_head_dim_256_sum_to_the_gradients(subgroups):
+    """RecurrentGemma-9B's attention (16 query heads on one KV head, head_dim
+    256, windowed): each sub-group's float32 share of dK and dV (its heads
+    added in order; what the 256 body's split dK/dV pass writes), summed
+    over the sub-groups in order, equals the plain backward's dK and dV and
+    jax.grad of the reference's attention."""
+    q, k, v, do = _inputs(16, 1, 256, seed=subgroups)
+    _, ref_grads = _jax_grads(q, k, v, do, True, 8)
+    tq, tk, tv, tdo = (_bhsd(x) for x in (q, k, v, do))
+    out, lse = fa.flash_attention(tq, tk, tv, causal=True, window=8, return_lse=True)
+    parts = fb.group_partials_plain(tq, tk, tv, out, lse, tdo, causal=True, window=8, subgroups=subgroups)
+    assert all(p.shape == (2, subgroups, 24, 256) and p.dtype == torch.float32 for p in parts)
+    dk, dv = fb.group_sum_plain(*parts, 1, tq.dtype)
+    _, plain_dk, plain_dv = fb.flash_attention_backward_plain(tq, tk, tv, out, lse, tdo, causal=True, window=8)
+    for got, plain, ref in ((dk, plain_dk, ref_grads[1]), (dv, plain_dv, ref_grads[2])):
+        assert got.shape == plain.shape == (2, 1, 24, 256)
+        assert _rel(got.numpy(), plain.numpy()) < 1e-6
+        assert _rel(got.transpose(1, 2).numpy(), ref) < TOL

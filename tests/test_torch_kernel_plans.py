@@ -347,9 +347,11 @@ def test_backward_plan(b, h, kv, sq, sk, d, dtype, causal, window):
     wgmma = p.body == "tensor_cores"
     assert (p.rows, p.cols) == ((64, 64) if wgmma else (64, 32))
     if wgmma:
-        want = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+        pair = "_d256" if d == 256 else ""                      # two warpgroups a CTA at 256
+        want = (f"flash_bwd_dq_wgmma{pair}_kernel", f"flash_bwd_dkv_wgmma{pair}_kernel")
         want += ("flash_bwd_dkv_sum_kernel",) if p.split_group else ()
-        assert p.grids[0][:2] == (h, b) and p.grids[1][:2] == (h if p.split_group else kv, b)
+        assert p.subgroups in fb.subgroup_counts(h // kv, d) and p.split_group is (p.subgroups > 1)
+        assert p.grids[0][:2] == (h, b) and p.grids[1][:2] == (kv * p.subgroups, b)
     else:
         want = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
         x = b * fb.column_chunks(p.body, d)                     # two CTAs a row tile at 256
@@ -359,7 +361,7 @@ def test_backward_plan(b, h, kv, sq, sk, d, dtype, causal, window):
         assert (z - 1) * p.rows < n <= z * p.rows              # every tile, none past the end
     if p.split_group:
         assert p.grids[2][0] * 256 >= b * kv * sk * d // 8 and p.grids[2][1:] == (1, 1)
-    assert p.scratch_bytes == b * h * sq * 4 + (2 * b * h * sk * d * 4 if p.split_group else 0)
+    assert p.scratch_bytes == b * h * sq * 4 + (2 * b * kv * p.subgroups * sk * d * 4 if p.split_group else 0)
     if wgmma and causal:
         nq, nk = p.grids[0][2], p.grids[1][2]
         dq_work = [_key_tiles_of_query_tile(64 * fb.tile_in_launch_order(p.kernels[0], z, nq, True),
@@ -378,14 +380,107 @@ def test_backward_plan(b, h, kv, sq, sk, d, dtype, causal, window):
     (2, 32, 2, 150, 128, 0, True),      # g = 16 on a small grid
 ])
 def test_backward_plan_splits_the_group_where_the_tail_would_rule(b, h, kv, sq, d, window, split):
-    assert fb.split_group(b, h, kv, sq, sq, d, True, window, H100_SMS) is split
+    assert fb.split_group(b, h, kv, sq, sq, d, True, window, H100_SMS) == (h // kv if split else 1)
     p = fb.backward_plan(b, h, kv, sq, sq, d, BF16, window=window, n_sms=H100_SMS)
     assert p.split_group is split
-    forced = fb.backward_plan(b, h, kv, sq, sq, d, BF16, window=window, n_sms=H100_SMS, split=not split)
-    assert forced.split_group is (not split) and len(forced.kernels) == 2 + (not split)
+    other = 1 if split else h // kv
+    forced = fb.backward_plan(b, h, kv, sq, sq, d, BF16, window=window, n_sms=H100_SMS, subgroups=other)
+    assert forced.subgroups == other and forced.split_group is (other > 1)
+    assert len(forced.kernels) == 2 + forced.split_group
 
 
 @pytest.mark.parametrize("b,sq,sk", [(0, 64, 64), (2, 0, 64), (2, 64, 0), (2, 0, 0)])
 def test_backward_plan_launches_nothing_for_an_empty_pass(b, sq, sk):
-    p = fb.backward_plan(b, 8, 2, sq, sk, 128, BF16, n_sms=H100_SMS, split=True)
+    p = fb.backward_plan(b, 8, 2, sq, sk, 128, BF16, n_sms=H100_SMS, subgroups=4)
     assert len(p.kernels) == len(p.grids) == (b > 0) * ((sq > 0) + 2 * (sk > 0))
+
+
+# (B, H, KV, Sq, Sk, causal, window) -> (sub-groups, grids, scratch bytes) of
+# the bf16 head_dim 256 plan: RecurrentGemma-9B's training shape, a window
+# without causal, ragged S, Sq != Sk both ways, and a batch that fills the
+# card unsplit
+HEAD_DIM_256_PLANS = [
+    ((1, 16, 1, 4096, 4096, True, 2048), 8, ((16, 1, 64), (8, 1, 64), (512, 1, 1)), 67371008),
+    ((2, 16, 1, 300, 300, True, 100), 16, ((16, 2, 5), (16, 2, 5), (75, 1, 1)), 19699200),
+    ((1, 16, 1, 4096, 4096, True, 0), 4, ((16, 1, 64), (4, 1, 64), (512, 1, 1)), 33816576),
+    ((2, 2, 1, 100, 160, True, 0), 2, ((2, 2, 2), (2, 2, 3), (40, 1, 1)), 1312320),
+    ((2, 4, 4, 37, 90, False, 0), 1, ((4, 2, 1), (4, 2, 2)), 1184),
+    ((8, 16, 1, 4096, 4096, True, 2048), 1, ((16, 8, 64), (1, 8, 64)), 2097152),
+]
+
+
+@pytest.mark.parametrize("shape,subgroups,grids,scratch", HEAD_DIM_256_PLANS)
+def test_backward_plan_at_head_dim_256(shape, subgroups, grids, scratch):
+    """bf16 at head_dim 256 runs the two-warpgroup wgmma body: the kernels in
+    order, their grids (the dK/dV pass over KV x sub-groups CTAs), the
+    sub-group count ``split_group`` picks and the scratch (Delta, and the
+    float32 partials of dK and dV where split). At RecurrentGemma-9B's
+    training shape the group of 16 goes to 8 sub-groups: 512 CTAs where the
+    unsplit grid has 64 for 132 SMs."""
+    b, h, kv, sq, sk, causal, window = shape
+    p = fb.backward_plan(b, h, kv, sq, sk, 256, BF16, causal=causal, window=window, n_sms=H100_SMS)
+    assert p.body == "tensor_cores" and (p.rows, p.cols) == (64, 64)
+    assert p.subgroups == subgroups and p.split_group is (subgroups > 1)
+    assert fb.split_group(b, h, kv, sq, sk, 256, causal, window, H100_SMS) == subgroups
+    want = ("flash_bwd_dq_wgmma_d256_kernel", "flash_bwd_dkv_wgmma_d256_kernel")
+    assert p.kernels == want + (("flash_bwd_dkv_sum_kernel",) if subgroups > 1 else ())
+    assert p.grids == grids and p.scratch_bytes == scratch
+    # the pass the count was picked for is within the slack of every other count's
+    tiles = [fb.query_tiles(t0, sq, sk, causal, window) for t0 in range(0, sk, 64)]
+    length = {n: fb.dkv_pass_length(b, kv, h // kv, n, tiles, H100_SMS)
+              for n in fb.subgroup_counts(h // kv, 256)}
+    assert length[subgroups] <= fb._SPLIT_SLACK * min(length.values())
+    assert all(length[n] > fb._SPLIT_SLACK * min(length.values()) for n in length if n < subgroups)
+
+
+@pytest.mark.parametrize("g,counts", [(1, (1,)), (2, (1, 2)), (9, (1, 3, 9)), (16, (1, 2, 4, 8, 16))])
+def test_subgroup_counts_by_head_dim(g, counts):
+    """Any divisor of the group at 256; the group whole or one head a CTA
+    at 64 and 128; forcing a count the kernel does not take is refused."""
+    assert fb.subgroup_counts(g, 256) == counts
+    assert fb.subgroup_counts(g, 128) == fb.subgroup_counts(g, 64) == ((1, g) if g > 1 else (1,))
+    for n in counts:
+        assert fb.backward_plan(2, g, 1, 128, 128, 256, BF16, subgroups=n).subgroups == n
+    if g > 2:
+        with pytest.raises(ValueError, match="sub-groups"):
+            fb.backward_plan(2, g, 1, 128, 128, 128, BF16, subgroups=counts[1])
+
+
+def test_dkv_pass_length_hands_ctas_to_the_first_free_slot():
+    """Two slots, CTAs of work 3, 3, 2, 1 in launch order: 3 | 3, then 2
+    and 1 on the slots freed at 3: the pass takes 5; one CTA alone, its
+    work; no CTA, 0."""
+    assert fb.dkv_pass_length(1, 1, 2, 2, [3, 1], 2) == 4
+    assert fb.dkv_pass_length(1, 1, 1, 1, [3, 3, 2, 1], 2) == 5
+    assert fb.dkv_pass_length(1, 1, 4, 1, [5], 132) == 20
+    assert fb.dkv_pass_length(1, 1, 4, 1, [], 132) == 0
+
+
+# (B, H, KV, Sq, Sk, head_dim, causal, window) -> (split, kernels, grids,
+# scratch) as the 64 / 128 plans were before the head_dim 256 body: Qwen3-8B
+# at B 2 and B 1, a window, LLaMA-65B's MHA, Whisper-small's encoder and
+# decoder at its training shape, Sq != Sk, a window at head_dim 64
+_DQ, _DKV, _SUM = "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_sum_kernel"
+PLANS_AT_64_AND_128 = [
+    ((2, 32, 8, 2048, 2048, 128, True, 0), False, (_DQ, _DKV), ((32, 2, 32), (8, 2, 32)), 524288),
+    ((1, 32, 8, 2048, 2048, 128, True, 0), True, (_DQ, _DKV, _SUM),
+     ((32, 1, 32), (32, 1, 32), (1024, 1, 1)), 67371008),
+    ((2, 32, 8, 1024, 1024, 128, True, 256), False, (_DQ, _DKV), ((32, 2, 16), (8, 2, 16)), 262144),
+    ((1, 64, 64, 2048, 2048, 128, True, 0), False, (_DQ, _DKV), ((64, 1, 32), (64, 1, 32)), 524288),
+    ((2, 12, 12, 256, 256, 64, False, 0), False, (_DQ, _DKV), ((12, 2, 4), (12, 2, 4)), 24576),
+    ((8, 12, 12, 256, 256, 64, True, 0), False, (_DQ, _DKV), ((12, 8, 4), (12, 8, 4)), 98304),
+    ((2, 8, 2, 100, 160, 128, True, 0), True, (_DQ, _DKV, _SUM), ((8, 2, 2), (8, 2, 3), (40, 1, 1)), 2627840),
+    ((1, 16, 4, 300, 300, 64, True, 64), False, (_DQ, _DKV), ((16, 1, 5), (4, 1, 5)), 19200),
+]
+
+
+@pytest.mark.parametrize("shape,split,kernels,grids,scratch", PLANS_AT_64_AND_128)
+def test_backward_plans_at_64_and_128_are_unchanged(shape, split, kernels, grids, scratch):
+    """The bf16 plans at head_dim 64 and 128 are what they were before the
+    sub-group count: split or not by the same rule, one query head a CTA
+    where split, the same grids and scratch."""
+    b, h, kv, sq, sk, d, causal, window = shape
+    p = fb.backward_plan(b, h, kv, sq, sk, d, BF16, causal=causal, window=window, n_sms=H100_SMS)
+    assert (p.body, p.split_group, p.kernels, p.grids, p.scratch_bytes) == (
+        "tensor_cores", split, kernels, grids, scratch)
+    assert p.subgroups == (h // kv if split else 1)

@@ -104,7 +104,7 @@ def test_flash_backward_timer_needs_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         time_flash_backward.main(["--iters", "1"])
-    assert set(time_flash_backward.SHAPES) == {"b1", "b2"}
+    assert set(time_flash_backward.SHAPES) == {"b1", "b2", "recurrentgemma", "whisper"}
 
 
 def test_serve_timer_needs_the_card(monkeypatch):

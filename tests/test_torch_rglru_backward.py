@@ -115,3 +115,116 @@ def test_backward_checks_its_inputs():
         rglru_bwd.rglru_scan_backward(a, a[:, :-1], h0, g, g_fin)
     with pytest.raises(ValueError, match="h0 and g_fin"):
         rglru_bwd.rglru_scan_backward(a, a, h0[:1], g, g_fin)
+
+
+# --------------------------------------------------------------------------- #
+# The chunked plan of the CUDA kernel, and the plain scan in its order        #
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("b,s,r", [
+    (1, 4096, 4096),    # RecurrentGemma-9B's training shape: 32 chunks of 128
+    (1, 40, 256),       # S below the shortest chunk: one chunk
+    (1, 64, 256),       # S at the shortest chunk
+    (1, 128, 256),      # S a whole number of chunks
+    (1, 200, 256),      # S not a multiple of the chunk
+    (2, 257, 100),      # one step past a whole number of chunks
+    (1, 1, 4096),       # one step
+    (32, 4096, 4096),   # B x R fills the card: one chunk
+    (8, 128, 4096),
+    (2, 0, 8),          # no step
+])
+def test_scan_plan_covers_every_step_once(b, s, r):
+    """The chunks [c L, min(S, (c + 1) L)) cover 0..S-1 once, none empty;
+    one chunk where B x R alone reaches the thread target or S is short;
+    the kernels in order with their grids, and the chunk maps' scratch."""
+    p = rglru_bwd.scan_plan(b, s, r)
+    steps = [t for c in range(p.n_chunks) for t in range(c * p.chunk, min(s, (c + 1) * p.chunk))]
+    assert steps == list(range(s))
+    assert all(c * p.chunk < s for c in range(p.n_chunks)) or s == 0
+    lanes = b * r
+    if lanes >= rglru_bwd._SCAN_THREADS or s <= rglru_bwd._MIN_CHUNK:
+        assert p.n_chunks == 1
+    else:
+        # as many chunks as reach the thread target, unless the shortest chunk stops them
+        assert p.chunk >= rglru_bwd._MIN_CHUNK
+        assert lanes * p.n_chunks >= rglru_bwd._SCAN_THREADS or p.chunk == rglru_bwd._MIN_CHUNK
+    blocks = -(-r // 128)
+    if p.n_chunks > 1:
+        assert p.kernels == ("rglru_bwd_chunk_kernel", "rglru_bwd_kernel")
+        assert p.grids == ((blocks, p.n_chunks - 1, b), (blocks, p.n_chunks, b))
+        assert p.scratch_bytes == 2 * p.n_chunks * b * r * 4
+    else:
+        assert p.kernels == ("rglru_bwd_kernel",) and p.grids == ((blocks, 1, b),) and p.scratch_bytes == 0
+    if (b, s, r) == (1, 4096, 4096):
+        assert (p.chunk, p.n_chunks) == (128, 32)
+
+
+@pytest.mark.parametrize("b,r", [(0, 4096), (2, 0)])
+def test_scan_plan_launches_nothing_without_a_lane(b, r):
+    """No batch or no channel: the launcher returns before any kernel, and
+    the plan lists none (what chip_smoke.py holds the device trace to)."""
+    p = rglru_bwd.scan_plan(b, 4096, r)
+    assert p.kernels == () and p.grids == ()
+
+
+@pytest.mark.parametrize("b,s,r,chunk", [(2, 9, 5, 4), (1, 17, 7, 1), (3, 40, 4, 7), (2, 64, 3, 64),
+                                         (1, 65, 6, 64), (2, 33, 5, 100)])
+def test_chunked_plain_matches_jax_grad_of_the_oracle(b, s, r, chunk):
+    """The reverse scan in the kernel's chunk order (each chunk's carry map,
+    then each chunk from the carry the later maps give) against jax.grad
+    of the oracle, float32 within TOL, and against the sequential plain
+    version."""
+    a, x, h0, g, g_fin = _inputs(b, s, r, seed=chunk)
+    h, _ = rglru.rglru_scan_plain(*(torch.from_numpy(t) for t in (a, x, h0)))
+    args = (torch.from_numpy(a), h, torch.from_numpy(h0), torch.from_numpy(g), torch.from_numpy(g_fin))
+    got = rglru_bwd.rglru_scan_backward_chunked_plain(*args, chunk)
+    ref = _jax_vjp(a, x, h0, g, g_fin)
+    seq = rglru_bwd.rglru_scan_backward_plain(*args)
+    for u, want, w in zip(got, ref, seq):
+        assert u.dtype == torch.float32 and u.shape == want.shape
+        assert _rel(u.numpy(), want) < TOL and _rel(u.numpy(), w.numpy()) < TOL
+
+
+def test_chunked_plain_chained_across_calls():
+    """Two calls in the kernel's chunk order, the first's final state
+    seeding the second and the second's dh0 the first's g_fin, equal
+    jax.grad of the oracle chained the same way."""
+    a, x, h0, g, g_fin = _inputs(2, 150, 6, seed=4)
+    cut = 70
+
+    def ref_chain(a_, x_, h0_):
+        h1, f1 = rglru_scan_ref(a_[:, :cut], x_[:, :cut], h0_)
+        h2, f2 = rglru_scan_ref(a_[:, cut:], x_[:, cut:], f1)
+        return jnp.concatenate([h1, h2], axis=1), f2
+
+    _, vjp = jax.vjp(ref_chain, jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    ref = [np.asarray(t) for t in vjp((jnp.asarray(g), jnp.asarray(g_fin)))]
+    ta, tx, th, tg, tf = (torch.from_numpy(t) for t in (a, x, h0, g, g_fin))
+    h1, f1 = rglru.rglru_scan_plain(ta[:, :cut], tx[:, :cut], th)
+    h2, _ = rglru.rglru_scan_plain(ta[:, cut:], tx[:, cut:], f1)
+    da2, dx2, dh2 = rglru_bwd.rglru_scan_backward_chunked_plain(ta[:, cut:], h2, f1, tg[:, cut:], tf, 16)
+    da1, dx1, dh0 = rglru_bwd.rglru_scan_backward_chunked_plain(ta[:, :cut], h1, th, tg[:, :cut], dh2, 16)
+    for got, want in zip((torch.cat([da1, da2], 1), torch.cat([dx1, dx2], 1), dh0), ref):
+        assert _rel(got.numpy(), want) < TOL
+
+
+@pytest.mark.parametrize("lo,hi", [(0.9, 0.999), (0.999, 0.9999)])
+def test_chunked_plain_carries_across_many_chunks(lo, hi):
+    """32 chunks of 64 at decays in RecurrentGemma's trained range (a_t =
+    base^{r_t}, base uniform in [lo, hi] a channel, r_t = sigmoid(N(0, 1));
+    Griffin's init is [0.9, 0.999]), where the carry reaches the first
+    chunk at leading order: g_fin's share of dh0 is 100 times TOL, and the
+    chunk order still matches jax.grad of the oracle within TOL."""
+    b, s, r, chunk = 1, 2048, 8, 64
+    rng = np.random.default_rng(5)
+    base = rng.uniform(lo, hi, (1, 1, r))
+    gate = 1 / (1 + np.exp(-rng.standard_normal((b, s, r))))
+    _, x, h0, g, g_fin = _inputs(b, s, r, seed=6)
+    a = (base ** gate).astype(np.float32)
+    h, _ = rglru.rglru_scan_plain(*(torch.from_numpy(t) for t in (a, x, h0)))
+    args = (torch.from_numpy(a), h, torch.from_numpy(h0), torch.from_numpy(g))
+    got = rglru_bwd.rglru_scan_backward_chunked_plain(*args, torch.from_numpy(g_fin), chunk)
+    no_fin = rglru_bwd.rglru_scan_backward_plain(*args, torch.zeros(b, r))[2]
+    ref = _jax_vjp(a, x, h0, g, g_fin)
+    assert _rel(got[2].numpy() - no_fin.numpy(), ref[2]) > 100 * TOL
+    for u, want in zip(got, ref):
+        assert _rel(u.numpy(), want) < TOL
