@@ -802,6 +802,8 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
         print(f"  rglru_scan {(b, s, r)}: max_abs_err={errs[(b, s, r)]:.4g}", flush=True)
         if (b, s, r) == (8, dense_prefill_len(), 4096):
             timed = (a, x, h0)
+        if (b, s, r) == (8, 1, 4096):
+            decode = (a, x, h0)
     a, x = torch.sigmoid(torch.randn(1, 256, 128, device="cuda", generator=g)), \
         torch.randn(1, 256, 128, device="cuda", generator=g)
     full, hf_full = rglru.rglru_scan(a, x)
@@ -810,14 +812,20 @@ def run_recurrentgemma_kernel_checks(torch, np, F, flush):
     torch.cuda.synchronize()
     err = max(max_err(torch, h2, full[:, 128:], RGLRU_TOL), max_err(torch, hf2, hf_full, RGLRU_TOL))
     print(f"  rglru_scan chained across two calls: max_abs_err={err:.4g}", flush=True)
-    a, x, h0 = timed
-    results[("rglru_scan", label)] = dict(
-        max_abs_err=max(errs.values()),
-        ms=time_ms(torch, lambda: rglru.rglru_scan(a, x, h0), flush),
-        plain_ms=time_ms(torch, lambda: rglru.rglru_scan_plain(a, x, h0), flush),
-        library_ms=None,
-        **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
-    )
+    # the prefill's and a decode step's shapes: the plan's device kernels,
+    # two calls equal, and at the model's decays both plain versions
+    for key, (a, x, h0), what in ((("rglru_scan", label), timed, "wave prefill"),
+                                  (("rglru_scan", f"{label} decode"), decode, "decode step")):
+        plan_row = check_rglru_forward(torch, a, x, h0, model_decays(torch, *a.shape, g), what)
+        results[key] = dict(
+            max_abs_err=max(errs[tuple(a.shape)], plan_row.pop("model_err")), **plan_row,
+            ms=time_ms(torch, lambda: rglru.rglru_scan(a, x, h0), flush),
+            plain_ms=time_ms(torch, lambda: rglru.rglru_scan_plain(a, x, h0), flush),
+            library_ms=None,
+            **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
+        )
+        print(f"  rglru_scan {tuple(a.shape)} ({what}) timed: {results[key]['ms']:.4f} ms, bound "
+              f"{results[key]['bound_ms']:.4f} ms ({results[key]['bound_by']})", flush=True)
     (results[("rglru_scan_backward", "recurrentgemma-9b train")],
      results[("rglru_scan", "recurrentgemma-9b train")]) = check_rglru_backward(torch, flush)
     return results
@@ -883,6 +891,39 @@ def model_decays(torch, b, s, r, gen):
     to 0.94 of the carry it receives, so every chunk's carry shows."""
     base = torch.rand((1, 1, r), device="cuda", generator=gen) * 0.099 + 0.9
     return base ** torch.sigmoid(torch.randn((b, s, r), device="cuda", generator=gen))
+
+
+def check_rglru_forward(torch, a, x, h0, model_a, what):
+    """Kernel 4 (csrc/rglru.cu) on ``a``, ``x``, ``h0``: a call runs exactly
+    the device kernels of its scan_plan (each one's device µs printed), two
+    calls give the same bits; on the model's decays ``model_a`` (same x and
+    h0) it is held to the sequential plain version and to the plain version
+    in its chunked order, to RGLRU_TOL of the largest |h| (over memories of
+    ~1000 steps its fma and the plain versions' multiply-then-add round
+    apart by more than RGLRU_TOL of a small |h|). Returns the plan, the
+    device µs and that error (``model_err``)."""
+    from repro_torch.kernels import rglru
+
+    plan = rglru.scan_plan(*a.shape)
+    call = lambda: rglru.rglru_scan(a, x, h0)
+    passes = device_kernel_us(torch, call, expect=len(plan.kernels))
+    names = [n for n, _ in passes]
+    check(len(names) == len(plan.kernels) and all(k_ in n for k_, n in zip(plan.kernels, names)),
+          f"rglru_scan {tuple(a.shape)} ran {names}, its plan {plan.kernels}")
+    once, again = call(), call()
+    check(all(bool(torch.equal(u, w)) for u, w in zip(once, again)), f"rglru_scan {tuple(a.shape)}: two calls differ")
+    out = rglru.rglru_scan(model_a, x, h0)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, u, v, RGLRU_TOL * (1 + float(v.abs().max())))
+              for ref in (rglru.rglru_scan_plain(model_a, x, h0),
+                          rglru.rglru_scan_chunked_plain(model_a, x, h0, plan.chunk))
+              for u, v in zip(out, ref))
+    print(f"  rglru_scan {tuple(a.shape)} ({what}): the plan's device kernels ({plan.n_chunks} chunks of "
+          f"{plan.chunk}), two calls equal; device µs "
+          f"{json.dumps([[n.split('(')[0].split('::')[-1], round(us, 2)] for n, us in passes])}; at the "
+          f"model's decays max_abs_err={err:.4g} against both plain versions (to {RGLRU_TOL} of the largest "
+          f"|h|)", flush=True)
+    return dict(plan=plan._asdict(), pass_us=[[n, us] for n, us in passes], model_err=err)
 
 
 def check_rglru_backward(torch, flush):
@@ -958,11 +999,8 @@ def check_rglru_backward(torch, flush):
     # ~1000 steps its fma and the plain version's multiply-then-add round
     # apart by more than RGLRU_TOL of a small |h|); at sigmoid(N(0, 1))
     # decays element by element, as phase kernels holds it
-    ref, ref_hf = rglru.rglru_scan_plain(a, x, h0)
-    out, hf = rglru.rglru_scan(a, x, h0)
-    torch.cuda.synchronize()
-    model_err = max(max_err(torch, u, v, RGLRU_TOL * (1 + float(v.abs().max())))
-                    for u, v in ((out, ref), (hf, ref_hf)))
+    plan_row = check_rglru_forward(torch, a, x, h0, a, "the training path's forward")
+    model_err = plan_row.pop("model_err")
     fast = torch.sigmoid(torch.randn(b, s, r, device="cuda", generator=g))
     ref, ref_hf = rglru.rglru_scan_plain(fast, x, h0)
     out, hf = rglru.rglru_scan(fast, x, h0)
@@ -970,9 +1008,10 @@ def check_rglru_backward(torch, flush):
     elem_err = max(max_err(torch, out, ref, RGLRU_TOL), max_err(torch, hf, ref_hf, RGLRU_TOL))
     del fast, ref, ref_hf, out, hf
     print(f"  rglru_scan {(b, s, r)}: max_abs_err={model_err:.4g} at the model's decays (to {RGLRU_TOL} of "
-          f"the largest |h|), {elem_err:.4g} at sigmoid(N(0, 1)) decays (element by element)", flush=True)
+          f"the largest |h|, both plain versions), {elem_err:.4g} at sigmoid(N(0, 1)) decays (element by "
+          f"element)", flush=True)
     forward = dict(
-        max_abs_err=max(model_err, elem_err),
+        max_abs_err=max(model_err, elem_err), **plan_row,
         ms=time_ms(torch, lambda: rglru.rglru_scan(a, x, h0), flush),
         plain_ms=time_ms(torch, lambda: rglru.rglru_scan_plain(a, x, h0), flush, iters=3, warmup=1),
         library_ms=None, **dict(zip(("bound_ms", "bound_by"), rglru_bound(a))),
@@ -1608,6 +1647,7 @@ def run_recurrentgemma_serve(torch, model, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launch_count for name, mod in kernels.items()}
+    launches.update({f"rglru_scan/{k}": n for k, n in kernels["rglru_scan"].launch_count_by_kernel.items()})
     st = graph_stats("recurrentgemma", server.graphs)
     check(st["captures"] == 1 and st["replays"] - replays == res.decode_steps,
           f"recurrentgemma: {st['replays'] - replays} replays for {res.decode_steps} decode steps")
@@ -1624,6 +1664,13 @@ def run_recurrentgemma_serve(torch, model, params):
         "decode_attention": n_attn * res.decode_steps,
         "rglru_scan": n_rec * calls,
     }
+    # the prefill's plan chunks time, a decode step's runs one chunk
+    plans = {k: kernels["rglru_scan"].scan_plan(8, s, model.rnn).kernels for k, s in
+             (("prefill", dense_prefill_len()), ("decode", 1))}
+    check(plans == {"prefill": ("rglru_chunked_kernel",), "decode": ("rglru_kernel",)},
+          f"recurrentgemma: kernel 4's plans {plans}")
+    expect.update({"rglru_scan/rglru_chunked_kernel": n_rec * res.prefills,
+                   "rglru_scan/rglru_kernel": n_rec * res.decode_steps})
     print(f"  recurrentgemma serve: {len(reqs)} requests in {res.prefills} waves of 8 slots, "
           f"{res.tokens} output tokens, {res.decode_steps} decode steps, wall {wall:.4f} s", flush=True)
     print(f"  recurrentgemma tokens/s: {res.tokens / wall:.3f}")
@@ -2344,8 +2391,12 @@ KERNELS = (
     ("decode_attention_recurrentgemma", "decode_attention", "recurrentgemma-9b", "decode_attention",
      "recurrentgemma",
      "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:111"),
-    ("rglru_scan", "rglru_scan", "recurrentgemma-9b", "rglru_scan", "recurrentgemma",
+    # kernel 4 on the RG waves: the prefills (chunked) and the decode steps
+    # (one chunk), launches by the device kernel each plan runs
+    ("rglru_scan", "rglru_scan", "recurrentgemma-9b", "rglru_scan/rglru_chunked_kernel", "recurrentgemma",
      "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81"),
+    ("rglru_scan_decode", "rglru_scan", "recurrentgemma-9b decode", "rglru_scan/rglru_kernel",
+     "recurrentgemma", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:81"),
     ("flash_attention_backward", "flash_attention_backward", "qwen3-8b train", "flash_attention_backward",
      "train", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/models/attention.py:18 attention, the gradient jax.grad derives on the training path "
@@ -3542,7 +3593,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[layout][count],
-            "launches_by_path": {lay: launches[lay][count] for lay in launches},
+            "launches_by_path": {lay: launches[lay][count] for lay in launches if count in launches[lay]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -3553,6 +3604,7 @@ def main() -> int:
                                   "plan")}
                if key == "flash_attention_backward" else {}),
             **({k: r[k] for k in ("plan", "pass_us", "design_floor_ms")} if key == "rglru_scan_backward" else {}),
+            **({k: r[k] for k in ("plan", "pass_us")} if key == "rglru_scan" else {}),
             **({"microbatch": {k: r["microbatch"][k] for k in (
                 "ms", "ms_by_plan", "pass_us", "plan", "bound_ms", "design_floor_ms", "library_ms",
                 "library_backend", "forward_backward_ms", "library_forward_backward_ms")}}

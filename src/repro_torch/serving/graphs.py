@@ -32,6 +32,11 @@ Hazards, each handled here or by the owner, and checked:
   dispatch (``decode_scratch``) before the first capture; a capture that
   still swaps it raises, and every replay asserts that the pointers the
   graph holds are the scratch's current ones.
+* **The RG-LRU scan's control buffer** (``kernels/rglru.py:_control``:
+  the chunked scan's ticket and its maps, tagged by call). Each launch
+  leaves it ready for the next, so a replay needs no memset; it grows only
+  outside a capture (the eager call before each capture sizes it), and a
+  grown-out buffer is kept alive for the graphs that hold it.
 * **Launch counts.** The kernel wrappers count launches on the host, so a
   replay adds nothing by itself. Each dispatch records the launches of one
   call by kernel (the eager call's, which the capture must match) and adds
@@ -94,10 +99,12 @@ class Dispatch:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every serving kernel wrapper's launch count (flash's also by body)."""
+    """Every serving kernel wrapper's launch count (flash's also by body,
+    the RG-LRU scan's also by device kernel)."""
     out = {name: mod.launch_count for name, mod in KERNELS.items()}
     out.update({f"flash_attention/{v}": n
                 for v, n in flash_attention.launch_count_by_variant.items()})
+    out.update({f"rglru_scan/{k}": n for k, n in rglru.launch_count_by_kernel.items()})
     return out
 
 
@@ -106,6 +113,8 @@ def set_launch_counts(counts: Dict[str, int]) -> None:
         mod.launch_count = counts[name]
     for v in flash_attention.launch_count_by_variant:
         flash_attention.launch_count_by_variant[v] = counts[f"flash_attention/{v}"]
+    for k in rglru.launch_count_by_kernel:
+        rglru.launch_count_by_kernel[k] = counts[f"rglru_scan/{k}"]
 
 
 def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:

@@ -1006,3 +1006,141 @@ def test_cuda_replayed_serves_follow_an_in_place_update(card, arch):
     before, after, fresh = serve_update_serve(arch, "cuda")
     assert after != before
     assert after == fresh
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 4's chunked plan: one pass, each chunk's carry folded from the maps  #
+# --------------------------------------------------------------------------- #
+def _scan_case(b, s, r, seed, misalign=False):
+    """Model-range decays (``_model_decays``), x and h0; with ``misalign``
+    a and x start 4 bytes past a 16-byte boundary (the 4-byte copy path)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = _model_decays(b, s, r, g)
+    x = torch.randn((b, s, r), device="cuda", generator=g)
+    h0 = torch.randn((b, r), device="cuda", generator=g)
+    if misalign:
+        a, x = (torch.empty(t.numel() + 1, device="cuda")[1:].view(b, s, r).copy_(t) for t in (a, x))
+    return a, x, h0
+
+
+def _close_to(got, ref):
+    """Float32 within 1e-5 of (1 + the largest |h|): at the model's decays
+    the kernel's fused steps and chunked order round apart from the plain
+    versions by ulps of the largest state, as in chip_smoke.py."""
+    for u, w in zip(got, ref):
+        assert float((u - w).abs().max()) <= 1e-5 * (1 + float(w.abs().max()))
+
+
+@pytest.mark.parametrize("b,s,r,misalign", [
+    (1, 4096, 4096, False), (8, 128, 4096, False), (1, 65, 128, False), (2, 1000, 100, False),
+    (3, 300, 37, False), (1, 1000, 256, True), (1, 4096, 100, False)])
+def test_cuda_rglru_chunked_matches_both_plain_versions(card, b, s, r, misalign):
+    """Shapes whose plan chunks time (the training shape's 64 chunks, the
+    prefill's 2, S one past a chunk, ragged S and R, R not a multiple of 4,
+    unaligned rows) at the model's decays: against the sequential plain
+    version and the plain version in the kernel's chunked order; two calls
+    give the same bits; one call counts one launch, on the chunked kernel."""
+    from repro_torch.kernels import rglru
+
+    plan = rglru.scan_plan(b, s, r)
+    assert plan.kernels == ("rglru_chunked_kernel",) and plan.n_chunks > 1
+    a, x, h0 = _scan_case(b, s, r, s + r, misalign)
+    rglru.reset_launch_count()
+    got = rglru.rglru_scan(a, x, h0)
+    again = rglru.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rglru.launch_count == 2 and rglru.launch_count_by_kernel == {
+        "rglru_kernel": 0, "rglru_chunked_kernel": 2}
+    assert all(torch.equal(u, w) for u, w in zip(got, again))
+    _close_to(got, rglru.rglru_scan_plain(a, x, h0))
+    _close_to(got, rglru.rglru_scan_chunked_plain(a, x, h0, plan.chunk))
+
+
+@pytest.mark.parametrize("b,s,r", [(1, 4096, 4096), (8, 128, 4096), (8, 1, 4096)])
+def test_cuda_rglru_runs_its_plans_device_kernels(card, b, s, r):
+    """A call runs exactly its plan's device kernels, in order (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import rglru
+
+    a, x, h0 = _scan_case(b, s, r, 1)
+    rglru.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rglru.rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                                    key=lambda e: e.time_range.start)
+             if "emcpy" not in e.name and "emset" not in e.name]
+    kernels = rglru.scan_plan(b, s, r).kernels
+    assert len(names) == len(kernels) and all(k + ("<" if k == "rglru_chunked_kernel" else "(") in n
+                                               for k, n in zip(kernels, names)), names
+
+
+@pytest.mark.parametrize("b,s,r,cut", [(1, 4096, 4096, 2007), (2, 1000, 100, 130), (8, 300, 4096, 64)])
+def test_cuda_rglru_chunked_state_chains_across_calls(card, b, s, r, cut):
+    """Two calls, the first's final state seeding the second, the cut inside
+    a chunk (or at its edge): equal to one call and to the plain version."""
+    from repro_torch.kernels import rglru
+
+    a, x, h0 = _scan_case(b, s, r, cut)
+    full = rglru.rglru_scan(a, x, h0)
+    h1, f1 = rglru.rglru_scan(a[:, :cut], x[:, :cut], h0)
+    h2, f2 = rglru.rglru_scan(a[:, cut:], x[:, cut:], f1)
+    torch.cuda.synchronize()
+    chained = (torch.cat([h1, h2], 1), f2)
+    _close_to(chained, full)
+    _close_to(chained, rglru.rglru_scan_plain(a, x, h0))
+
+
+def test_cuda_rglru_chunked_gradient_matches_the_plain_reverse_scan(card):
+    """``RGLRUScanFn`` at a chunked shape (the forward's chunked kernel, the
+    backward's chunked reverse scan): the gradients of a, x and h0 against
+    the plain reverse scan of the plain forward's states."""
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    b, s, r = 2, 1000, 256
+    a, x, h0 = _scan_case(b, s, r, 3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    gg, gf = torch.randn((b, s, r), device="cuda", generator=g), torch.randn((b, r), device="cuda", generator=g)
+    leaves = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+    rglru.reset_launch_count()
+    h, hf = rglru.rglru_scan(*leaves)
+    torch.autograd.backward((h, hf), (gg, gf))
+    assert rglru.launch_count_by_kernel["rglru_chunked_kernel"] == 1
+    h_plain, _ = rglru.rglru_scan_plain(a, x, h0)
+    ref = rglru_bwd.rglru_scan_backward_plain(a, h_plain, h0, gg, gf)
+    for leaf, w in zip(leaves, ref):
+        assert float((leaf.grad - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-5
+
+
+@pytest.mark.parametrize("b,s,r", [(8, 1, 4096), (8, 128, 4096)])
+def test_cuda_rglru_graph_replay_equals_direct_calls(card, b, s, r):
+    """The scan captured in a CUDA graph, as a wave's decode step replays it
+    (S = 1; and the chunked prefill shape, whose tickets and flags each
+    launch leaves ready for the next): five replays, each seeded with the
+    last one's final state and given new inputs, give the bits of direct
+    calls on the same inputs."""
+    from repro_torch.kernels import rglru
+
+    a, x, h0 = _scan_case(b, s, r, 5)
+    rglru.rglru_scan(a, x, h0)                     # sizes the control buffer outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru.rglru_scan(a, x, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, hf = rglru.rglru_scan(a, x, h0)
+    state = h0.clone()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for _ in range(5):
+        a.copy_(_model_decays(b, s, r, g))
+        x.normal_(generator=g)
+        h0.copy_(state)
+        graph.replay()
+        want, want_f = rglru.rglru_scan(a, x, state)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(hf, want_f)
+        state = want_f

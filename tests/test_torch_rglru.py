@@ -3,8 +3,11 @@
 (interpret mode, as tests/test_kernels.py runs it) and its oracle on the
 cases of tests/test_kernels.py, within 1e-5, and the ragged freeze the port's
 model uses (a = 1, x = 0 past a slot's length) against the ``where`` of the
-reference model's scan. The CUDA kernel is held against the plain version on
-the card in tests/test_torch_cuda.py."""
+reference model's scan. The scan in the chunked kernel's order
+(``rglru_scan_chunked_plain``) is held against the plain version, the
+oracle and the Pallas kernel at RecurrentGemma's decays over many chunks,
+and ``scan_plan`` is checked at the model's shapes. The CUDA kernel is held
+against both plain versions on the card in tests/test_torch_cuda.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +16,7 @@ import torch
 
 from repro.kernels.ops import rglru_scan as ref_rglru
 from repro.kernels.ref import rglru_scan_ref
-from repro_torch.kernels import rglru
+from repro_torch.kernels import rglru, rglru_bwd
 from torch_port_arrays import to_np
 
 TOL = 1e-5
@@ -109,5 +112,143 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ref, ref_hf = rglru.rglru_scan_plain(a, x, h0)
     assert torch.equal(out, ref) and torch.equal(hf, ref_hf)
     assert rglru.launch_count == 0
+    assert set(rglru.launch_count_by_kernel.values()) == {0}
     _, hf0 = rglru.rglru_scan(a[:, :0], x[:, :0], h0)        # no time steps: the state as given
     assert torch.equal(hf0, h0) and hf0.data_ptr() != h0.data_ptr()
+    rglru.launch_count, rglru.launch_count_by_kernel["rglru_chunked_kernel"] = 2, 3
+    rglru.reset_launch_count()
+    assert rglru.launch_count == 0 and set(rglru.launch_count_by_kernel.values()) == {0}
+
+
+# --------------------------------------------------------------------------- #
+# The plan of the CUDA kernel, and the plain scan in its chunked order        #
+# --------------------------------------------------------------------------- #
+def _model_inputs(rng, b, s, r):
+    """Decays in RecurrentGemma's trained range, numpy's counterpart of
+    chip_smoke.py's ``model_decays``: a_t = base^{g_t}, base uniform in
+    [0.9, 0.999] a channel (Griffin's init), g_t = sigmoid(N(0, 1)). A
+    chunk of 64 steps passes on up to ~0.97 of its carry, so the state
+    that enters the last chunk still carries h0 at leading order."""
+    base = rng.uniform(0.9, 0.999, (1, 1, r))
+    a = (base ** (1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, r)))))).astype(np.float32)
+    x = rng.standard_normal((b, s, r)).astype(np.float32)
+    h0 = rng.standard_normal((b, r)).astype(np.float32)
+    return a, x, h0
+
+
+def _scaled_tol(ref):
+    """1e-5 of (1 + the largest |h|): float32 rounds a state in proportion
+    to its size, and at these decays the states grow to ~1 / (1 - a), tens
+    of times the inputs; the chunked order multiplies the carry through up
+    to a chunk's product of decays and adds the maps, so it rounds apart
+    from the sequential order by a few ulps of the largest state, not of
+    each small one."""
+    return TOL * (1 + float(np.abs(to_np(ref)).max()))
+
+
+@pytest.mark.parametrize("b,s,r,chunk,block_s", [
+    (1, 1000, 8, 64, 200),      # a ragged last chunk (15 of 64, then 40)
+    (2, 512, 16, 64, 256),      # whole chunks, B > 1
+    (3, 300, 128, 64, 100),     # 128 channels
+    (2, 129, 5, 64, 129),       # one step past two chunks, R not a multiple of 128
+    (1, 200, 4, 7, 200),        # a chunk that divides nothing, 29 chunks
+])
+def test_chunked_plain_matches_plain_oracle_and_pallas(b, s, r, chunk, block_s):
+    """The scan in the chunked kernel's order (each chunk's map from a zero
+    carry, then the earlier chunks' maps folded from h0 in chunk order)
+    against the sequential plain version, the reference's oracle and its
+    Pallas kernel (interpret mode), at the model's decays over several
+    chunks, within ``_scaled_tol``. h0 still moves the state that enters the
+    last chunk by 100 times the tolerance, so a fold that dropped or
+    reordered a map would show."""
+    a, x, h0 = _model_inputs(np.random.default_rng(b * s + r), b, s, r)
+    ta, tx, th = (torch.from_numpy(t) for t in (a, x, h0))
+    out, hf = rglru.rglru_scan_chunked_plain(ta, tx, th, chunk)
+    assert out.shape == (b, s, r) and out.dtype == hf.dtype == torch.float32 and hf.shape == (b, r)
+    seq = rglru.rglru_scan_plain(ta, tx, th)
+    tol = _scaled_tol(seq[0])
+    no_h0, _ = rglru.rglru_scan_plain(ta, tx, torch.zeros_like(th))
+    last = (s - 1) // chunk * chunk
+    assert float((seq[0] - no_h0)[:, last].abs().max()) > 100 * tol
+    pallas = ref_rglru(jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0), block_s=block_s, block_r=128)
+    oracle = rglru_scan_ref(jnp.asarray(a), jnp.asarray(x), jnp.asarray(h0))
+    for ref_out, ref_hf in (seq, pallas, oracle):
+        np.testing.assert_allclose(to_np(out), to_np(ref_out), rtol=0, atol=tol)
+        np.testing.assert_allclose(to_np(hf), to_np(ref_hf), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("cut,chunk", [(517, 64), (512, 64), (300, 7)])
+def test_chunked_plain_chained_across_calls(cut, chunk):
+    """Two calls in the chunked order, the first's final state seeding the
+    second, the cut inside a chunk or at its edge: equal to one sequential
+    call and to the oracle chained the same way, within ``_scaled_tol``."""
+    a, x, h0 = _model_inputs(np.random.default_rng(cut), 2, 1000, 8)
+    ta, tx, th = (torch.from_numpy(t) for t in (a, x, h0))
+    h1, f1 = rglru.rglru_scan_chunked_plain(ta[:, :cut], tx[:, :cut], th, chunk)
+    h2, f2 = rglru.rglru_scan_chunked_plain(ta[:, cut:], tx[:, cut:], f1, chunk)
+    full, f_full = rglru.rglru_scan_plain(ta, tx, th)
+    r1, g1 = rglru_scan_ref(jnp.asarray(a[:, :cut]), jnp.asarray(x[:, :cut]), jnp.asarray(h0))
+    r2, g2 = rglru_scan_ref(jnp.asarray(a[:, cut:]), jnp.asarray(x[:, cut:]), g1)
+    tol = _scaled_tol(full)
+    got = to_np(torch.cat([h1, h2], 1))
+    for want, want_f in ((full, f_full), (np.concatenate([to_np(r1), to_np(r2)], 1), g2)):
+        np.testing.assert_allclose(got, to_np(want), rtol=0, atol=tol)
+        np.testing.assert_allclose(to_np(f2), to_np(want_f), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,r", [
+    (1, 4096, 4096),    # RecurrentGemma-9B's training shape: 64 chunks of 64, 8 groups
+    (8, 128, 4096),     # the wave prefill: 2 chunks
+    (8, 1, 4096),       # a decode step: one chunk, as before
+    (1, 64, 256),       # S at the chunk: one chunk
+    (1, 65, 256),       # one step past it: two chunks
+    (2, 1000, 100),     # R not a multiple of 128, a ragged last chunk
+    (32, 4096, 4096),   # B x R fills the card: one chunk
+    (2, 0, 8),          # no step: one chunk that writes h0
+])
+def test_scan_plan_covers_every_step_once(b, s, r):
+    """The chunks [c L, min(S, (c + 1) L)) cover 0..S-1 once, none empty;
+    one chunk (``rglru_kernel``, a thread a channel) where B x R alone
+    reaches the backward's thread target or S is at most ``CHUNK``, else
+    chunks of ``CHUNK`` (``rglru_chunked_kernel``, a CTA a (batch, 64
+    channels, chunk)); the grid, the control buffer (the ticket word, then
+    two 64-bit words a chunk map and a group map a (batch, channel)) and
+    the tiles' shared memory."""
+    p = rglru.scan_plan(b, s, r)
+    steps = [t for c in range(p.n_chunks) for t in range(c * p.chunk, min(s, (c + 1) * p.chunk))]
+    assert steps == list(range(s))
+    assert all(c * p.chunk < s for c in range(p.n_chunks)) or s == 0
+    if b * r >= rglru_bwd._SCAN_THREADS or s <= rglru.CHUNK:
+        assert p.n_chunks == 1 and p.kernels == ("rglru_kernel",) and p.grids == ((-(-r // 128), b, 1),)
+        assert p.scratch_bytes == p.smem_bytes == 0
+    else:
+        assert p.chunk == rglru.CHUNK and p.n_chunks == -(-s // rglru.CHUNK) > 1
+        assert p.kernels == ("rglru_chunked_kernel",)
+        assert p.grids == ((p.n_chunks * b * -(-r // 64), 1, 1),)
+        groups = -(-p.n_chunks // rglru.GROUP)
+        assert p.scratch_bytes == 16 + 16 * (p.n_chunks + groups) * b * r
+        assert p.smem_bytes == 2 * rglru.CHUNK * 64 * 4 == 32 * 1024
+    want = {(1, 4096, 4096): (64, 4096, 16 + 16 * 72 * 4096), (8, 128, 4096): (2, 1024, 16 + 16 * 3 * 8 * 4096),
+            (8, 1, 4096): (1, 256, 0), (2, 1000, 100): (16, 64, 16 + 16 * 18 * 2 * 100)}
+    if (b, s, r) in want:
+        assert (p.n_chunks, p.grids[0][0] * p.grids[0][1], p.scratch_bytes) == want[(b, s, r)]
+
+
+@pytest.mark.parametrize("b,r", [(0, 4096), (2, 0)])
+def test_scan_plan_launches_nothing_without_a_lane(b, r):
+    """No batch or no channel: the launcher returns before any kernel, and
+    the plan lists none and no scratch."""
+    p = rglru.scan_plan(b, 4096, r)
+    assert p.kernels == () and p.grids == () and p.scratch_bytes == 0
+
+
+def test_scan_plan_forced_chunk():
+    """``chunk`` forces the chunk length (what the timing by chunk length
+    runs); a chunk of at least S is the one-chunk kernel; tiles past the
+    shared memory a CTA may take are refused."""
+    assert rglru.scan_plan(1, 4096, 4096, chunk=32)[:2] == (32, 128)
+    assert rglru.scan_plan(1, 4096, 4096, chunk=4096).kernels == ("rglru_kernel",)
+    assert rglru.scan_plan(8, 1000, 4096, chunk=48).n_chunks == 21
+    assert rglru.scan_plan(1, 4096, 4096, chunk=452).smem_bytes <= 232448 - 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        rglru.scan_plan(1, 4096, 4096, chunk=453)
