@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --sweep    # kernel plans and L2 states, timed
-    python3 chip_smoke.py --train    # the training path's kernels and phase train alone
+    python3 chip_smoke.py --train    # the training path's kernels and phases train and dp alone
     python3 chip_smoke.py --profiler-cost   # train steps before and after profiler sessions
 
 Phases, each printing its seconds on a line of its own:
@@ -205,9 +205,28 @@ Phases, each printing its seconds on a line of its own:
              head_dim 256 wgmma body and the chunked scan, and from the same
              init 3 steps on the first batch alone bring its loss below the
              initial one; losses, step ms, tokens/s and peak memory
-             printed.
+             printed;
+8. dp      — right after train: a one-rank NCCL group (a FileStore in a
+             temp dir) and a gloo group beside it. Qwen3-8B at its
+             published widths cut to 8 of 36 layers, bf16, global batch
+             1 x 2048, remat, lr 1e-3 warmup 1, 3 steps each of
+             make_train_step, the plain make_dp_train_step (parameters and
+             loss bit-equal to train_step's after each step) and the
+             compressed one (its first loss the plain one's, losses
+             falling, every leaf within 9e-3 of the plain run's, every
+             leaf's error feedback within half its int8 scale at every
+             step; its loss gap printed beside the reference's bar of
+             0.05, which the reference's own step misses at this
+             vocabulary); flash launches exact in each run; step ms,
+             reduction ms (CUDA events), bytes all-reduced and peak memory
+             printed. Then the float32 smoke Granite's compressed and
+             plain DP steps on the card's NCCL group against the gloo
+             group on the CPU, and reshard_restore of a smoke Qwen3
+             checkpoint onto a (1, 1) data/model mesh on the card
+             (DTensors bit-equal to the saved tree); the groups are
+             destroyed at the end.
 
-Then one JSON line of the train phase's numbers, one of phase paper's
+Then one JSON line of the train phase's numbers, one of phase dp's, one of phase paper's
 (each mode's served and simulated numbers and fitted cost model, with the
 card's name and power limit), one JSON line naming every
 ported kernel (kernel 2 once per entry, and kernels 2 and 3 again at
@@ -221,8 +240,9 @@ body) and this run's times, and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
-``--train`` builds the kernels and runs phase 7 (train) and the training
-path's kernel checks alone, printing their numbers as one JSON line.
+``--train`` builds the kernels and runs phases 7 (train) and 8 (dp) and
+the training path's kernel checks alone, printing their numbers as one
+JSON line.
 
 ``--profiler-cost`` builds the kernels and times Whisper-small's and
 Qwen3-8B's train steps before and after 300 torch.profiler sessions in
@@ -3367,6 +3387,316 @@ def run_train_phase(torch, np, smi):
     return dict(launches, train=full["launches"]), full
 
 
+DP_LAYERS = 8                     # full-width Qwen3-8B cut to 8 of its 36 layers
+DP_BATCH, DP_SEQ, DP_STEPS = 1, 2048, 3
+DP_OPT = dict(lr=1e-3, warmup_steps=1)   # the reference's compressed-DP test
+# compressed against plain after DP_STEPS steps: the reference's bars
+DP_LOSS_BAR, DP_LEAF_BAR = 0.05, 9e-3
+
+
+@contextlib.contextmanager
+def watch_reductions(torch, keep_grads=False, check_ef=False):
+    """While open, every ``reduce_gradients`` call of the DP step is watched:
+    CUDA events around it (``events``: (start, end) pairs); with
+    ``keep_grads``, a copy of the gradients it reduced (``grads``); with
+    ``check_ef``, each leaf's largest |error feedback| over its int8 scale
+    (``ef_ratio``, the largest a call: the quantization bounds it by 1/2),
+    the scale read back from the reduced mean plus the error feedback (one
+    rank: the mean is q x scale), and the host seconds that check took
+    (``check_s``, outside the events)."""
+    import types
+
+    from repro_torch.models.layers import _leaves as leaves_of
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import dp_compressed as dp
+
+    inner = dp.reduce_gradients
+    seen = types.SimpleNamespace(events=[], grads=[], ef_ratio=[], check_s=0.0)
+
+    def watched(grads, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if keep_grads:
+            seen.grads.append(tree_map(torch.clone, grads))
+        start.record()
+        mean, ef = inner(grads, *args, **kw)
+        end.record()
+        seen.events.append((start, end))
+        if check_ef:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            worst = 0.0
+            for (_, m), (_, e) in zip(leaves_of(mean), leaves_of(ef)):
+                scale = float((m + e).abs().max()) / 127.0
+                if scale > 0:
+                    worst = max(worst, float(e.abs().max()) / scale)
+            seen.ef_ratio.append(worst)
+            seen.check_s += time.perf_counter() - t0
+        return mean, ef
+
+    dp.reduce_gradients = watched
+    try:
+        yield seen
+    finally:
+        dp.reduce_gradients = inner
+
+
+def run_dp_full_width(torch, np, smi, group):
+    """Qwen3-8B at its published widths cut to DP_LAYERS of 36 layers, bf16,
+    random weights from seed 0, global batch DP_BATCH x DP_SEQ, remat,
+    DP_OPT: DP_STEPS steps of make_train_step(microbatches=1), then of the
+    plain and the compressed make_dp_train_step on the one-rank NCCL
+    ``group``, each from the same init and a fresh AdamW state. Gates: the
+    plain DP step's parameters (every leaf) and loss bit-equal to
+    train_step's after each step (train_step's parameters held on the host);
+    the compressed run's first loss equal to the plain run's (the same
+    parameters), its losses finite and falling, every leaf within
+    DP_LEAF_BAR of the plain run's after DP_STEPS steps, and every leaf's
+    error feedback within half its int8 scale at every step; flash forward
+    and backward launches exact and the same in the three runs. The
+    reference's loss bar (DP_LOSS_BAR) is printed beside the compressed
+    run's gap and not gated: at Qwen3's vocabulary of 151,936 the
+    reference's own compressed step misses it (0.07 after 3 steps at smoke
+    widths, tests/test_torch_dp_wide_vocab.py); the bar holds at the smoke
+    configs' vocabulary of 256. Prints the step ms (median of steps 2 on;
+    the compressed run's without the error-feedback check; the first step
+    of the process warms cuBLAS and the allocator), the reduction's ms (CUDA
+    events), the bytes all-reduced a step and the peak memory of each run.
+    Returns (the plain DP run's launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import _leaves as leaves_of
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.dp_compressed import init_error_feedback, make_dp_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    full = get_config("qwen3_8b")
+    cfg = dataclasses.replace(full, n_layers=DP_LAYERS)
+    model = TransformerLM(cfg, device="cuda")
+    opt_cfg = AdamWConfig(**DP_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (DP_BATCH, DP_SEQ), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    kernels = kernel_modules()
+    makers = {
+        "train_step": lambda: make_train_step(model, opt_cfg, microbatches=1, remat=True),
+        "dp_plain": lambda: make_dp_train_step(model, group, opt_cfg, compress=False, remat=True),
+        "dp_compressed": lambda: make_dp_train_step(model, group, opt_cfg, compress=True, remat=True),
+    }
+    snaps, res, n_params, n_leaves = [], {}, 0, 0
+    for name, make in makers.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_params(0)
+        state = adamw_init(params)
+        ef = init_error_feedback(params) if name == "dp_compressed" else None
+        n_params = sum(t.numel() for _, t in leaves_of(params))
+        n_leaves = len(list(leaves_of(params)))
+        step = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels.values():
+            mod.reset_launch_count()
+        losses, step_ms, same = [], [], []
+        with watch_reductions(torch, check_ef=name == "dp_compressed") as seen:
+            for i in range(DP_STEPS):
+                torch.cuda.synchronize()
+                t0, checked = time.perf_counter(), seen.check_s
+                if name == "train_step":
+                    params, state, metrics = step(params, state, batch)
+                else:
+                    params, state, ef, metrics = step(params, state, ef, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0 - (seen.check_s - checked)))
+                losses.append(float(metrics["loss"]))
+                if name == "train_step":
+                    snaps.append({path: t.to("cpu") for path, t in leaves_of(params)})
+                elif name == "dp_plain":
+                    same.append(losses[-1] == res["train_step"]["losses"][i] and all(
+                        _same_bits(torch, t, snaps[i][path].to("cuda")) for path, t in leaves_of(params)))
+        launches = {k: mod.launch_count for k, mod in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_launches(f"qwen3-8b {name}", launches, train_launches(cfg.n_layers, DP_STEPS, True))
+        res[name] = dict(losses=losses, step_ms=step_ms, step_ms_median=statistics.median(step_ms[1:]),
+                         peak_gib=peak, launches=launches,
+                         reduce_ms=[s.elapsed_time(e) for s, e in seen.events])
+        if name == "dp_plain":
+            res[name]["bit_equal_to_train_step"] = same
+            check(all(same), f"qwen3-8b plain DP step vs train_step, bit-equal after each step: {same}")
+        if name == "dp_compressed":
+            worst = max(float((t.float() - snaps[-1][path].to("cuda").float()).abs().max())
+                        for path, t in leaves_of(params))
+            loss_gap = abs(losses[-1] - res["dp_plain"]["losses"][-1])
+            res[name].update(worst_leaf_vs_plain=worst, loss_gap_vs_plain=loss_gap,
+                             error_feedback_over_scale=seen.ef_ratio)
+            check(losses[0] == res["dp_plain"]["losses"][0] and all(np.isfinite(losses))
+                  and all(b < a for a, b in zip(losses, losses[1:])),
+                  f"qwen3-8b compressed DP losses {losses} (plain {res['dp_plain']['losses']})")
+            check(worst < DP_LEAF_BAR, f"qwen3-8b compressed DP: a leaf {worst:.3g} from the plain run's")
+            check(len(seen.ef_ratio) == DP_STEPS and max(seen.ef_ratio) <= 0.5 + 1e-4,
+                  f"qwen3-8b compressed DP: error feedback over its int8 scale {seen.ef_ratio}")
+        del params, state, ef, step
+    bytes_reduced = {"dp_plain": 4 * n_params, "dp_compressed": 4 * n_params + 4 * n_leaves}
+    for name in ("dp_plain", "dp_compressed"):
+        res[name]["bytes_all_reduced"] = bytes_reduced[name]
+    res.update(layers=f"{cfg.n_layers} of {full.n_layers}", parameters=n_params, leaves=n_leaves,
+               batch=f"{DP_BATCH} x {DP_SEQ}", opt=DP_OPT, card=smi)
+    for name in makers:
+        r = res[name]
+        red = (f", reduction {json.dumps([round(x, 2) for x in r['reduce_ms']])} ms, "
+               f"{r['bytes_all_reduced'] / 1e9:.3f} GB all-reduced a step" if name != "train_step" else "")
+        print(f"  qwen3-8b {name} ({res['layers']} layers, {n_params / 1e9:.3f} B parameters, bf16, batch "
+              f"{res['batch']}, remat, one rank) on {smi}: losses {json.dumps(r['losses'])}, step ms "
+              f"{json.dumps([round(x, 1) for x in r['step_ms']])} (median of steps 2-{DP_STEPS} "
+              f"{r['step_ms_median']:.1f}){red}, "
+              f"peak {r['peak_gib']:.2f} GiB", flush=True)
+    print(f"  qwen3-8b plain DP bit-equal to train_step after each of {DP_STEPS} steps: "
+          f"{res['dp_plain']['bit_equal_to_train_step']}; compressed vs plain after {DP_STEPS}: loss gap "
+          f"{res['dp_compressed']['loss_gap_vs_plain']:.4g} (the reference's bar {DP_LOSS_BAR}, not gated at "
+          f"this vocabulary), worst leaf {res['dp_compressed']['worst_leaf_vs_plain']:.4g} (< {DP_LEAF_BAR}), "
+          f"largest |error feedback| over its int8 scale a step "
+          f"{json.dumps([round(x, 6) for x in res['dp_compressed']['error_feedback_over_scale']])} "
+          f"(<= 1/2); all-reduce payload a step: "
+          f"int32 sum {bytes_reduced['dp_compressed']} B (with {n_leaves} float32 scales) against "
+          f"float32 {bytes_reduced['dp_plain']} B", flush=True)
+    del snaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res["dp_plain"]["launches"], res
+
+
+def check_dp_pair(torch, on_cpu, on_card, compress, what):
+    """Gate one DP step on the CPU against the same step on the card, each
+    side (loss, {path: parameter}, {path: error feedback}, {path: gradient
+    the step reduced}) on the host: see run_dp_smoke. Without compression
+    the error feedback stays zero on both."""
+    from repro_torch.distributed.collectives import dequantize_int8, quantize_int8
+
+    (l_cpu, pc, ec, g_cpu), (l_card, pg, eg, g_card) = on_cpu, on_card
+    g_err = max(float((g_card[k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                for k, g in g_cpu.items())
+    p_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    # each device's error feedback is the int8 residual of its own gradients
+    # (recomputed here); across the devices it differs by what their
+    # gradients do, and by the leaf's scale where they round an element to
+    # int8 values 1 apart
+    own_err, e_err, flips = 0.0, 0.0, 0
+    for k, e in ec.items():
+        if not compress:
+            own_err = max(own_err, float(e.abs().max()), float(eg[k].abs().max()))
+            continue
+        q_c, s_c = quantize_int8(g_cpu[k])
+        q_g, s_g = quantize_int8(g_card[k])
+        for got, g, q, sc in ((e, g_cpu[k], q_c, s_c), (eg[k], g_card[k], q_g, s_g)):
+            own_err = max(own_err, float((got - (g.float() - dequantize_int8(q, sc))).abs().max()))
+        dq = (q_g.int() - q_c.int()).abs()
+        check(int(dq.max()) <= 1, f"{what}: {'/'.join(k)} int8 values {int(dq.max())} apart")
+        flips += int(dq.sum())
+        room = ((g_card[k] - g_cpu[k]).abs() + q_c.abs().float() * float((s_g - s_c).abs())
+                + dq.float() * float(s_c))
+        e_err = max(e_err, float(((eg[k] - e).abs() - room).max()))
+    bits = all(_same_bits(torch, pg[k], pc[k]) for k in pc) and all(
+        _same_bits(torch, eg[k], ec[k]) for k in ec)
+    check(abs(l_card - l_cpu) <= LOGITS_TOL and g_err <= TRAIN_GRAD_TOL and p_err <= LOGITS_TOL
+          and own_err <= LOGITS_TOL and e_err <= LOGITS_TOL,
+          f"{what} card vs CPU: loss {l_card} vs {l_cpu}, gradients {g_err:.3g}, parameters "
+          f"{p_err:.3g}, error feedback against its own gradients' residual {own_err:.3g}, across the "
+          f"devices past what the gradients explain {e_err:.3g}")
+    print(f"  {what}, NCCL on the card vs gloo on the CPU (float32): loss {l_card:.7g} vs {l_cpu:.7g}, "
+          f"reduced gradients worst leaf {g_err:.3g} (relative), parameters max err {p_err:.3g}, error "
+          f"feedback vs the int8 residual of each device's own gradients {own_err:.3g}, card vs CPU "
+          f"{e_err:.3g} past what the gradients explain ({flips} elements 1 int8 step apart), "
+          f"bit-equal {bits}", flush=True)
+
+
+def run_dp_smoke(torch, np, gloo):
+    """The float32 smoke Granite (weights perturbed): one compressed and one
+    plain DP step (remat, lr 1e-5, warmup 1) on the card's one-rank NCCL
+    group against the same steps on the one-rank gloo group ``gloo`` on the
+    CPU: the loss and the parameters within LOGITS_TOL, the gradients the
+    step reduced within TRAIN_GRAD_TOL of each leaf's largest magnitude
+    (whether bit-equal is printed); each device's error feedback within
+    LOGITS_TOL of the int8 residual of its own gradients, recomputed on the
+    CPU, and the two devices' within LOGITS_TOL of what their gradients'
+    difference explains (each element's gradient difference, its int8
+    value times the scales' difference, and the scale where the devices
+    round it to int8 values 1 apart, counted and printed); flash launches
+    exact on the card. The step's lr is small because AdamW's first step is
+    sign-like: an element whose gradient the two devices round to opposite
+    signs steps 2 lr apart, 2e-5 here. Then reshard_restore of a smoke Qwen3
+    checkpoint onto a (1, 1) data/model mesh on the card: every leaf a
+    DTensor on the card, its full_tensor() bit-equal to the saved tree."""
+    import tempfile
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.elastic import build_mesh, remesh_plan, reshard_restore
+    from repro_torch.models.layers import _leaves as leaves_of
+    from repro_torch.models.layers import abstract_params, logical_specs, tree_map
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.dp_compressed import init_error_feedback, make_dp_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_smoke_config("granite_3_8b"), dtype="float32")
+    (cpu, p_cpu), (card, p_card) = _card_and_cpu(torch, cfg, perturb=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, 32)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    for compress in (True, False):
+        outs = {}
+        for dev, m, p, group in (("cpu", cpu, p_cpu, gloo), ("cuda", card, p_card, None)):
+            params = tree_map(torch.clone, p)
+            state, ef = adamw_init(params), init_error_feedback(params)
+            step = make_dp_train_step(m, group, AdamWConfig(lr=1e-5, warmup_steps=1),
+                                      compress=compress, remat=True)
+            _reset_train_counts()
+            with watch_reductions(torch, keep_grads=True) as seen:
+                params, state, ef, metrics = step(params, state, ef,
+                                                  {k: x.to(dev) for k, x in batch.items()})
+            grads = seen.grads[0]
+            if dev == "cuda":
+                check_train_launches(f"smoke granite DP step (compress={compress})", cfg.n_layers, 1, True)
+            outs[dev] = tuple([float(metrics["loss"])] + [{k: t.cpu() for k, t in leaves_of(tree)}
+                                                          for tree in (params, ef, grads)])
+        check_dp_pair(torch, outs["cpu"], outs["cuda"], compress, f"smoke granite DP step (compress={compress})")
+
+    cfg = get_smoke_config("qwen3_8b")
+    model = get_model(cfg, device="cuda")
+    params = model.init_params(0)
+    defs = model.param_defs()
+    mesh = build_mesh(remesh_plan((1, 1), ("data", "model"), 1), "cuda")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        save_checkpoint(tmp, 7, params)
+        tree, _ = reshard_restore(tmp, abstract_params(defs), logical_specs(defs), mesh)
+    got = dict(leaves_of(tree))
+    ok = all(got[k].device.type == "cuda" and _same_bits(torch, got[k].full_tensor(), t)
+             for k, t in leaves_of(params))
+    check(ok, "reshard_restore of smoke qwen3 onto a (1, 1) mesh on the card is not bit-equal")
+    print(f"  reshard_restore of smoke qwen3 ({len(got)} leaves) onto a (1, 1) data/model mesh on the card: "
+          f"DTensors bit-equal to the saved tree: {ok}", flush=True)
+
+
+def run_dp_phase(torch, np, smi):
+    """Phase dp: a one-rank NCCL group (its FileStore in a temp dir) and a
+    gloo group beside it; run_dp_full_width, then run_dp_smoke; the groups
+    are destroyed at the end. Returns (launches by path, numbers)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.train.dp_compressed import init_group
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        init_group("cuda", f"file://{tmp}/filestore", 0, 1)
+        try:
+            gloo = dist.new_group([0], backend="gloo")
+            launches, res = run_dp_full_width(torch, np, smi, None)
+            run_dp_smoke(torch, np, gloo)
+        finally:
+            dist.destroy_process_group()
+    return {"dp": launches}, res
+
+
 # torch.profiler sessions between the two timings of run_profiler_cost
 PROFILER_COST_SESSIONS = 300
 
@@ -3482,9 +3812,14 @@ def main() -> int:
 
         t0 = time.perf_counter()
         _, res = run_train_phase(torch, np, smi)
+        phase("train", t0)
+        t0 = time.perf_counter()
+        _, res["dp"] = run_dp_phase(torch, np, smi)
+        phase("dp", t0)
+        t0 = time.perf_counter()
         rows = run_train_kernel_checks(torch, np, F)
         res.update(profile_train_step(torch, smi))
-        phase("train", t0)
+        phase("train kernels", t0)
         print(json.dumps({"train": res, **{k if isinstance(k, str) else " ".join(k): v
                                            for k, v in rows.items()}}))
         return 0
@@ -3493,6 +3828,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches, train_res = run_train_phase(torch, np, smi)
     phase("train", t0)
+
+    t0 = time.perf_counter()
+    dp_launches, dp_res = run_dp_phase(torch, np, smi)
+    phase("dp", t0)
 
     t0 = time.perf_counter()
     kres = run_kernel_checks(torch, np)
@@ -3582,6 +3921,7 @@ def main() -> int:
     phase("family", t0)
 
     launches.update(train_launches)
+    launches.update(dp_launches)
     by_variant["train"] = train_res["flash_launches_by_variant"]
     t0 = time.perf_counter()
     train_res.update(profile_train_step(torch, smi))
@@ -3611,6 +3951,7 @@ def main() -> int:
                if "microbatch" in r else {}),
         })
     print(json.dumps({"train": train_res}))
+    print(json.dumps({"dp": dp_res}))
     print(json.dumps({"paper": {"device": smi, "model": "llama-65b, 32 of 80 layers, dense",
                                 "modes": paper["modes"]}}))
     print(json.dumps({"kernels": kernels}))

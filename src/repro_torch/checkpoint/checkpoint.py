@@ -20,7 +20,8 @@ Layout:
 
 Trees are nested dicts of torch tensors (any device; copied to the host to
 save). Restore places each leaf on the device of the matching ``target``
-leaf, in its dtype.
+leaf, in its dtype; with ``placements`` (the elastic-restore path), each
+leaf becomes a DTensor on its mesh, every rank keeping its own shard.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import distribute
 
 Tree = Any
 _SEP = "/"
@@ -145,15 +148,19 @@ def restore_checkpoint(
     directory: str | Path,
     step: Optional[int] = None,
     target: Optional[Tree] = None,
+    placements: Optional[Tree] = None,
 ) -> Tuple[Tree, Dict[str, Any]]:
     """Restore a checkpoint (the latest complete one by default).
 
-    ``target``: a dict tree of the same structure; each restored tensor leaf
-    takes its target's dtype (through float32 where the stored one differs,
-    as the reference converts) and device, and a leaf whose target is not a
-    tensor comes back as its stored numpy array. Without a target, returns
-    the stored arrays by key (bf16 as their uint16 bits). Returns (tree,
-    metadata).
+    ``target``: a dict tree of the same structure (tensors, ``meta`` tensors
+    included); each restored tensor leaf takes its target's dtype (through
+    float32 where the stored one differs, as the reference converts) and
+    device, and a leaf whose target is not a tensor comes back as its stored
+    numpy array. ``placements``: an optional matching tree of ``(DeviceMesh,
+    spec)`` pairs (``distributed.sharding`` specs) — each leaf then becomes a
+    DTensor on its mesh (the elastic-restore path: the mesh may differ from
+    the writer's). Without a target, returns the stored arrays by key (bf16
+    as their uint16 bits). Returns (tree, metadata).
     """
     directory = Path(directory)
     if step is None:
@@ -166,6 +173,7 @@ def restore_checkpoint(
         by_key = {k: arrays[k] for k in manifest["keys"]}
     if target is None:
         return by_key, manifest["metadata"]
+    where = dict(_flatten_with_paths(placements)) if placements is not None else {}
     leaves = {}
     for key, tgt in _flatten_with_paths(target):
         if key not in by_key:
@@ -176,7 +184,7 @@ def restore_checkpoint(
         t = _leaf_tensor(by_key[key], manifest["leaf_meta"][key]["dtype"])
         if t.dtype != tgt.dtype:
             t = t.float().to(tgt.dtype)
-        leaves[key] = t.to(tgt.device)
+        leaves[key] = distribute(t, *where[key]) if key in where else t.to(tgt.device)
     return _unflatten_like(target, leaves), manifest["metadata"]
 
 

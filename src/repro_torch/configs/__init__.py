@@ -8,9 +8,10 @@ table).
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from .base import ArchConfig
+from .shapes import SHAPES, SHAPES_BY_NAME, ShapeCell, applicable_cells, cell_applicable
 
 ARCH_IDS: List[str] = [
     "mixtral_8x22b",
@@ -41,3 +42,7 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke_config(name: str) -> ArchConfig:
     return _module(name).SMOKE_CONFIG
+
+
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -1,11 +1,24 @@
 """Layer primitives of the serving and training paths (counterpart of
 ``repro.models.layers``).
 
-Parameters are declared as ``ParamDef`` trees (shape + init rule) exactly as
-the reference declares them — same shapes, same fan-in scales, same stacked
-``(L, ...)`` layer layout — so a parameter tree converts one-to-one between
-the two packages (``models.convert.params_from_numpy``). ``init_params``
-draws them from a seeded ``torch.Generator`` directly on the target device.
+Parameters are declared as ``ParamDef`` trees (shape + logical axes + init
+rule) exactly as the reference declares them — same shapes, same axes, same
+fan-in scales, same stacked ``(L, ...)`` layer layout — so a parameter tree
+converts one-to-one between the two packages
+(``models.convert.params_from_numpy``). The same declaration serves three
+consumers:
+
+  * ``init_params``     — real tensors, drawn from a seeded
+                          ``torch.Generator`` directly on the target device
+  * ``abstract_params`` — tensors on the ``meta`` device (shape and dtype,
+                          nothing allocated)
+  * ``logical_specs``   — the logical-axes tree that
+                          ``repro_torch.distributed.sharding`` maps onto a
+                          mesh
+
+Logical axis vocabulary (mapped to mesh axes by the sharding rules):
+"layers" (the stacked layer dim, never sharded), "batch", "seq", "vocab",
+"embed", "heads", "kv_heads", "head_dim", "mlp", "experts", "rnn".
 
 Functions take and return tensors in the reference's layouts (``bshk`` for
 per-head activations) and keep its dtype discipline: norms, RoPE (and
@@ -32,6 +45,11 @@ class ParamDef:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"       # normal | zeros | ones | embed
     scale: Optional[float] = None
+    axes: Tuple[Optional[str], ...] = dataclasses.field(kw_only=True)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
@@ -159,6 +177,17 @@ def init_params(
     return out
 
 
+def abstract_params(defs: Tree) -> Tree:
+    """Tensors on the ``meta`` device with the leaves' shapes and dtypes:
+    the stand-in of a parameter tree that allocates nothing."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def logical_specs(defs: Tree) -> Tree:
+    """Logical-axes tree, same structure as the params."""
+    return tree_map(lambda d: d.axes, defs)
+
+
 # --------------------------------------------------------------------------- #
 # Norms                                                                       #
 # --------------------------------------------------------------------------- #
@@ -184,9 +213,10 @@ def apply_norm(x, p: Dict[str, torch.Tensor], kind: str, eps: float) -> torch.Te
 
 def norm_defs(d_model: int, kind: str, dtype, layers: Optional[int] = None):
     lead = (layers,) if layers else ()
-    defs = {"scale": ParamDef(lead + (d_model,), dtype, "ones")}
+    lax = ("layers",) if layers else ()
+    defs = {"scale": ParamDef(lead + (d_model,), dtype, "ones", axes=lax + ("embed",))}
     if kind == "layernorm":
-        defs["bias"] = ParamDef(lead + (d_model,), dtype, "zeros")
+        defs["bias"] = ParamDef(lead + (d_model,), dtype, "zeros", axes=lax + ("embed",))
     return defs
 
 
@@ -278,20 +308,21 @@ def mlp_defs(
     use_bias: bool = False,
 ):
     lead = (layers,) if layers else ()
+    lax = ("layers",) if layers else ()
     if kind == "swiglu":
         return {
-            "w_gate": ParamDef(lead + (d_model, d_ff), dtype),
-            "w_up": ParamDef(lead + (d_model, d_ff), dtype),
-            "w_down": ParamDef(lead + (d_ff, d_model), dtype),
+            "w_gate": ParamDef(lead + (d_model, d_ff), dtype, axes=lax + ("embed", "mlp")),
+            "w_up": ParamDef(lead + (d_model, d_ff), dtype, axes=lax + ("embed", "mlp")),
+            "w_down": ParamDef(lead + (d_ff, d_model), dtype, axes=lax + ("mlp", "embed")),
         }
     # squared_relu | gelu
     defs = {
-        "w_up": ParamDef(lead + (d_model, d_ff), dtype),
-        "w_down": ParamDef(lead + (d_ff, d_model), dtype),
+        "w_up": ParamDef(lead + (d_model, d_ff), dtype, axes=lax + ("embed", "mlp")),
+        "w_down": ParamDef(lead + (d_ff, d_model), dtype, axes=lax + ("mlp", "embed")),
     }
     if use_bias:
-        defs["b_up"] = ParamDef(lead + (d_ff,), dtype, "zeros")
-        defs["b_down"] = ParamDef(lead + (d_model,), dtype, "zeros")
+        defs["b_up"] = ParamDef(lead + (d_ff,), dtype, "zeros", axes=lax + ("mlp",))
+        defs["b_down"] = ParamDef(lead + (d_model,), dtype, "zeros", axes=lax + ("embed",))
     return defs
 
 
@@ -325,9 +356,11 @@ def mlp_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.T
 # Embedding / unembedding                                                     #
 # --------------------------------------------------------------------------- #
 def embed_defs(vocab: int, d_model: int, dtype, tie: bool = False):
-    defs = {"embedding": ParamDef((vocab, d_model), dtype, "embed", 0.02)}
+    defs = {"embedding": ParamDef((vocab, d_model), dtype, "embed", 0.02,
+                                  axes=("vocab", "embed"))}
     if not tie:
-        defs["unembed"] = ParamDef((d_model, vocab), dtype, "embed", 0.02)
+        defs["unembed"] = ParamDef((d_model, vocab), dtype, "embed", 0.02,
+                                   axes=("embed", "vocab"))
     return defs
 
 

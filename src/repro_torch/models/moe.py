@@ -31,13 +31,18 @@ def moe_defs(
     n_layers: Optional[int], d_model: int, d_ff: int, n_experts: int, mlp_kind: str, dtype,
 ):
     lead = (n_layers,) if n_layers else ()
+    lax = ("layers",) if n_layers else ()
     defs: Dict[str, ParamDef] = {
-        "router": ParamDef(lead + (d_model, n_experts), torch.float32),
+        "router": ParamDef(lead + (d_model, n_experts), torch.float32,
+                           axes=lax + ("embed", "experts")),
     }
     if mlp_kind == "swiglu":
-        defs["w_gate"] = ParamDef(lead + (n_experts, d_model, d_ff), dtype)
-    defs["w_up"] = ParamDef(lead + (n_experts, d_model, d_ff), dtype)
-    defs["w_down"] = ParamDef(lead + (n_experts, d_ff, d_model), dtype)
+        defs["w_gate"] = ParamDef(lead + (n_experts, d_model, d_ff), dtype,
+                                  axes=lax + ("experts", "embed", "mlp"))
+    defs["w_up"] = ParamDef(lead + (n_experts, d_model, d_ff), dtype,
+                            axes=lax + ("experts", "embed", "mlp"))
+    defs["w_down"] = ParamDef(lead + (n_experts, d_ff, d_model), dtype,
+                              axes=lax + ("experts", "mlp", "embed"))
     return defs
 
 

@@ -77,6 +77,7 @@ from .layers import (
     DTYPES,
     ParamDef,
     ViewCache,
+    apply_norm,
     apply_rope_tables,
     cross_entropy_loss,
     embed_defs,
@@ -87,7 +88,6 @@ from .layers import (
     mlp_defs,
     norm_defs,
     records_grad,
-    rms_norm,
     rope_tables,
     unembed,
 )
@@ -101,6 +101,11 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _norm_view(p: Params) -> Params:
+    """A norm's leaves (``scale``, and ``bias`` for layernorm) in float32."""
+    return {k: w.float() for k, w in p.items()}
+
+
 class RecurrentGemma:
     """RecurrentGemma on ``device`` (default the CUDA device; raises if there
     is none — pass ``device="cpu"`` for the plain path)."""
@@ -112,18 +117,10 @@ class RecurrentGemma:
         pattern = cfg.block_pattern or ("rec", "rec", "attn")
         if pattern != ("rec", "rec", "attn"):
             raise ValueError("RecurrentGemma expects the ('rec','rec','attn') pattern")
-        unsupported = {
-            "family": cfg.family != "hybrid",
-            "use_bias": cfg.use_bias,
-            "norm_kind": cfg.norm_kind != "rmsnorm",
-            "mlp_kind": cfg.mlp_kind != "swiglu",
-        }
-        missing = [k for k, v in unsupported.items() if v]
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} not ported yet — the port serves "
-                f"RMSNorm/SwiGLU RecurrentGemma configs (see ROADMAP.md)"
-            )
+        if cfg.family != "hybrid":
+            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not RecurrentGemma's")
+        # ``use_bias`` is accepted and ignored, as in the reference: no block
+        # of this model has a bias.
         self.cfg = cfg
         self.n_periods = cfg.n_layers // 3                    # full (rec, rec, attn) groups
         self.n_tail_rec = cfg.n_layers - 3 * self.n_periods   # leftover rec layers
@@ -143,13 +140,13 @@ class RecurrentGemma:
         d = cfg.d_model
         return {
             "norm": norm_defs(d, cfg.norm_kind, dt, layers=n),
-            "w_x": ParamDef((n, d, r), dt),
-            "w_gate": ParamDef((n, d, r), dt),
-            "conv_k": ParamDef((n, cfg.conv1d_width, r), dt),
-            "w_rgate": ParamDef((n, r, r), dt),
-            "w_igate": ParamDef((n, r, r), dt),
-            "lam": ParamDef((n, r), torch.float32, "normal", 0.5),
-            "w_out": ParamDef((n, r, d), dt),
+            "w_x": ParamDef((n, d, r), dt, axes=("layers", "embed", "rnn")),
+            "w_gate": ParamDef((n, d, r), dt, axes=("layers", "embed", "rnn")),
+            "conv_k": ParamDef((n, cfg.conv1d_width, r), dt, axes=("layers", None, "rnn")),
+            "w_rgate": ParamDef((n, r, r), dt, axes=("layers", "rnn", None)),
+            "w_igate": ParamDef((n, r, r), dt, axes=("layers", "rnn", None)),
+            "lam": ParamDef((n, r), torch.float32, "normal", 0.5, axes=("layers", "rnn")),
+            "w_out": ParamDef((n, r, d), dt, axes=("layers", "rnn", "embed")),
             "norm_mlp": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "mlp": mlp_defs(d, cfg.d_ff, cfg.mlp_kind, dt, layers=n),
         }
@@ -159,10 +156,14 @@ class RecurrentGemma:
         d = cfg.d_model
         return {
             "norm": norm_defs(d, cfg.norm_kind, dt, layers=n),
-            "wq": ParamDef((n, d, cfg.n_heads, hd), dt),
-            "wk": ParamDef((n, d, cfg.n_kv_heads, hd), dt),
-            "wv": ParamDef((n, d, cfg.n_kv_heads, hd), dt),
-            "wo": ParamDef((n, cfg.n_heads, hd, d), dt),
+            "wq": ParamDef((n, d, cfg.n_heads, hd), dt,
+                           axes=("layers", "embed", "heads", "head_dim")),
+            "wk": ParamDef((n, d, cfg.n_kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wv": ParamDef((n, d, cfg.n_kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wo": ParamDef((n, cfg.n_heads, hd, d), dt,
+                           axes=("layers", "heads", "head_dim", "embed")),
             "norm_mlp": norm_defs(d, cfg.norm_kind, dt, layers=n),
             "mlp": mlp_defs(d, cfg.d_ff, cfg.mlp_kind, dt, layers=n),
         }
@@ -193,7 +194,7 @@ class RecurrentGemma:
         p = layer_slice(p, i)
         f32 = lambda x: x.float()
         return {
-            "norm": f32(p["norm"]["scale"]),
+            "norm": _norm_view(p["norm"]),
             "w_x": p["w_x"],
             "w_gate": p["w_gate"],
             "conv_k": f32(p["conv_k"]),                           # (c, R)
@@ -201,7 +202,7 @@ class RecurrentGemma:
             "w_igate": f32(p["w_igate"]),
             "neg_c_lam": -_C_RGLRU * _softplus(f32(p["lam"])),   # (R,)
             "w_out": p["w_out"],
-            "norm_mlp": f32(p["norm_mlp"]["scale"]),
+            "norm_mlp": _norm_view(p["norm_mlp"]),
             "mlp": dict(p["mlp"]),
         }
 
@@ -210,12 +211,12 @@ class RecurrentGemma:
         d = cfg.d_model
         p = layer_slice(p, i)
         return {
-            "norm": p["norm"]["scale"].float(),
+            "norm": _norm_view(p["norm"]),
             "wq": p["wq"].reshape(d, cfg.n_heads * hd),
             "wk": p["wk"].reshape(d, cfg.n_kv_heads * hd),
             "wv": p["wv"].reshape(d, cfg.n_kv_heads * hd),
             "wo": p["wo"].reshape(cfg.n_heads * hd, d),
-            "norm_mlp": p["norm_mlp"]["scale"].float(),
+            "norm_mlp": _norm_view(p["norm_mlp"]),
             "mlp": dict(p["mlp"]),
         }
 
@@ -289,7 +290,7 @@ class RecurrentGemma:
         and takes the conv buffer from its last real inputs."""
         cfg = self.cfg
         b, s, _ = h.shape
-        x = rms_norm(h, lp["norm"], cfg.norm_eps)
+        x = apply_norm(h, lp["norm"], cfg.norm_kind, cfg.norm_eps)
         u = (x @ lp["w_x"]).float()                                     # (B, S, R)
         gate = F.gelu((x @ lp["w_gate"]).float(), approximate="tanh")
         # causal temporal conv (width c): pad with the carried buffer
@@ -335,14 +336,14 @@ class RecurrentGemma:
     def _attn_block_seq(self, h: torch.Tensor, lp: Params, rope):
         cfg = self.cfg
         b, s, _ = h.shape
-        x = rms_norm(h, lp["norm"], cfg.norm_eps)
+        x = apply_norm(h, lp["norm"], cfg.norm_kind, cfg.norm_eps)
         q, k, v = self._qkv(x, lp, rope)
         out = attention_any(q, k, v, causal=True, window=self.window)
         return h + out.reshape(b, s, -1) @ lp["wo"], (k, v)
 
     def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
         cfg = self.cfg
-        x = rms_norm(h, lp["norm_mlp"], cfg.norm_eps)
+        x = apply_norm(h, lp["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
         return h + mlp_apply(x, lp["mlp"], cfg.mlp_kind)
 
     def _rec_layer(self, h, lp, cache, i, len_vec=None):
@@ -397,7 +398,7 @@ class RecurrentGemma:
             ring["pos"].copy_(pos_map)
             ring["length"].copy_(new_len)
             cache["length"].copy_(new_len)
-        return rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
+        return apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
 
     def _run_layers(self, h: torch.Tensor, rec, attn, run) -> torch.Tensor:
         """Every layer in order, each period's recurrent A and B blocks and
@@ -436,7 +437,7 @@ class RecurrentGemma:
         run = ((lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat
                else (lambda fn, *a: fn(*a)))
         h = self._run_layers(h, rec, attn, run)
-        return rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
+        return apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
 
     def forward(
         self,
@@ -512,7 +513,7 @@ class RecurrentGemma:
 
         def attn(h, p):
             at = views["attn"][p]
-            x = rms_norm(h, at["norm"], cfg.norm_eps)[:, None]
+            x = apply_norm(h, at["norm"], cfg.norm_kind, cfg.norm_eps)[:, None]
             q, k, v = self._qkv(x, at, rope)
             kc, vc = ring["k"][p], ring["v"][p]
             write_token(kc, vc, k, v, plan)
@@ -521,7 +522,7 @@ class RecurrentGemma:
             return self._mlp_block(h + out.reshape(b, -1) @ at["wo"], at)
 
         h = self._run_layers(h, rec, attn, lambda fn, *a: fn(*a))
-        h = rms_norm(h, params["norm_final"]["scale"], cfg.norm_eps)
+        h = apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
         logits = unembed(h, params["embed"]).float()
         ring["pos"].copy_(new_pos)
         ring["length"].add_(1)

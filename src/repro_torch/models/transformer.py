@@ -143,19 +143,26 @@ class TransformerLM:
         block: Params = {
             "norm_attn": norm_defs(cfg.d_model, cfg.norm_kind, dt, layers=L),
             "norm_mlp": norm_defs(cfg.d_model, cfg.norm_kind, dt, layers=L),
-            "wq": ParamDef((L, cfg.d_model, cfg.n_heads, hd), dt),
-            "wk": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt),
-            "wv": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt),
-            "wo": ParamDef((L, cfg.n_heads, hd, cfg.d_model), dt),
+            "wq": ParamDef((L, cfg.d_model, cfg.n_heads, hd), dt,
+                           axes=("layers", "embed", "heads", "head_dim")),
+            "wk": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wv": ParamDef((L, cfg.d_model, cfg.n_kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wo": ParamDef((L, cfg.n_heads, hd, cfg.d_model), dt,
+                           axes=("layers", "heads", "head_dim", "embed")),
         }
         if cfg.use_bias:
-            block["bq"] = ParamDef((L, cfg.n_heads, hd), dt, "zeros")
-            block["bk"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros")
-            block["bv"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros")
-            block["bo"] = ParamDef((L, cfg.d_model), dt, "zeros")
+            block["bq"] = ParamDef((L, cfg.n_heads, hd), dt, "zeros",
+                                   axes=("layers", "heads", "head_dim"))
+            block["bk"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros",
+                                   axes=("layers", "kv_heads", "head_dim"))
+            block["bv"] = ParamDef((L, cfg.n_kv_heads, hd), dt, "zeros",
+                                   axes=("layers", "kv_heads", "head_dim"))
+            block["bo"] = ParamDef((L, cfg.d_model), dt, "zeros", axes=("layers", "embed"))
         if cfg.qk_norm:
-            block["q_norm"] = ParamDef((L, hd), dt, "ones")
-            block["k_norm"] = ParamDef((L, hd), dt, "ones")
+            block["q_norm"] = ParamDef((L, hd), dt, "ones", axes=("layers", "head_dim"))
+            block["k_norm"] = ParamDef((L, hd), dt, "ones", axes=("layers", "head_dim"))
         if cfg.is_moe:
             block["moe"] = moe_defs(L, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.mlp_kind, dt)
         else:

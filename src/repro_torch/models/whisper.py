@@ -86,13 +86,17 @@ class Whisper:
         cfg, dt, hd = self.cfg, self.dtype, self.hd
         d = cfg.d_model
         return {
-            "wq": ParamDef((n, d, cfg.n_heads, hd), dt),
-            "wk": ParamDef((n, d, kv_heads, hd), dt),
-            "wv": ParamDef((n, d, kv_heads, hd), dt),
-            "wo": ParamDef((n, cfg.n_heads, hd, d), dt),
-            "bq": ParamDef((n, cfg.n_heads, hd), dt, "zeros"),
-            "bv": ParamDef((n, kv_heads, hd), dt, "zeros"),
-            "bo": ParamDef((n, d), dt, "zeros"),
+            "wq": ParamDef((n, d, cfg.n_heads, hd), dt,
+                           axes=("layers", "embed", "heads", "head_dim")),
+            "wk": ParamDef((n, d, kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wv": ParamDef((n, d, kv_heads, hd), dt,
+                           axes=("layers", "embed", "kv_heads", "head_dim")),
+            "wo": ParamDef((n, cfg.n_heads, hd, d), dt,
+                           axes=("layers", "heads", "head_dim", "embed")),
+            "bq": ParamDef((n, cfg.n_heads, hd), dt, "zeros", axes=("layers", "heads", "head_dim")),
+            "bv": ParamDef((n, kv_heads, hd), dt, "zeros", axes=("layers", "kv_heads", "head_dim")),
+            "bo": ParamDef((n, d), dt, "zeros", axes=("layers", "embed")),
         }
 
     def param_defs(self) -> Params:

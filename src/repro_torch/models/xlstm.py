@@ -113,21 +113,25 @@ class XLSTM:
     def param_defs(self) -> Params:
         cfg, hd, dt = self.cfg, self.hd, self.dtype
         P, H, d = self.n_pairs, cfg.n_heads, cfg.d_model
-        proj = lambda *shape: ParamDef((P,) + shape, dt)
+        def proj(*shape_axes):
+            shape, axes = zip(*shape_axes)
+            return ParamDef((P,) + shape, dt, axes=("layers",) + axes)
+
+        e, h, k = (d, "embed"), (H, "heads"), (hd, "head_dim")
         mlstm = {
             "norm": norm_defs(d, cfg.norm_kind, dt, layers=P),
-            "wq": proj(d, H, hd),
-            "wk": proj(d, H, hd),
-            "wv": proj(d, H, hd),
-            "wif": proj(d, H, 2),          # i / f gate preactivations
-            "wgate": proj(d, d),
-            "wout": proj(H, hd, d),
+            "wq": proj(e, h, k),
+            "wk": proj(e, h, k),
+            "wv": proj(e, h, k),
+            "wif": proj(e, h, (2, None)),          # i / f gate preactivations
+            "wgate": proj(e, (d, "rnn")),
+            "wout": proj(h, k, e),
         }
         slstm = {
             "norm": norm_defs(d, cfg.norm_kind, dt, layers=P),
-            **{w: proj(d, H, hd) for w in ("wz", "wi", "wf", "wo")},
-            **{r: proj(H, hd, hd) for r in ("rz", "ri", "rf", "ro")},
-            "wout": proj(H, hd, d),
+            **{w: proj(e, h, k) for w in ("wz", "wi", "wf", "wo")},
+            **{r: proj(h, k, (hd, None)) for r in ("rz", "ri", "rf", "ro")},
+            "wout": proj(h, k, e),
         }
         return {
             "embed": embed_defs(cfg.vocab_size, d, dt, tie=cfg.tie_embeddings),

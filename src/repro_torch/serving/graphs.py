@@ -61,6 +61,7 @@ Hazards, each handled here or by the owner, and checked:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -222,8 +223,18 @@ class Dispatches:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-            outputs = fn(inputs)
+        # no automatic cyclic collection inside the capture: collecting a
+        # dead owner's graphs there destroys them mid-capture, which CUDA
+        # refuses, and the capture is lost (torch.cuda.graph no longer
+        # collects before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                outputs = fn(inputs)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(dev)
         self.capture_s += time.perf_counter() - t0
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved

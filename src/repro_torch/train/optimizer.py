@@ -10,7 +10,7 @@ objects, so a step holds no second copy of the parameters or moments. Each
 leaf is updated in slices along its leading dim (a layer of a stacked leaf)
 so the float32 temporaries stay one slice's size; the arithmetic is
 elementwise, so the slices give the values a whole-leaf update would.
-``abstract_opt_state`` (the dry-run's) is not ported.
+``abstract_opt_state`` gives the state's stand-in on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -45,6 +45,18 @@ def adamw_init(params: Tree) -> Dict[str, Tree]:
         "m": tree_map(f32, params),
         "v": tree_map(f32, params),
         "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def abstract_opt_state(abstract_params: Tree) -> Dict[str, Tree]:
+    """The optimizer state's tree on the ``meta`` device (nothing
+    allocated): float32 ``m`` / ``v`` shaped like the parameters and an int32
+    ``count``."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {
+        "m": tree_map(f32, abstract_params),
+        "v": tree_map(f32, abstract_params),
+        "count": torch.empty((), dtype=torch.int32, device="meta"),
     }
 
 

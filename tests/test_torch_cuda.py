@@ -1144,3 +1144,100 @@ def test_cuda_rglru_graph_replay_equals_direct_calls(card, b, s, r):
         torch.cuda.synchronize()
         assert torch.equal(out, want) and torch.equal(hf, want_f)
         state = want_f
+
+
+def test_cuda_one_rank_nccl_plain_dp_step_is_train_step(card, tmp_path):
+    """The plain data-parallel step on a one-rank NCCL group (its FileStore
+    under the test's temp dir) equals ``make_train_step(microbatches=1)`` bit
+    for bit: loss and every parameter leaf after each of 3 steps from the
+    same init (the float32 smoke Qwen3, remat, lr 1e-3, warmup 1); the flash
+    forward and backward ran as the training path implies."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.models.layers import _leaves, tree_map
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.dp_compressed import init_group, make_dp_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), dtype="float32")
+    model = get_model(cfg, device="cuda")
+    params0 = model.init_params(0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32))
+                              .astype(np.int32)).cuda()
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    init_group("cuda", f"file://{tmp_path}/filestore", 0, 1)
+    try:
+        runs = {}
+        for name in ("dp", "train_step"):
+            params = tree_map(torch.clone, params0)
+            state = adamw_init(params)
+            fa.reset_launch_count()
+            fb.reset_launch_count()
+            trail = []
+            if name == "dp":
+                step = make_dp_train_step(model, None, opt_cfg, compress=False, remat=True)
+                for _ in range(3):
+                    params, state, _, m = step(params, state, None, batch)
+                    trail.append((float(m["loss"]), tree_map(torch.clone, params)))
+            else:
+                step = make_train_step(model, opt_cfg, microbatches=1, remat=True)
+                for _ in range(3):
+                    params, state, m = step(params, state, batch)
+                    trail.append((float(m["loss"]), tree_map(torch.clone, params)))
+            assert (fa.launch_count, fb.launch_count) == (2 * 3 * cfg.n_layers, 3 * cfg.n_layers)
+            runs[name] = trail
+    finally:
+        dist.destroy_process_group()
+    for (l_dp, p_dp), (l_ts, p_ts) in zip(runs["dp"], runs["train_step"]):
+        assert l_dp == l_ts
+        for (path, a), (_, b) in zip(_leaves(p_dp), _leaves(p_ts)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), path
+
+
+def test_cuda_capture_survives_a_collection_of_a_dead_owners_graphs(card):
+    """An owner of a captured dispatch whose last reference, inside another
+    owner's capture, moves into a new reference cycle, and collection
+    thresholds at 1, so that any allocation there collects the cycle and
+    frees the old owner's graph: the capture completes, and its replay
+    computes the function. Destroying a graph mid-capture is an error CUDA
+    reports by invalidating the capture, so no automatic collection may run
+    there."""
+    import gc
+
+    from repro_torch.serving.graphs import Dispatches
+
+    dev = torch.device("cuda")
+    calls, keep = [], {}
+
+    def build(key):
+        x = torch.arange(64, dtype=torch.float32, device=dev)
+
+        def fn(inputs):
+            calls.append(key)
+            if key == "new" and calls.count("new") == 2:     # inside the capture
+                cycle = {"owner": keep.pop("old")}
+                cycle["self"] = cycle
+                del cycle                                     # garbage, in the youngest generation
+                _ = [[] for _ in range(100)]                  # allocations that would collect it
+            return inputs["x"] * 2 + 1
+        return {"x": x}, fn
+
+    keep["old"] = Dispatches(dev, build)
+    keep["old"].prepare("old")
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        new = Dispatches(dev, build)
+        new.prepare("new")
+    finally:
+        gc.set_threshold(*thresholds)
+    assert "old" not in keep
+    gc.collect()
+    out = new.replay("new")
+    torch.testing.assert_close(out, torch.arange(64, dtype=torch.float32, device=dev) * 2 + 1)

@@ -46,6 +46,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.train, repro_torch.kernels.flash_attention_bwd\n"
         "import repro_torch.core.simulator, repro_torch.core.mip, repro_torch.core.rl_policy\n"
         "import repro_torch.launch.paper_tables\n"
+        "import repro_torch.distributed.elastic, repro_torch.train.dp_compressed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

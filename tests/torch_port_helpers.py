@@ -3,13 +3,18 @@ the reference model and its parameters and the same parameters carried into
 the port (``family_models``: any smoke decoder, every parameter perturbed
 off its init). The numpy helpers that feed both sides identical inputs, which need
 no JAX, live in ``torch_port_arrays``. ``scripted_clock`` stands in for both
-engines' clocks, so the fleet tests' schedules read no wall clock."""
+engines' clocks, so the fleet tests' schedules read no wall clock.
+``run_ranks`` runs a function of ``torch_port_ranks`` in the processes of a
+gloo group."""
 import contextlib
 import dataclasses
+import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
@@ -185,3 +190,31 @@ def reference_waves(ref_model, ref_params, reqs, n_slots, max_len, width, enc_le
         for i, r in enumerate(wave):
             generated[r.rid] = [int(t[i]) for t in out[: r.n_decode]]
     return generated, steps
+
+
+#: the longest a group of ranks may run before ``run_ranks`` kills it
+RANKS_TIMEOUT_S = 120
+
+
+def run_ranks(fn, world, workdir, *args, timeout=RANKS_TIMEOUT_S):
+    """Run ``fn(rank, world, *args)`` (a function of ``torch_port_ranks``) in
+    ``world`` spawned processes of a gloo group that meets through a
+    FileStore under ``workdir`` (no TCP port, so parallel test workers never
+    collide). A rank that raises fails the test with its traceback; a group
+    still running after ``timeout`` seconds is killed and fails it."""
+    import torch.multiprocessing as mp
+    from torch_port_ranks import rank_main
+
+    store = Path(workdir) / f"filestore_{fn.__name__}"
+    ctx = mp.start_processes(rank_main, args=(fn, world, str(store), args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                pytest.fail(f"{fn.__name__} on {world} ranks ran past {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
