@@ -225,6 +225,21 @@ Phases, each printing its seconds on a line of its own:
              checkpoint onto a (1, 1) data/model mesh on the card
              (DTensors bit-equal to the saved tree); the groups are
              destroyed at the end.
+9. dryrun  — last: the dry-run (repro_torch.launch.dryrun) held to the
+             card. Two steps that fit one card are traced on a world of
+             one (fake CUDA tensors) and then run for real: Qwen3-8B's
+             decode_step at B 8 against a dense cache of 32,768 (36 layers,
+             every row full) and phase train's step (Qwen3-8B at 12 of 36
+             layers, 2 x 2048, 2 microbatches, remat). The trace's peak
+             must be within DRYRUN_PEAK_TOL of max_memory_allocated over
+             the step (both above what was allocated before the step's
+             arguments), its registered FLOPs must equal FlopCounterMode's
+             count over the real step, and its custom-op calls the
+             kernels' launch counts; the step's ms is printed beside the
+             roofline's bound (no gate). DRYRUN_CELLS, one cell per
+             family, are traced meanwhile on the fake 16 x 16 world in a
+             subprocess that sees no card: each must be ok, its trace
+             seconds and per-device peak printed.
 
 Then one JSON line of the train phase's numbers, one of phase dp's, one of phase paper's
 (each mode's served and simulated numbers and fitted cost model, with the
@@ -236,7 +251,8 @@ training shape, the RG-LRU backward, the flash backward and kernels 4
 and 2 at RecurrentGemma-9B's training shapes, kernels 2 and 3 on
 Whisper-small's serve and the flash backward on its training run, and
 kernels 2 and 3 at LLaMA-65B's on phase paper's four serves) with its launches on each path (flash's also by device
-body) and this run's times, and, last,
+body) and this run's times, one JSON line of phase dryrun's numbers (with
+the card's name and power limit), and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 
@@ -3751,6 +3767,160 @@ def run_profiler_cost(torch, smi):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# Phase dryrun: the dry-run held to the card                                  #
+# --------------------------------------------------------------------------- #
+#: the trace's predicted peak against max_memory_allocated, relative
+DRYRUN_PEAK_TOL = 0.10
+#: one cell per family, traced on the fake 16 x 16 world
+DRYRUN_CELLS = (("qwen3_8b", "train_4k"), ("mixtral_8x22b", "decode_32k"),
+                ("recurrentgemma_9b", "long_500k"), ("whisper_small", "prefill_32k"),
+                ("qwen2_vl_7b", "prefill_32k"))
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch import dryrun
+for arch, shape in json.loads(sys.argv[1]):
+    print(json.dumps(dryrun.run_cell(arch, shape, False, save=False)), flush=True)
+"""
+
+
+def calibrate_step(torch, what, build_real, trace_cell, smi):
+    """Trace ``trace_cell`` (``dryrun.build_cell`` arguments, one card) on
+    fake CUDA tensors, then run the real step ``build_real()`` returns
+    twice: once under FlopCounterMode with the launch counters and the peak
+    reset, once timed between CUDA events. Gates the peak, the FLOPs and the
+    launches; returns the numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
+    t0 = time.perf_counter()
+    step, args, fake = dryrun.build_cell(**trace_cell, device="cuda")
+    pred = dryrun.trace_step(step, args, fake)
+    del step, args, fake
+    trace_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    real_step = build_real()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = kernel_modules()
+    for mod in kernels.values():
+        mod.reset_launch_count()
+    with FlopCounterMode(display=False) as fc:
+        real_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: mod.launch_count for name, mod in kernels.items() if mod.launch_count}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    real_step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end)
+    del real_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = pred["memory"]
+    bound_ms = 1e3 * max(pred["cost"]["flops"] / PEAK_FLOPS_BF16,
+                         (mem["argument_bytes"] + mem["temp_bytes"]) / HBM_BW)
+    calls = {k: int(v) for k, v in pred["op_calls"].items()}
+    res = dict(predicted_peak_bytes=pred["peak_bytes"], peak_bytes=peak,
+               peak_rel_err=pred["peak_bytes"] / peak - 1, trace_flops=pred["cost"]["registered_flops"],
+               flop_counter_flops=fc.get_total_flops(), op_calls=calls, launches=launches,
+               step_ms=step_ms, roofline_bound_ms=bound_ms, trace_s=trace_s, card=smi)
+    print(f"  dryrun {what} on {smi}: predicted peak {pred['peak_bytes'] / 2**30:.3f} GiB, "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB ({100 * res['peak_rel_err']:+.2f}%); "
+          f"trace FLOPs {res['trace_flops']:.6g}, FlopCounterMode {res['flop_counter_flops']:.6g}; "
+          f"op calls {json.dumps(calls)}, launches {json.dumps(launches)}; step {step_ms:.2f} ms, "
+          f"roofline bound {bound_ms:.2f} ms; trace {trace_s:.1f} s", flush=True)
+    check(abs(res["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
+          f"dryrun {what}: predicted peak {pred['peak_bytes']} vs {peak} bytes")
+    check(res["trace_flops"] == res["flop_counter_flops"] > 0,
+          f"dryrun {what}: trace FLOPs {res['trace_flops']} vs FlopCounterMode {res['flop_counter_flops']}")
+    check(calls == launches, f"dryrun {what}: op calls {calls} vs launches {launches}")
+    return res
+
+
+def run_dryrun_phase(torch, np, smi):
+    """Phase dryrun (the module docstring, phase 9)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed.sharding import ShardingConfig
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    res = {"device": smi}
+    # one cell per family on the fake 16 x 16 world, in a process that sees
+    # no card, started first: it runs on the host while the card calibrates
+    t_cells = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        full = get_config("qwen3_8b")
+        b, s = 8, 32768
+
+        def decode_real():
+            model = TransformerLM(full, device="cuda")
+            params = model.init_params(seed=0)
+            cache = model.cache_init(b, s)
+            cache["length"].fill_(s - 1)
+            tokens = torch.arange(b, dtype=torch.int32, device="cuda")
+
+            def step():
+                cache["length"].fill_(s - 1)
+                model.decode_step(params, tokens, cache)
+            return step
+
+        plan = {"microbatches": 1, "remat": True, "sharding": ShardingConfig()}
+        res["decode"] = calibrate_step(
+            torch, f"qwen3-8b decode_step (B {b}, dense cache {s})", decode_real,
+            dict(arch="qwen3_8b", cell=ShapeCell("decode", s, b, "decode"), mesh=None, plan=plan,
+                 cfg=full), smi)
+
+        cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+
+        def train_real():
+            model = TransformerLM(cfg, device="cuda")
+            params = model.init_params(seed=0)
+            opt = adamw_init(params)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                                      device="cuda", dtype=torch.int32) for k in ("tokens", "labels")}
+            step = make_train_step(model, AdamWConfig(), microbatches=TRAIN_MICROBATCHES, remat=True)
+            return lambda: step(params, opt, batch)
+
+        plan = {"microbatches": TRAIN_MICROBATCHES, "remat": True, "sharding": ShardingConfig()}
+        res["train"] = calibrate_step(
+            torch, f"qwen3-8b train step ({TRAIN_LAYERS} of {full.n_layers} layers, {TRAIN_BATCH} x "
+                   f"{TRAIN_SEQ}, {TRAIN_MICROBATCHES} microbatches, remat)", train_real,
+            dict(arch="qwen3_8b", cell=ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh=None,
+                 plan=plan, cfg=cfg), smi)
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:          # a failed check above, or a hung trace
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"dryrun cells: exit {proc.returncode}: {stderr[-2000:]}")
+    cells = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    check(len(cells) == len(DRYRUN_CELLS), f"dryrun cells: {len(cells)} results of {len(DRYRUN_CELLS)}")
+    res["cells"] = []
+    for r in cells:
+        check(r["status"] == "ok", f"dryrun {r['arch']} {r['shape']}: {r.get('error')}")
+        print(f"  dryrun {r['arch']} {r['shape']} on the fake {r['mesh']} world: ok, trace "
+              f"{r['trace_s']} s, peak {r['peak_bytes'] / 2**30:.3f} GiB a device, microbatches "
+              f"{r['microbatches']}, collective bytes {r['collective_bytes_total']:.4g} "
+              f"(this process's CPU; the card named {smi})", flush=True)
+        res["cells"].append({k: r[k] for k in ("arch", "shape", "mesh", "trace_s", "peak_bytes",
+                                               "microbatches", "collective_bytes_total")})
+    res["cells_s"] = time.perf_counter() - t_cells
+    return res
+
+
 def main() -> int:
     sweep = sys.argv[1:] == ["--sweep"]
     train_only = sys.argv[1:] == ["--train"]
@@ -3927,6 +4097,10 @@ def main() -> int:
     train_res.update(profile_train_step(torch, smi))
     phase("train profile", t0)
 
+    t0 = time.perf_counter()
+    dryrun_res = run_dryrun_phase(torch, np, smi)
+    phase("dryrun", t0)
+
     kernels = []
     for kname, key, label, count, layout, source, replaces in KERNELS:
         r = kres[(key, label)]
@@ -3954,6 +4128,7 @@ def main() -> int:
     print(json.dumps({"dp": dp_res}))
     print(json.dumps({"paper": {"device": smi, "model": "llama-65b, 32 of 80 layers, dense",
                                 "modes": paper["modes"]}}))
+    print(json.dumps({"dryrun": dryrun_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -70,7 +70,7 @@ def _axis_sizes(mesh: Mesh) -> Dict[str, int]:
         return dict(mesh)
     if mesh.mesh_dim_names is None:
         raise ValueError("the DeviceMesh needs mesh_dim_names")
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
 
 
 def _mesh_size(mesh: Mesh, name: AxisName) -> int:
@@ -304,3 +304,181 @@ def distribute(t: torch.Tensor, mesh, spec: Spec):
         device = torch.device("cuda", torch.cuda.current_device())
     return DTensor.from_local(local.contiguous().to(device), mesh, placements(spec, mesh),
                               run_check=False, shape=t.shape, stride=t.stride())
+
+
+# --------------------------------------------------------------------------- #
+# Sharding hints (the reference's GSPMD constraints, as DTensor redistributes) #
+# --------------------------------------------------------------------------- #
+# Each hint is the identity on a plain tensor. On a DTensor it redistributes
+# to the spec the reference's ``with_sharding_constraint`` names, on the
+# tensor's own mesh, with the reference's shape checks: a mesh axis whose
+# dim is not divisible is left out of the spec. Dims a spec leaves ``None``
+# are replicated, as in a ``PartitionSpec``.
+_SEQUENCE_PARALLEL = {"on": False}
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor where nothing
+    has: a plain serving or training process never pays for it)."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _mesh_axes(x) -> Tuple[Dict[str, int], Tuple[str, ...], Optional[str]]:
+    """The sizes of ``x``'s mesh by axis name, its DP axes and its TP axis."""
+    sizes = _axis_sizes(x.device_mesh)
+    dp = tuple(a for a in sizes if a in ("pod", "data"))
+    return sizes, dp, ("model" if "model" in sizes else None)
+
+
+def _dp_entry(dp: Tuple[str, ...]) -> AxisName:
+    return dp if len(dp) > 1 else dp[0]
+
+
+def constrain(x, spec: Spec):
+    """``x`` redistributed to ``spec`` on its own mesh, and, where autograd
+    records, its gradient too (a sharding constraint binds a value and its
+    cotangent, as ``with_sharding_constraint`` does under ``jax.grad``).
+    The identity on a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    want = placements(spec, x.device_mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    if torch.is_grad_enabled() and x.requires_grad:
+        x = _GradLayout.apply(x, want)
+    return x
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity forward; the backward redistributes the gradient to the
+    forward value's placements (a partial sum is reduced there, not where a
+    later product would rather gather a weight)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def constrain_batch_dim(x, batch_dim: int = 1):
+    """Batch dim → the DP axes, every other dim replicated, where the batch
+    divides the DP grid (the reference's constraint on state a model
+    creates inside itself and on its embeddings)."""
+    if not is_dtensor(x):
+        return x
+    sizes, dp, _ = _mesh_axes(x)
+    if not dp or x.ndim <= batch_dim or x.shape[batch_dim] % math.prod(sizes[a] for a in dp):
+        return x
+    spec = [None] * x.ndim
+    spec[batch_dim] = _dp_entry(dp)
+    return constrain(x, tuple(spec))
+
+
+def set_sequence_parallel(on: bool) -> None:
+    """Sequence parallelism of the residual stream (``constrain_residual``):
+    off by default, as in the reference."""
+    _SEQUENCE_PARALLEL["on"] = bool(on)
+
+
+def sequence_parallel_enabled() -> bool:
+    return _SEQUENCE_PARALLEL["on"]
+
+
+def constrain_kv_for_cache(k, n_kv_heads: int, seq_dim: int = 1):
+    """A prefill's fresh K/V ``(B, S, KV, D)`` on the cache's layout before
+    the cache write: where the KV heads do not divide the TP axis the cache
+    shards its sequence over it (``build_cache_specs``), so the write's
+    source does too (batch → DP where it divides)."""
+    if not is_dtensor(k):
+        return k
+    sizes, dp, tp = _mesh_axes(k)
+    if tp is None or n_kv_heads % sizes[tp] == 0 or k.shape[seq_dim] % sizes[tp]:
+        return k
+    spec = [None] * k.ndim
+    if dp and k.shape[0] % math.prod(sizes[a] for a in dp) == 0:
+        spec[0] = _dp_entry(dp)
+    spec[seq_dim] = tp
+    return constrain(k, tuple(spec))
+
+
+def constrain_logits(x):
+    """Logits ``(..., V)``: batch → DP and vocab → TP where each divides."""
+    if not is_dtensor(x):
+        return x
+    sizes, dp, tp = _mesh_axes(x)
+    spec = [None] * x.ndim
+    if dp and x.shape[0] % math.prod(sizes[a] for a in dp) == 0:
+        spec[0] = _dp_entry(dp)
+    if tp and x.shape[-1] % sizes[tp] == 0:
+        spec[-1] = tp
+    return constrain(x, tuple(spec))
+
+
+def constrain_residual(h):
+    """The residual stream ``(B, S, D)`` between blocks: batch → DP and
+    sequence → TP when sequence parallelism is on (the Korthikanti layout);
+    the identity otherwise."""
+    if not _SEQUENCE_PARALLEL["on"] or not is_dtensor(h) or h.ndim != 3:
+        return h
+    sizes, dp, tp = _mesh_axes(h)
+    b_ok = dp and h.shape[0] % math.prod(sizes[a] for a in dp) == 0
+    s_ok = tp and h.shape[1] % sizes[tp] == 0
+    return constrain(h, (_dp_entry(dp) if b_ok else None, tp if s_ok else None))
+
+
+def constrain_rnn(x):
+    """A recurrent block's activations ``(B, S, R)``: batch → DP and the
+    recurrent width → TP where each divides (the layout the reference's
+    logical rules give them), the sequence replicated."""
+    if not is_dtensor(x):
+        return x
+    sizes, dp, tp = _mesh_axes(x)
+    spec = [None] * x.ndim
+    if dp and x.shape[0] % math.prod(sizes[a] for a in dp) == 0:
+        spec[0] = _dp_entry(dp)
+    if tp and x.shape[-1] % sizes[tp] == 0:
+        spec[-1] = tp
+    return constrain(x, tuple(spec))
+
+
+def gather_fsdp(w):
+    """A weight's FSDP all-gather: its DP-axis shards replicated, its TP
+    sharding kept (what GSPMD inserts before a weight's first use, and a
+    reduce-scatter of its gradient after the backward). The identity on a
+    plain tensor."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = list(_axis_sizes(w.device_mesh))
+    want = tuple(Replicate() if names[i] in ("pod", "data") else p
+                 for i, p in enumerate(w.placements))
+    if tuple(w.placements) == want:
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
+def batch_zeros(like, shape: Tuple[int, ...], dtype: torch.dtype, batch_dim: int = 0):
+    """Zeros of ``shape`` for state a model creates inside itself: on
+    ``like``'s device, or, where ``like`` is a DTensor, a DTensor on its
+    mesh with the batch dim over the DP axes (the reference's
+    ``constrain_batch_dim`` of such state under ``ambient_dp_axes``)."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    import torch.distributed.tensor as dt
+
+    sizes, dp, _ = _mesh_axes(like)
+    spec = [None] * len(shape)
+    if dp and shape[batch_dim] % math.prod(sizes[a] for a in dp) == 0:
+        spec[batch_dim] = _dp_entry(dp)
+    return dt.zeros(shape, dtype=dtype, device_mesh=like.device_mesh,
+                    placements=placements(tuple(spec), like.device_mesh))

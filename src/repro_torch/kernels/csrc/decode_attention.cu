@@ -76,6 +76,8 @@ struct DenseDecodeArgs {
   long long k_sb, k_skv, k_ss, v_sb, v_skv, v_ss;
   long long o_sb, o_sh;
   float scale;
+  float* lse;           // (B, H) float32 log-sum-exp, or nullptr
+  int h;                // query heads
 };
 
 constexpr int kKeyTile = 32;     // splits cover whole tiles of this many keys
@@ -252,8 +254,10 @@ dense_decode_kernel(DenseDecodeArgs a) {
   __syncthreads();
 
   T* out = static_cast<T*>(a.out) + b * a.o_sb + (long long)head0 * a.o_sh;
+  SplitScratch sc = a.scratch;
+  if (a.lse != nullptr) sc.lse = a.lse + (long long)b * a.h + head0;
   split_epilogue<kDecThreads, G, D>(
-      a.scratch, unit, gridDim.z * gridDim.y, split, a.n_splits, r.n_live, G, n_heads, out,
+      sc, unit, gridDim.z * gridDim.y, split, a.n_splits, r.n_live, G, n_heads, out,
       a.o_sh, [&](int gi, int d) {
         // merge the CTA's warps
         float mx = -CUDART_INF_F;
@@ -543,8 +547,10 @@ dense_decode_tc_kernel(DenseDecodeArgs a) {
   __syncthreads();
 
   bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + (long long)kvh * a.g * a.o_sh;
+  SplitScratch sc = a.scratch;
+  if (a.lse != nullptr) sc.lse = a.lse + (long long)b * a.h + (long long)kvh * a.g;
   split_epilogue<kTcThreads, kTcRows, D>(
-      a.scratch, unit, gridDim.z * gridDim.y, split, a.n_splits, r.n_live, a.gc, n_heads, out,
+      sc, unit, gridDim.z * gridDim.y, split, a.n_splits, r.n_live, a.gc, n_heads, out,
       a.o_sh, [&](int gi, int d) {
         // merge the two groups (a group with no tile has m = -inf)
         float mx = -CUDART_INF_F;
@@ -634,10 +640,11 @@ using namespace repro_torch;
 // 32; gc = 1, 2, 4 or 8 heads a CTA, gc >= min(g, 8)); n_splits CTAs per
 // (slot, KV head, head part), placed on each slot's keys by split_range
 // from split_keys, and, for n_splits > 1, a scratch of B x KV x parts x n_splits x gc x
-// (D + 2) floats and B x KV x parts int32 counters that are 0.
+// (D + 2) floats and B x KV x parts int32 counters that are 0. lse, where not
+// null, takes each (slot, head)'s float32 log-sum-exp, (B, H) contiguous.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, void* out, void* part,
-    void* counters, int B, int H, int KV, int S, int D, int body, int n_splits, int split_keys,
+    void* counters, void* lse, int B, int H, int KV, int S, int D, int body, int n_splits, int split_keys,
     int gc, long long q_sb, long long q_sh, long long k_sb, long long k_skv, long long k_ss,
     long long v_sb, long long v_skv, long long v_ss, long long o_sb, long long o_sh,
     float scale, int dtype, void* stream) {
@@ -651,7 +658,8 @@ extern "C" int decode_attention_launch(
   DenseDecodeArgs a{q, k, v, static_cast<const int*>(lengths), out,
                     SplitScratch{static_cast<float*>(part), static_cast<int*>(counters)},
                     S, g, n_splits, split_keys, gc, (g + gc - 1) / gc,
-                    q_sb, q_sh, k_sb, k_skv, k_ss, v_sb, v_skv, v_ss, o_sb, o_sh, scale};
+                    q_sb, q_sh, k_sb, k_skv, k_ss, v_sb, v_skv, v_ss, o_sb, o_sh, scale,
+                    static_cast<float*>(lse), H};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return body == 1 ? dispatch_tensor_cores(a, B, KV, D, s) : dispatch_cuda_cores(a, B, KV, D, dtype, s);
 }

@@ -30,6 +30,9 @@ namespace repro_torch {
 struct SplitScratch {
   float* part;
   int* counters;
+  // optional: the unit's first head's log-sum-exp (natural units), one float
+  // a head, written as m + log(l) of the merged result (-inf: no valid key)
+  float* lse = nullptr;
 };
 
 // What a CTA's result is for one (head, dim) element.
@@ -53,6 +56,7 @@ __device__ __forceinline__ void split_epilogue(const SplitScratch& sc, int unit,
       const int gi = i / D, d = i % D;
       const SplitResult r = cta(gi, d);
       store_f(out + gi * o_sh + d, r.acc / fmaxf(r.l, 1e-30f));
+      if (sc.lse != nullptr && d == 0) sc.lse[gi] = r.l > 0.f ? r.m + logf(r.l) : -CUDART_INF_F;
     }
     return;
   }
@@ -144,6 +148,8 @@ __device__ __forceinline__ void split_epilogue(const SplitScratch& sc, int unit,
     store_f(o + 1, a[e].y / lt);
     store_f(o + 2, a[e].z / lt);
     store_f(o + 3, a[e].w / lt);
+    if (sc.lse != nullptr && i % D4 == 0)
+      sc.lse[i / D4] = l[e] > 0.f ? m[e] + logf(l[e]) : -CUDART_INF_F;
   }
   if (tid == 0) sc.counters[unit] = 0;
 }

@@ -29,9 +29,10 @@ it runs the plain PyTorch version in this module, and only then.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .decode_split import DecodePlan, cta_group, split_plan, workspace
@@ -101,11 +102,25 @@ def decode_attention_plain(
     return out[:, 0]
 
 
+def decode_attention_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, lengths: torch.Tensor, *, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The plain version's log-sum-exp of ``scale q k`` over each slot's
+    valid keys, float32 ``(B, H)``; -inf for a slot without keys."""
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    scores = torch.einsum("bkgd,bksd->bkgs", q.float().reshape(b, kv, h // kv, d), k.float())
+    valid = torch.arange(s, device=q.device)[None, :] < lengths.long()[:, None]
+    scores = torch.where(valid[:, None, None, :], scores * scale, float("-inf"))
+    return torch.logsumexp(scores, dim=-1).reshape(b, h)
+
+
 def _fn():
     fn = build.load("decode_attention").decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 7 + [i] * 9 + [ll] * 10 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [ll] * 10 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -117,8 +132,12 @@ def decode_attention(
     lengths: torch.Tensor,       # (B,) int32 — valid entries per slot
     *,
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Returns ``(B, H, D)`` in q's dtype (contiguous)."""
+    return_lse: bool = False,
+):
+    """Returns ``(B, H, D)`` in q's dtype (contiguous); with ``return_lse``
+    also each (slot, head)'s float32 log-sum-exp of ``scale q k`` over its
+    valid keys (-inf for a slot with none), ``(B, H)``: what a merge of
+    partial outputs over split caches weighs them by."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"decode_attention: q (B, H, D), k/v (B, KV, S, D), got "
@@ -148,16 +167,54 @@ def decode_attention(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention: unsupported device {dev}")
     scale = scale if scale is not None else d ** -0.5
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths, scale=scale)
+    out, lse = torch.ops.repro_torch.decode_attention(q, k, v, lengths, float(scale), return_lse)
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(), device_types="cpu")
+def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                        scale: float, return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op behind ``decode_attention`` (checked arguments, ``scale``
+    resolved): ``(out, lse)``, the log-sum-exp ``(B, H)`` float32 where
+    ``return_lse``, else an empty float32 tensor. CPU: the plain versions.
+    CUDA: the kernel under ``plan`` (its merge writes the log-sum-exp).
+    Fake: the outputs; the splits' scratch is ``decode_split.workspace``,
+    cached a device, so a call allocates nothing else. FLOPs: 4 B H S D,
+    every cache position counted, masked or not (the reference's decode
+    einsum over the whole cache row)."""
+    out = decode_attention_plain(q, k, v, lengths, scale=scale)
+    if not return_lse:
+        return out, q.new_empty((0,), dtype=torch.float32)
+    return out, decode_attention_lse_plain(q, k, lengths, scale=scale)
+
+
+@decode_attention_op.register_kernel("cuda")
+def _decode_attention_cuda(q, k, v, lengths, scale, return_lse):
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
     check_head_dim("decode_attention", d, _HEAD_DIMS)
     for t in (k, v):
         check_vector_aligned("decode_attention", t, t.stride()[:3])
-    return _launch(q, k, v, lengths, scale, plan(q.dtype, b, h, kv, s, d, _sm_count(dev.index)))
+    lse = torch.empty((b, h) if return_lse else (0,), dtype=torch.float32, device=q.device)
+    out = _launch(q, k, v, lengths, scale, plan(q.dtype, b, h, kv, s, d, _sm_count(q.device.index)),
+                  lse if return_lse else None)
+    return out, lse
 
 
-def _launch(q, k, v, lengths, scale, p: Plan):
-    """Launch the kernel under plan ``p`` (any plan the launcher can serve)."""
+@decode_attention_op.register_fake
+def _decode_attention_fake(q, k, v, lengths, scale, return_lse):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2] if return_lse else (0,), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_attention_flops(q, k, *args, out_shape=None, **kwargs) -> int:
+    b, h, d = q
+    return 4 * b * h * k[2] * d
+
+
+def _launch(q, k, v, lengths, scale, p: Plan, lse: Optional[torch.Tensor] = None):
+    """Launch the kernel under plan ``p`` (any plan the launcher can serve);
+    ``lse``, a contiguous float32 ``(B, H)``, takes the log-sum-exp."""
     global launch_count
     b, h, d = q.shape
     kv, s = k.shape[1], k.shape[2]
@@ -169,6 +226,7 @@ def _launch(q, k, v, lengths, scale, p: Plan):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(),
         None if counters is None else counters.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, h, kv, s, d, p.body, p.split.splits, p.split.split_keys, p.split.group,
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),

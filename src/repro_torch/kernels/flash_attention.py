@@ -32,9 +32,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 
@@ -260,22 +261,71 @@ def flash_attention(
     """Dense flash attention (positions 0..Sq-1 and 0..Sk-1): the output,
     or ``(output, lse)`` with ``return_lse``."""
     check_dense(q, k, v)
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, int(window), float(scale),
+                                                     return_lse)
+    return (out, lse) if return_lse else out
+
+
+#: the reference's ``attention_any`` dispatch (``models/attention.py``): keys
+#: up to ``DENSE_MAX_SEQ`` take the dense einsum, longer windowed keys the
+#: band of ``window + Q_CHUNK`` keys a query chunk, the rest the chunked
+#: einsum over every key
+DENSE_MAX_SEQ, Q_CHUNK = 2048, 512
+
+
+def attention_pairs(sq: int, sk: int, window: int) -> int:
+    """The (query, key) pairs the reference's attention computes for a dense
+    prefill of ``sq`` queries over ``sk`` keys: every pair, masked or not
+    (causal block skipping is not subtracted), except a long sliding window,
+    whose banded form computes ``window + Q_CHUNK`` keys a query."""
+    if window > 0 and sk > DENSE_MAX_SEQ and window + Q_CHUNK < sk:
+        return sq * (window + min(Q_CHUNK, sq))
+    return sq * sk
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int, scale: float,
+                       return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op behind the dense entry (checked arguments, ``scale``
+    resolved): ``(out, lse)``, the log-sum-exp ``(B, H, Sq)`` float32 where
+    ``return_lse``, else an empty float32 tensor (the kernel writes none).
+    ``out`` has q's strides. CPU: the plain versions. CUDA: the kernel
+    under ``plan``. Fake: the outputs; the kernel allocates nothing else.
+    FLOPs: 4 B H D times ``attention_pairs(Sq, Sk, window)`` (two products
+    over the pairs the reference computes)."""
+    out = torch.empty_like(q)
+    out.copy_(flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale))
+    if not return_lse:
+        return out, q.new_empty((0,), dtype=torch.float32)
+    return out, flash_attention_lse_plain(q, k, causal=causal, window=window, scale=scale)
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_cuda(q, k, v, causal, window, scale, return_lse):
     d = q.shape[3]
-    scale = scale if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        out = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
-        if not return_lse:
-            return out
-        return out, flash_attention_lse_plain(q, k, causal=causal, window=window, scale=scale)
     check_head_dim("flash_attention", d, _HEAD_DIMS)
     for t in (q, k, v):
         check_vector_aligned("flash_attention", t, t.stride()[:3])
     b, h, sq, _ = q.shape
     kv, sk = k.shape[1], k.shape[2]
     tile = plan(q.dtype, b * kv, sq * (h // kv), sk, d, _sm_count(q.device.index))
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    out = _launch_dense(q, k, v, causal, window, scale, tile, lse)
-    return (out, lse) if return_lse else out
+    lse = torch.empty((b, h, sq) if return_lse else (0,), dtype=torch.float32, device=q.device)
+    out = _launch_dense(q, k, v, causal, window, scale, tile, lse if return_lse else None)
+    return out, lse
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, scale, return_lse):
+    b, h, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq) if return_lse else (0,), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q, k, v, causal, window, *args, out_shape=None, **kwargs) -> int:
+    b, h, sq, d = q
+    return 4 * b * h * d * attention_pairs(sq, k[2], window)
 
 
 def check_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -339,16 +389,45 @@ def paged_chunk_attention(
     if any(t.stride(-2) != d for t in (k_pages, v_pages)):
         raise ValueError("paged_chunk_attention: each page must be a contiguous (bs, D) tile")
     scale = scale if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return paged_chunk_attention_plain(
-            q, k_pages, v_pages, block_tables, starts, valid_lens, scale=scale
-        )
+    return torch.ops.repro_torch.paged_chunk_attention(
+        q, k_pages, v_pages, block_tables, starts, valid_lens, float(scale))
+
+
+@torch.library.custom_op("repro_torch::paged_chunk_attention", mutates_args=(),
+                         device_types="cpu")
+def paged_chunk_attention_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             block_tables: torch.Tensor, starts: torch.Tensor,
+                             valid_lens: torch.Tensor, scale: float) -> torch.Tensor:
+    """The op behind ``paged_chunk_attention`` (checked arguments, ``scale``
+    resolved). CPU: the plain version. CUDA: the kernel under ``plan``.
+    Fake: the ``(R, C, H, D)`` output. FLOPs: 4 R H C (MB bs) D, every
+    position of the table's pages counted for every query."""
+    return paged_chunk_attention_plain(q, k_pages, v_pages, block_tables, starts, valid_lens,
+                                       scale=scale).contiguous()
+
+
+@paged_chunk_attention_op.register_kernel("cuda")
+def _paged_chunk_attention_cuda(q, k_pages, v_pages, block_tables, starts, valid_lens, scale):
+    r, c, h, d = q.shape
+    kv, _, bs, _ = k_pages.shape
     check_head_dim("paged_chunk_attention", d, _HEAD_DIMS)
     for t in (q, k_pages, v_pages):
         check_vector_aligned("paged_chunk_attention", t, t.stride()[:3])
     tile = plan(q.dtype, r * kv, c * (h // kv), block_tables.shape[1] * bs, d,
                 _sm_count(q.device.index))
     return _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, tile)
+
+
+@paged_chunk_attention_op.register_fake
+def _paged_chunk_attention_fake(q, k_pages, v_pages, block_tables, starts, valid_lens, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_chunk_attention)
+def _paged_chunk_attention_flops(q, k_pages, v_pages, block_tables, *args, out_shape=None,
+                                 **kwargs) -> int:
+    r, c, h, d = q
+    return 4 * r * h * c * block_tables[1] * k_pages[2] * d
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, starts, valid_lens, scale, tile):

@@ -41,17 +41,23 @@ import heapq
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
+from .scratch import fake_scratch
 from .flash_attention import (
     _DTYPES,
     _sm_count,
     check_dense,
     check_head_dim,
     check_vector_aligned,
+    attention_pairs,
     dense_mask,
     flash_attention,
 )
+
+#: SMs the fake implementation plans for: the H100 SXM's
+_FAKE_SMS = 132
 
 #: the kernel's device bodies
 VARIANTS = ("cuda_cores", "tensor_cores")
@@ -329,9 +335,38 @@ def flash_attention_backward(
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"flash_attention_backward: lse must be float32 {(b, h, sq)}")
     scale = scale if scale is not None else d ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_backward_plain(
-            q, k, v, out, lse, d_out, causal=causal, window=window, scale=scale)
+    return tuple(torch.ops.repro_torch.flash_attention_backward(
+        q, k, v, out, lse, d_out, causal, int(window), float(scale)))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_backward_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    d_out: torch.Tensor, causal: bool, window: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op behind ``flash_attention_backward`` (checked arguments,
+    ``scale`` resolved): ``(dq, dk, dv)`` with the strides of q, k and v.
+    CPU: the plain version. CUDA: the kernels of ``backward_plan``. Fake:
+    the gradients, and the scratch a call allocates (Delta, and the split
+    group's float32 partials where the plan splits it). FLOPs: 8 B H D
+    times ``flash_attention.attention_pairs(Sq, Sk, window)``: the four
+    products of the gradient over the pairs (dP, dV, dQ and dK), what
+    ``jax.grad`` of the reference's attention computes and ``analyze_hlo``
+    counts. The kernel also recomputes the scores (a fifth product,
+    ``torch.utils.flop_counter``'s SDPA convention), which the reference's
+    dense gradient does not, so it is left out.""" 
+    grads = flash_attention_backward_plain(q, k, v, out, lse, d_out, causal=causal,
+                                           window=window, scale=scale)
+    outs = tuple(torch.empty_like(t) for t in (q, k, v))
+    for o, g in zip(outs, grads):
+        o.copy_(g)
+    return outs
+
+
+@flash_attention_backward_op.register_kernel("cuda")
+def _flash_attention_backward_cuda(q, k, v, out, lse, d_out, causal, window, scale):
+    b, h, sq, d = q.shape
     check_head_dim("flash_attention_backward", d, _HEAD_DIMS)
     vec = 16 // q.element_size()
     if d_out.stride(-1) != 1 or d_out.data_ptr() % 16 or any(s % vec for s in d_out.stride()[:3]):
@@ -342,6 +377,25 @@ def flash_attention_backward(
     plan = backward_plan(b, h, k.shape[1], sq, k.shape[2], d, q.dtype, causal=causal, window=window,
                          n_sms=_sm_count(q.device.index or 0))
     return _launch(q, k, v, out, lse, d_out, causal, window, scale, plan)
+
+
+@flash_attention_backward_op.register_fake
+def _flash_attention_backward_fake(q, k, v, out, lse, d_out, causal, window, scale):
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    fake_scratch(q, (b, h, sq), torch.float32)                      # Delta
+    if variant(q.dtype, d) == "tensor_cores":
+        n = split_group(b, h, kv, sq, sk, d, causal, window, _FAKE_SMS)
+        if n > 1:
+            fake_scratch(q, (2, b, kv * n, sk, d), torch.float32)    # the partials
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flash_attention_backward_flops(q, k, v, out, lse, d_out, causal, window, *args,
+                                    out_shape=None, **kwargs) -> int:
+    b, h, sq, d = q
+    return 8 * b * h * d * attention_pairs(sq, k[2], window)
 
 
 #: the kernel's body argument: the CUDA cores, wgmma with the group in the

@@ -27,6 +27,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .decode_split import (  # noqa: F401  (kernel 1's plan names, shared with kernel 3)
@@ -132,15 +133,46 @@ def paged_decode_attention(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
     scale = scale if scale is not None else d ** -0.5
-    if dev.type == "cpu":
-        return paged_decode_attention_plain(
-            q, k_pages, v_pages, block_tables, lengths, scale=scale
-        )
+    return torch.ops.repro_torch.paged_decode_attention(
+        q, k_pages, v_pages, block_tables, lengths, float(scale))
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention", mutates_args=(),
+                         device_types="cpu")
+def paged_decode_attention_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                              block_tables: torch.Tensor, lengths: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """The op behind ``paged_decode_attention`` (checked arguments,
+    ``scale`` resolved). CPU: the plain version. CUDA: the kernel under
+    ``decode_plan``. Fake: the ``(B, 1, H, D)`` output; the splits' scratch
+    is ``decode_split.workspace``, cached a device. FLOPs: 4 B H (MB bs) D,
+    every position of the table's MB pages counted, as the reference's
+    gather-then-einsum counts them."""
+    return paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lengths,
+                                        scale=scale).contiguous()
+
+
+@paged_decode_attention_op.register_kernel("cuda")
+def _paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths, scale):
+    b, _, h, d = q.shape
+    kv, bs = k_pages.shape[0], k_pages.shape[2]
     check_head_dim("paged_decode_attention", d, _HEAD_DIMS)
     for t in (k_pages, v_pages):
         check_vector_aligned("paged_decode_attention", t, t.stride()[:3])
-    plan = decode_plan(b, h, kv, block_tables.shape[1], bs, _sm_count(dev.index))
+    plan = decode_plan(b, h, kv, block_tables.shape[1], bs, _sm_count(q.device.index))
     return _launch(q, k_pages, v_pages, block_tables, lengths, scale, plan)
+
+
+@paged_decode_attention_op.register_fake
+def _paged_decode_attention_fake(q, k_pages, v_pages, block_tables, lengths, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.paged_decode_attention)
+def _paged_decode_attention_flops(q, k_pages, v_pages, block_tables, *args, out_shape=None,
+                                  **kwargs) -> int:
+    b, _, h, d = q
+    return 4 * b * h * block_tables[1] * k_pages[2] * d
 
 
 def _launch(q, k_pages, v_pages, block_tables, lengths, scale, plan: DecodePlan):

@@ -46,9 +46,10 @@ import ctypes
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
-from .rglru_bwd import _SCAN_THREADS, rglru_scan_backward
+from .rglru_bwd import _SCAN_THREADS, fake_f32_copies, rglru_scan_backward
 
 #: calls that launched the CUDA kernel since the last reset
 launch_count = 0
@@ -220,13 +221,42 @@ def _scan(a, x, h0):
         raise ValueError(f"rglru_scan: h0 must be ({b}, {r}), got {tuple(h0.shape)}")
     if x.device != dev or h0.device != dev:
         raise ValueError("rglru_scan: all tensors must be on one device")
-    if dev.type == "cpu":
-        return rglru_scan_plain(a, x, h0)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"rglru_scan: unsupported device {dev}")
+    return tuple(torch.ops.repro_torch.rglru_scan(a, x, h0))
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(), device_types="cpu")
+def rglru_scan_op(a: torch.Tensor, x: torch.Tensor,
+                  h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op behind ``rglru_scan`` (checked arguments, ``h0`` given):
+    ``(h, h_final)`` float32. CPU: ``rglru_scan_plain``. CUDA: the kernel
+    of ``scan_plan``. Fake: the outputs and the float32 contiguous copies
+    the launch makes of inputs that are not; the chunked kernel's control
+    buffer is ``_control``, cached a device. FLOPs: 2 B S R (a multiply and
+    an add a step and channel)."""
+    return rglru_scan_plain(a, x, h0)
+
+
+@rglru_scan_op.register_kernel("cuda")
+def _rglru_scan_cuda(a, x, h0):
+    b, s, r = a.shape
     if b > 65535:
         raise ValueError(f"rglru_scan: batch {b} exceeds the grid's 65535")
     return _launch(a, x, h0, scan_plan(b, s, r))
+
+
+@rglru_scan_op.register_fake
+def _rglru_scan_fake(a, x, h0):
+    fake_f32_copies(a, x, h0)
+    b, s, r = a.shape
+    return a.new_empty((b, s, r), dtype=torch.float32), a.new_empty((b, r), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _rglru_scan_flops(a, *args, out_shape=None, **kwargs) -> int:
+    b, s, r = a
+    return 2 * b * s * r
 
 
 def _launch(a, x, h0, plan: ScanPlan):

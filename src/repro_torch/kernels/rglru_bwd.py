@@ -23,8 +23,10 @@ import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
+from .scratch import fake_scratch
 
 #: calls that launched the CUDA kernels (one a call: every kernel of its plan) since the last reset
 launch_count = 0
@@ -141,7 +143,6 @@ def rglru_scan_backward(
     """Returns ``(da, dx, dh0)``, float32. CPU tensors run
     ``rglru_scan_backward_plain``; CUDA tensors launch the kernels of
     ``scan_plan``."""
-    global launch_count
     if a.dim() != 3 or any(t.shape != a.shape for t in (h, g)):
         raise ValueError(
             f"rglru_scan_backward: a, h and g must be (B, S, R) of one shape, got "
@@ -152,10 +153,29 @@ def rglru_scan_backward(
     dev = a.device
     if any(t.device != dev for t in (h, h0, g, g_fin)):
         raise ValueError("rglru_scan_backward: all tensors must be on one device")
-    if dev.type == "cpu":
-        return rglru_scan_backward_plain(a, h, h0, g, g_fin)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"rglru_scan_backward: unsupported device {dev}")
+    return tuple(torch.ops.repro_torch.rglru_scan_backward(a, h, h0, g, g_fin))
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_backward", mutates_args=(), device_types="cpu")
+def rglru_scan_backward_op(
+    a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor, g: torch.Tensor, g_fin: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op behind ``rglru_scan_backward`` (checked arguments): ``(da, dx,
+    dh0)`` float32. CPU: ``rglru_scan_backward_plain``. CUDA: the kernels of
+    ``scan_plan``. Fake: the gradients, the float32 contiguous copies the
+    launch makes of inputs that are not, and the chunk maps where the plan
+    chunks time. FLOPs: 3 B S R (dh, da and the carry a step and
+    channel)."""
+    return rglru_scan_backward_plain(a, h, h0, g, g_fin)
+
+
+@rglru_scan_backward_op.register_kernel("cuda")
+def _rglru_scan_backward_cuda(a, h, h0, g, g_fin):
+    global launch_count
+    b, s, r = a.shape
+    dev = a.device
     if b > 65535:
         raise ValueError(f"rglru_scan_backward: batch {b} exceeds the grid's 65535")
     a, h, h0, g, g_fin = (t.to(torch.float32).contiguous() for t in (a, h, h0, g, g_fin))
@@ -175,3 +195,29 @@ def rglru_scan_backward(
         raise RuntimeError(f"rglru_scan_backward: CUDA launch failed with error {err}")
     launch_count += 1
     return da, dx, dh0
+
+
+def fake_f32_copies(*tensors: torch.Tensor) -> None:
+    """What ``t.to(torch.float32).contiguous()`` allocates for each input
+    of a launch, in a fake implementation: a copy of each that is not
+    float32 and contiguous already (freed at once)."""
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            fake_scratch(t, tuple(t.shape), torch.float32)
+
+
+@rglru_scan_backward_op.register_fake
+def _rglru_scan_backward_fake(a, h, h0, g, g_fin):
+    fake_f32_copies(a, h, h0, g, g_fin)
+    b, s, r = a.shape
+    plan = scan_plan(b, s, r)
+    if plan.n_chunks > 1:
+        fake_scratch(a, (2, plan.n_chunks, b, r), torch.float32)
+    return (a.new_empty((b, s, r), dtype=torch.float32), a.new_empty((b, s, r), dtype=torch.float32),
+            a.new_empty((b, r), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan_backward)
+def _rglru_scan_backward_flops(a, *args, out_shape=None, **kwargs) -> int:
+    b, s, r = a
+    return 3 * b * s * r

@@ -16,7 +16,10 @@ from typing import Optional
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..distributed import spmd
+from ..distributed.sharding import constrain_batch_dim, is_dtensor
+from ..kernels.decode_attention import decode_attention
+from ..kernels.flash_attention import DENSE_MAX_SEQ, attention_pairs, flash_attention
 from ..kernels.flash_attention_bwd import FlashAttentionFn
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -77,13 +80,41 @@ def attention_any(
     output is computed and ignored. Where autograd records (grad enabled and
     an input requires grad: the training forward), the same launch goes
     through ``FlashAttentionFn``, which also saves the row log-sum-exp and
-    differentiates with the backward kernel; serving calls never do."""
+    differentiates with the backward kernel; serving calls never do. On
+    DTensors it runs on each rank's batch and heads (``distributed.spmd``),
+    K/V first batch-sharded alone where the reference's chunked attention
+    constrains them so (keys past ``DENSE_MAX_SEQ`` outside a band)."""
+    if is_dtensor(q):
+        if k.shape[1] > DENSE_MAX_SEQ and attention_pairs(q.shape[1], k.shape[1], window) == q.shape[1] * k.shape[1]:
+            k, v = constrain_batch_dim(k, 0), constrain_batch_dim(v, 0)
+        return spmd.attention(
+            lambda q, k, v: attention_any(q, k, v, causal=causal, window=window, scale=scale),
+            q, k, v)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
     else:
         out = flash_attention(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
+
+
+def decode_any(
+    q: torch.Tensor,                  # (B, H, D) — one token a slot
+    k_cache: torch.Tensor,            # (B, S, KV, D) — a layer of a dense cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,            # (B,) int32 — valid keys a slot
+) -> torch.Tensor:
+    """One token a slot against a dense cache's layer through kernel 3 on
+    ``(B, KV, S, D)`` views of the cache (no copy); on DTensors each rank
+    decodes its shard of the cache (``distributed.spmd.decode_attention``:
+    a sequence-sharded cache merges the shards' partials)."""
+    def run(q, k, v, lengths, lse: bool):
+        out = decode_attention(q, k, v, lengths, return_lse=lse)
+        return out if lse else (out, None)
+
+    if is_dtensor(k_cache):
+        return spmd.decode_attention(run, q, k_cache, v_cache, lengths)
+    return decode_attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), lengths)
 
 
 def attention_cross(

@@ -35,6 +35,9 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..distributed import spmd
+from ..distributed.sharding import is_dtensor
+
 
 # --------------------------------------------------------------------------- #
 # Full and ring caches (the dense layout)                                     #
@@ -85,7 +88,10 @@ def full_cache_write(
     v_new: torch.Tensor,
     start: int,                  # write offset
 ) -> None:
-    """Bulk write of ``S_new`` tokens at ``start`` (a prefill)."""
+    """Bulk write of ``S_new`` tokens at ``start`` (a prefill); on DTensors
+    each rank writes its shard's rows (``distributed.spmd``)."""
+    if is_dtensor(k_layer) and start == 0:
+        return spmd.write_prefill(k_layer, v_layer, k_new, v_new)
     s = k_new.shape[1]
     k_layer[:, start : start + s].copy_(k_new)
     v_layer[:, start : start + s].copy_(v_new)
@@ -133,7 +139,10 @@ def write_token(
     plan: TokenWritePlan,
 ) -> None:
     """``layer[b, index[b]] = new[b, 0]`` for the valid rows. Each row writes
-    only its own slot row, so no two writes alias."""
+    only its own slot row, so no two writes alias. On DTensors each rank
+    writes the rows its shard holds (``distributed.spmd``)."""
+    if is_dtensor(k_layer):
+        return spmd.write_token(k_layer, v_layer, k_new, v_new, plan.index, plan.valid)
     rows = torch.arange(k_layer.shape[0], device=k_layer.device)
     keep = plan.valid[:, None, None]
     for layer, new in ((k_layer, k_new), (v_layer, v_new)):
@@ -198,7 +207,10 @@ def ring_cache_write_prefill(
     pos_map: torch.Tensor,       # (B, W) slot→position (-1 = empty)
 ) -> None:
     """Bulk write of a prefill into a ring: each slot takes the token its
-    ``pos_map`` entry names; empty slots are zeroed."""
+    ``pos_map`` entry names; empty slots are zeroed (on DTensors, each rank
+    its shard's slots)."""
+    if is_dtensor(k_layer):
+        return spmd.write_ring_prefill(k_layer, v_layer, k_new, v_new, pos_map)
     s = k_new.shape[1]
     rows = torch.arange(k_layer.shape[0], device=k_layer.device)[:, None]
     idx = pos_map.long().clamp(0, s - 1)

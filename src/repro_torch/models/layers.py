@@ -34,6 +34,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import spmd
+from ..distributed.sharding import constrain_batch_dim, constrain_logits, is_dtensor
+
 Tree = Any
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -365,13 +368,17 @@ def embed_defs(vocab: int, d_model: int, dtype, tie: bool = False):
 
 
 def embed_tokens(tokens: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The lookup, batch-sharded over the DP axes on a mesh (the reference's
+    constraint: a vocab-sharded table leaves a partial sum otherwise)."""
+    if is_dtensor(tokens):
+        return spmd.embed(p["embedding"], tokens)
     return p["embedding"][tokens.long()]
 
 
 def unembed(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     if "unembed" in p:
-        return x @ p["unembed"]
-    return x @ p["embedding"].T
+        return constrain_logits(x @ p["unembed"])
+    return constrain_logits(x @ p["embedding"].T)
 
 
 # --------------------------------------------------------------------------- #
@@ -388,7 +395,11 @@ def cross_entropy_loss(
     mask: Optional[torch.Tensor] = None,  # (batch, seq), 1 = counted
 ) -> torch.Tensor:
     """Mean next-token negative log-likelihood in float32 (logsumexp minus
-    the gold logit); with ``mask``, the masked mean over max(sum(mask), 1)."""
+    the gold logit); with ``mask``, the masked mean over max(sum(mask), 1).
+    On DTensors: ``distributed.spmd.cross_entropy`` (vocab-sharded logits
+    are never gathered)."""
+    if is_dtensor(logits):
+        return spmd.cross_entropy(logits, labels, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

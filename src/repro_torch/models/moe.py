@@ -24,6 +24,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed import spmd
+from ..distributed.sharding import is_dtensor
 from .layers import ParamDef, mlp_activation
 
 
@@ -66,17 +68,21 @@ class Routing(NamedTuple):
     slot: torch.Tensor         # (G, g * k) its row in the (E x C) buffer (C - 1 if dropped)
     capacity: int
     aux_loss: torch.Tensor     # () f32 load-balancing loss
+    probs_mean: torch.Tensor   # (E,) f32 router probabilities' mean over the tokens
+    first_choice_mean: torch.Tensor  # (E,) f32 share of tokens whose first choice is e
 
 
-def moe_route(xg: torch.Tensor, router: torch.Tensor, n_experts: int, top_k: int,
-              capacity_factor: float) -> Routing:
-    """Route groups ``xg`` (G, g, D): a float32 softmax router, top-k choices
-    renormalised with max(sum, 1e-9), capacity max(1, int(cf x g x k / E)),
-    and each (token, choice) pair, flattened token-major, ranked within its
-    expert."""
+def moe_route(xg: torch.Tensor, router: Optional[torch.Tensor], n_experts: int, top_k: int,
+              capacity_factor: float, logits: Optional[torch.Tensor] = None) -> Routing:
+    """Route groups ``xg`` (G, g, D): a float32 softmax router (``logits``,
+    or ``xg @ router``), top-k choices renormalised with max(sum, 1e-9),
+    capacity max(1, int(cf x g x k / E)), and each (token, choice) pair,
+    flattened token-major, ranked within its expert."""
     e, k = n_experts, top_k
     n_groups, g, _ = xg.shape
-    probs = torch.softmax(xg.float() @ router, dim=-1)          # (G, g, E)
+    if logits is None:
+        logits = xg.float() @ router
+    probs = torch.softmax(logits, dim=-1)                       # (G, g, E)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)           # (G, g, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch): E * sum_e f_e * mean p_e
@@ -87,7 +93,8 @@ def moe_route(xg: torch.Tensor, router: torch.Tensor, n_experts: int, top_k: int
     flat_choice = gate_idx.reshape(n_groups, g * k)
     ranks = _ranks_within_expert(flat_choice)
     slot = flat_choice * capacity + torch.clamp(ranks, max=capacity - 1)
-    return Routing(gate_vals, gate_idx, ranks < capacity, slot, capacity, e * torch.sum(me * fe))
+    return Routing(gate_vals, gate_idx, ranks < capacity, slot, capacity, e * torch.sum(me * fe),
+                   me, fe)
 
 
 def moe_apply(
@@ -106,31 +113,41 @@ def moe_apply(
     g = min(group_size, s)
     if s % g != 0:
         g = s
-    n_groups = b * (s // g)
-    xg = x.reshape(n_groups, g, d)                               # (G, g, D)
-    r = moe_route(xg, p["router"], e, k, capacity_factor)
-    cap = r.capacity
 
-    # scatter the kept choices into per-expert capacity buffers; a dropped
-    # choice adds zeros at slot C - 1 (kept slots are distinct, so every sum
-    # is one value plus zeros: exact in any order)
-    xk = xg[:, :, None].expand(n_groups, g, k, d).reshape(n_groups, g * k, d)   # (G, T, D)
-    contrib = torch.where(r.within[..., None], xk, 0).to(x.dtype)
-    expert_in = torch.zeros((n_groups, e * cap, d), dtype=x.dtype, device=x.device)
-    expert_in.scatter_add_(1, r.slot[..., None].expand(-1, -1, d), contrib)
-    # (G, E, C, D) → one batched product over the experts
-    expert_in = expert_in.view(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
-    if mlp_kind == "swiglu":
-        gate_h = torch.bmm(expert_in, p["w_gate"])
-        up_h = torch.bmm(expert_in, p["w_up"])
-        h = torch.nn.functional.silu(gate_h.float()).to(x.dtype) * up_h
-    else:
-        h = mlp_activation(torch.bmm(expert_in, p["w_up"]), mlp_kind, x.dtype)
-    expert_out = torch.bmm(h, p["w_down"])                       # (E, G*C, D)
-    expert_out = expert_out.view(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
+    def route(xg, router, logits=None):
+        # scatter the kept choices into per-expert capacity buffers; a dropped
+        # choice adds zeros at slot C - 1 (kept slots are distinct, so every
+        # sum is one value plus zeros: exact in any order)
+        n_groups = xg.shape[0]
+        r = moe_route(xg, router, e, k, capacity_factor, logits)
+        xk = xg[:, :, None].expand(n_groups, g, k, d).reshape(n_groups, g * k, d)  # (G, T, D)
+        contrib = torch.where(r.within[..., None], xk, 0).to(x.dtype)
+        expert_in = torch.zeros((n_groups, e * r.capacity, d), dtype=x.dtype, device=xg.device)
+        expert_in.scatter_add_(1, r.slot[..., None].expand(-1, -1, d), contrib)
+        return r, expert_in
 
-    # gather each choice's expert output, weight it by its gate, sum over k
-    out_k = torch.gather(expert_out, 1, r.slot[..., None].expand(-1, -1, d)).float()
-    out_k = out_k * (r.gate_vals.reshape(n_groups, g * k) * r.within)[..., None]
-    out = out_k.view(n_groups, g, k, d).sum(dim=2)
-    return out.reshape(b, s, d).to(x.dtype), r.aux_loss
+    def experts(expert_in, w):
+        # (G, E, C, D) → one batched product over the experts of ``w``
+        n_groups, ne = expert_in.shape[0], w["w_up"].shape[0]
+        cap = expert_in.shape[1] // ne
+        ein = expert_in.view(n_groups, ne, cap, d).transpose(0, 1).reshape(ne, n_groups * cap, d)
+        if mlp_kind == "swiglu":
+            gate_h = torch.bmm(ein, w["w_gate"])
+            up_h = torch.bmm(ein, w["w_up"])
+            h = torch.nn.functional.silu(gate_h.float()).to(x.dtype) * up_h
+        else:
+            h = mlp_activation(torch.bmm(ein, w["w_up"]), mlp_kind, x.dtype)
+        out = torch.bmm(h, w["w_down"])                           # (E, G*C, D)
+        return out.view(ne, n_groups, cap, d).transpose(0, 1).reshape(n_groups, ne * cap, d)
+
+    def combine(r, expert_out):
+        # gather each choice's expert output, weight it by its gate, sum over k
+        n_groups = expert_out.shape[0]
+        out_k = torch.gather(expert_out, 1, r.slot[..., None].expand(-1, -1, d)).float()
+        out_k = out_k * (r.gate_vals.reshape(n_groups, g * k) * r.within)[..., None]
+        return out_k.view(n_groups, g, k, d).sum(dim=2).to(x.dtype)
+
+    if is_dtensor(x):
+        return spmd.moe(x, p, route=route, experts=experts, combine=combine, group=g)
+    r, expert_in = route(x.reshape(b * (s // g), g, d), p["router"])
+    return combine(r, experts(expert_in, p)).reshape(b, s, d), r.aux_loss

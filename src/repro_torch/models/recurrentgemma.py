@@ -61,9 +61,16 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..kernels.decode_attention import decode_attention
+from ..distributed import spmd
+from ..distributed.sharding import (
+    batch_zeros,
+    constrain_batch_dim,
+    constrain_rnn,
+    gather_fsdp,
+    is_dtensor,
+)
 from ..kernels.rglru import rglru_scan
-from .attention import attention_any
+from .attention import attention_any, decode_any
 from .cache import (
     ring_cache_init,
     ring_cache_shape,
@@ -89,6 +96,7 @@ from .layers import (
     norm_defs,
     records_grad,
     rope_tables,
+    tree_map,
     unembed,
 )
 
@@ -190,8 +198,9 @@ class RecurrentGemma:
 
     def _rec_view(self, p: Params, i: int) -> Params:
         """Layer ``i`` of a recurrent stack (stacked, or a list of layers)
-        with float32 norm scales, conv kernel, gates and -c·softplus(Λ)."""
-        p = layer_slice(p, i)
+        with float32 norm scales, conv kernel, gates and -c·softplus(Λ)
+        (on a mesh, its FSDP shards gathered)."""
+        p = tree_map(gather_fsdp, layer_slice(p, i))
         f32 = lambda x: x.float()
         return {
             "norm": _norm_view(p["norm"]),
@@ -209,7 +218,7 @@ class RecurrentGemma:
     def _attn_view(self, p: Params, i: int) -> Params:
         cfg, hd = self.cfg, self.hd
         d = cfg.d_model
-        p = layer_slice(p, i)
+        p = tree_map(gather_fsdp, layer_slice(p, i))
         return {
             "norm": _norm_view(p["norm"]),
             "wq": p["wq"].reshape(d, cfg.n_heads * hd),
@@ -298,8 +307,11 @@ class RecurrentGemma:
         u_pad = torch.cat([conv_buf0.float(), u], dim=1)                # (B, S+c-1, R)
         kern = lp["conv_k"]
         conv = sum(u_pad[:, i : i + s] * kern[i] for i in range(cw))     # (B, S, R)
-        r_g = torch.sigmoid(conv @ lp["w_rgate"])
-        i_g = torch.sigmoid(conv @ lp["w_igate"])
+        # on a mesh: batch over the DP axes, the RG-LRU width over TP, and so
+        # its gradient (the conv's shifted slices would leave it sequence-sharded)
+        conv = constrain_rnn(conv)
+        r_g = torch.sigmoid(constrain_rnn(conv @ lp["w_rgate"]))
+        i_g = torch.sigmoid(constrain_rnn(conv @ lp["w_igate"]))
         a = torch.exp(lp["neg_c_lam"] * r_g)
         gated_x = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-9)) * (i_g * conv)
         if len_vec is not None:
@@ -307,7 +319,7 @@ class RecurrentGemma:
             a = torch.where(live, a, 1.0)
             gated_x = torch.where(live, gated_x, 0.0)
         rec, h_fin = rglru_scan(a, gated_x, h0)                         # (B, S, R), (B, R)
-        out = (rec * gate).to(self.dtype) @ lp["w_out"]
+        out = constrain_batch_dim((rec * gate).to(self.dtype) @ lp["w_out"], 0)
         if len_vec is None:
             new_buf = u_pad[:, s:]
         else:
@@ -315,7 +327,7 @@ class RecurrentGemma:
             # at len_b + i for i in [0, c-1)
             idx = len_vec.long()[:, None] + torch.arange(cw - 1, device=h.device)[None, :]
             new_buf = u_pad[torch.arange(b, device=h.device)[:, None], idx]
-        return h + out, h_fin, new_buf
+        return constrain_batch_dim(h + out, 0), h_fin, new_buf
 
     def _rec_block_tok(
         self, h: torch.Tensor, lp: Params, h0: torch.Tensor, conv_buf: torch.Tensor,
@@ -325,35 +337,46 @@ class RecurrentGemma:
         out, h_new, buf = self._rec_block_seq(h[:, None], lp, h0, conv_buf)
         return out[:, 0], h_new, buf
 
-    def _qkv(self, x: torch.Tensor, lp: Params, rope):
+    def _qkv(self, x: torch.Tensor, lp: Params, rope, own_kv: bool = False):
+        """q/k/v with RoPE; on a mesh whose TP axis the KV heads do not
+        divide, ``own_kv`` (the training forward) has each rank compute its
+        own query heads' KV heads (``spmd.gqa_kv``), as GSPMD partitions
+        the reference's."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = (x @ lp["wq"]).view(b, s, cfg.n_heads, self.hd)
-        k = (x @ lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
-        v = (x @ lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
+        if own_kv and is_dtensor(x) and spmd.gqa_split(
+                cfg.n_heads, cfg.n_kv_heads,
+                dict(zip(x.device_mesh.mesh_dim_names, tuple(x.device_mesh.shape))).get("model", 1)):
+            k = spmd.gqa_kv(x, lp["wk"], None, cfg.n_kv_heads, cfg.n_heads, self.hd)
+            v = spmd.gqa_kv(x, lp["wv"], None, cfg.n_kv_heads, cfg.n_heads, self.hd)
+        else:
+            k = (x @ lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
+            v = (x @ lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
         return apply_rope_tables(q, *rope), apply_rope_tables(k, *rope), v
 
-    def _attn_block_seq(self, h: torch.Tensor, lp: Params, rope):
+    def _attn_block_seq(self, h: torch.Tensor, lp: Params, rope, own_kv: bool = False):
         cfg = self.cfg
         b, s, _ = h.shape
         x = apply_norm(h, lp["norm"], cfg.norm_kind, cfg.norm_eps)
-        q, k, v = self._qkv(x, lp, rope)
+        q, k, v = self._qkv(x, lp, rope, own_kv)
         out = attention_any(q, k, v, causal=True, window=self.window)
-        return h + out.reshape(b, s, -1) @ lp["wo"], (k, v)
+        return constrain_batch_dim(h + constrain_batch_dim(out.reshape(b, s, -1) @ lp["wo"], 0), 0), (k, v)
 
     def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(h, lp["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
-        return h + mlp_apply(x, lp["mlp"], cfg.mlp_kind)
+        # on a mesh the residual stream (and its gradient) stays batch-sharded
+        # and replicated over the TP axis
+        return constrain_batch_dim(h + constrain_batch_dim(mlp_apply(x, lp["mlp"], cfg.mlp_kind), 0), 0)
 
     def _rec_layer(self, h, lp, cache, i, len_vec=None):
         """A recurrent block and its MLP; the layer's state ``i`` is read
         from ``cache`` (zeros without one) and, with one, updated in place."""
         if cache is None:
             b = h.shape[0]
-            h0 = torch.zeros((b, self.rnn), dtype=torch.float32, device=h.device)
-            buf0 = torch.zeros((b, self.cfg.conv1d_width - 1, self.rnn),
-                               dtype=torch.float32, device=h.device)
+            h0 = batch_zeros(h, (b, self.rnn), torch.float32)
+            buf0 = batch_zeros(h, (b, self.cfg.conv1d_width - 1, self.rnn), torch.float32)
         else:
             h0, buf0 = cache["rnn_h"][i], cache["conv_buf"][i]
         h, h_fin, buf = self._rec_block_seq(h, lp, h0, buf0, len_vec)
@@ -431,7 +454,7 @@ class RecurrentGemma:
 
         def attn(h, p):
             at = self._attn_view(params["attn"], p)
-            h, _ = self._attn_block_seq(h, at, rope)
+            h, _ = self._attn_block_seq(h, at, rope, own_kv=True)
             return self._mlp_block(h, at)
 
         run = ((lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat
@@ -517,9 +540,8 @@ class RecurrentGemma:
             q, k, v = self._qkv(x, at, rope)
             kc, vc = ring["k"][p], ring["v"][p]
             write_token(kc, vc, k, v, plan)
-            # (B, W, KV, D) slices seen as (B, KV, W, D): no copy of the ring
-            out = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
-            return self._mlp_block(h + out.reshape(b, -1) @ at["wo"], at)
+            out = decode_any(q[:, 0], kc, vc, kv_lens)
+            return self._mlp_block(h + constrain_batch_dim(out.reshape(b, -1) @ at["wo"], 0), at)
 
         h = self._run_layers(h, rec, attn, lambda fn, *a: fn(*a))
         h = apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)

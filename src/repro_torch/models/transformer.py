@@ -54,11 +54,18 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..kernels.decode_attention import decode_attention
+from ..distributed import spmd
+from ..distributed.sharding import (
+    constrain_batch_dim,
+    constrain_kv_for_cache,
+    constrain_residual,
+    gather_fsdp,
+    is_dtensor,
+)
 from ..kernels.flash_attention import paged_chunk_attention
 from ..kernels.paged_decode_attention import paged_decode_attention
 from ..serving.sampler import fold_row_keys
-from .attention import attention_any
+from .attention import attention_any, decode_any
 from .cache import (
     chunk_write_plan,
     full_cache_init,
@@ -93,6 +100,7 @@ from .layers import (
     norm_defs,
     rms_norm,
     rope_tables,
+    tree_map,
     unembed,
     ViewCache,
 )
@@ -189,7 +197,8 @@ class TransformerLM:
         d = cfg.d_model
         f32 = lambda x: x.float()
         ffn = "moe" if cfg.is_moe else "mlp"
-        layer = layer_slice(blocks, l)
+        # on a mesh, the layer's FSDP shards gathered (GSPMD's all-gather)
+        layer = tree_map(gather_fsdp, layer_slice(blocks, l))
         lp: Params = {
             "norm_attn": {k: f32(w) for k, w in layer["norm_attn"].items()},
             "norm_mlp": {k: f32(w) for k, w in layer["norm_mlp"].items()},
@@ -272,27 +281,51 @@ class TransformerLM:
             return m_rope_tables(pos3, self.hd, cfg.rope_theta, cfg.m_rope_sections)
         return rope_tables(positions, self.hd, cfg.rope_theta)
 
-    def _qkv_block(self, x: torch.Tensor, lp: Params):
+    def _qkv_block(self, x: torch.Tensor, lp: Params, kv_layout: str = "replicated"):
         """q/k/v projection (+ biases) + qk-norm: (B, S, D) → three ``bshk``
-        tensors."""
+        tensors. On a mesh whose TP axis the KV heads do not divide, K/V
+        are partitioned as GSPMD partitions the reference's: replicated over
+        it (a decode step's, a ring's), each rank's own KV heads
+        (``kv_layout="own"``, the training forward: ``spmd.gqa_kv``), or
+        every KV head of the rank's sequence shard (``"cache"``, a prefill
+        into a full cache: ``constrain_kv_for_cache`` of the input)."""
         cfg = self.cfg
         b, s, _ = x.shape
         q = (x @ lp["wq"]).view(b, s, cfg.n_heads, self.hd)
-        k = (x @ lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
-        v = (x @ lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
-        if cfg.use_bias:
-            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        if kv_layout == "own" and is_dtensor(x) and self._gqa_over_tp(x):
+            # the rank's KV heads, their biases added
+            k, v = (spmd.gqa_kv(x, lp[w], lp.get(bias), cfg.n_kv_heads, cfg.n_heads, self.hd)
+                    for w, bias in (("wk", "bk"), ("wv", "bv")))
+            if cfg.use_bias:
+                q = q + lp["bq"]
+        else:
+            if kv_layout == "cache" and is_dtensor(x) and constrain_kv_for_cache(x, cfg.n_kv_heads) is not x:
+                proj = spmd.seq_sharded_proj
+            else:
+                proj = lambda x, w: x @ w
+            k = proj(x, lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
+            v = proj(x, lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
+            if cfg.use_bias:
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
             k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
         return q, k, v
+
+    def _gqa_over_tp(self, x) -> bool:
+        sizes = dict(zip(x.device_mesh.mesh_dim_names, tuple(x.device_mesh.shape)))
+        return spmd.gqa_split(self.cfg.n_heads, self.cfg.n_kv_heads, sizes.get("model", 1)) is not None
 
     def _attn_out(self, attn: torch.Tensor, lp: Params) -> torch.Tensor:
         b, s = attn.shape[:2]
         out = attn.reshape(b, s, -1) @ lp["wo"]
         if self.cfg.use_bias:
             out = out + lp["bo"]
-        return out
+        # on a mesh the residual stream stays batch-sharded and replicated
+        # over the TP axis: the row-parallel product's partial sums are
+        # all-reduced here, and (the constraint on each sum with the residual)
+        # the column-parallel products' input gradients where they join it
+        return constrain_batch_dim(out, 0)
 
     def _ffn(self, h: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Norm and MLP (or MoE, whose groups and capacity follow ``h``'s
@@ -306,8 +339,9 @@ class TransformerLM:
                 mlp_kind=cfg.mlp_kind, capacity_factor=cfg.moe_capacity_factor,
                 group_size=cfg.moe_group_size,
             )
-            return h + out, aux
-        return h + mlp_apply(x, lp["mlp"], cfg.mlp_kind), None
+            return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0), aux
+        out = mlp_apply(x, lp["mlp"], cfg.mlp_kind)
+        return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0), None
 
     def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
         return self._ffn(h, lp)[0]
@@ -342,10 +376,10 @@ class TransformerLM:
         cfg = self.cfg
         lp = self._layer_view(blocks, l)
         x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-        q, k, v = self._qkv_block(x, lp)
+        q, k, v = self._qkv_block(x, lp, "own")
         q, k = apply_rope_tables(q, cos, sin), apply_rope_tables(k, cos, sin)
         attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
-        h, aux = self._ffn(h + self._attn_out(attn, lp), lp)
+        h, aux = self._ffn(constrain_batch_dim(h + self._attn_out(attn, lp), 0), lp)
         return h, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=h.device)
 
     def forward(
@@ -373,6 +407,7 @@ class TransformerLM:
                 h, aux_l = checkpoint(self._train_block, h, blocks, l, cos, sin, use_reentrant=False)
             else:
                 h, aux_l = self._train_block(h, blocks, l, cos, sin)
+            h = constrain_residual(h)
             aux = aux + aux_l
         return self._logits(h, params), aux
 
@@ -418,15 +453,20 @@ class TransformerLM:
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv_block(x, lp)
+            q, k, v = self._qkv_block(x, lp, "replicated" if ring else "cache")
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
             if ring:
                 ring_cache_write_prefill(kc, vc, k, v, pos_map)
             else:
-                full_cache_write(kc, vc, k, v, 0)
+                # on a mesh the write's source takes the cache's layout
+                full_cache_write(kc, vc, constrain_kv_for_cache(k, cfg.n_kv_heads),
+                                 constrain_kv_for_cache(v, cfg.n_kv_heads), 0)
             attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
-            h = self._mlp_block(h + self._attn_out(attn, lp), lp)
-        h_last = h[torch.arange(b, device=dev), (len_vec.long() - 1).clamp(min=0)]
+            h = constrain_residual(self._mlp_block(h + self._attn_out(attn, lp), lp))
+        if lengths is None:
+            h_last = h[:, -1]
+        else:
+            h_last = h[torch.arange(b, device=dev), (len_vec.long() - 1).clamp(min=0)]
         logits = self._logits(h_last, params)
         cache["length"].copy_(len_vec)
         if ring:
@@ -603,8 +643,7 @@ class TransformerLM:
             q, k, v = self._qkv_block(x, lp)
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
             write_token(kc, vc, k, v, plan)
-            # (B, S, KV, D) slices seen as (B, KV, S, D): no copy of the cache
-            attn = decode_attention(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), kv_lens)
+            attn = decode_any(q[:, 0], kc, vc, kv_lens)
             h = self._mlp_block(h + self._attn_out(attn[:, None], lp), lp)
         logits = self._logits(h[:, 0], params)
         lengths.copy_(new_lens)

@@ -41,8 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..kernels.decode_attention import decode_attention
-from .attention import attention_any, attention_cross
+from ..distributed.sharding import constrain_batch_dim, gather_fsdp
+from .attention import attention_any, attention_cross, decode_any
 from .cache import full_cache_init, full_cache_shape, full_cache_write, full_token_plan, write_token
 from .layers import (
     DTYPES,
@@ -58,6 +58,7 @@ from .layers import (
     norm_defs,
     sinusoid_at,
     sinusoidal_positions,
+    tree_map,
     unembed,
 )
 
@@ -147,33 +148,36 @@ class Whisper:
 
     def _out(self, attn: torch.Tensor, lp: Params) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return attn.reshape(b, s, -1) @ lp["wo"].reshape(-1, self.cfg.d_model) + lp["bo"]
+        # on a mesh the residual stream stays batch-sharded, replicated over TP
+        return constrain_batch_dim(
+            attn.reshape(b, s, -1) @ lp["wo"].reshape(-1, self.cfg.d_model) + lp["bo"], 0)
 
     def _norm(self, h: torch.Tensor, p: Params) -> torch.Tensor:
         return apply_norm(h, p, "layernorm", self.cfg.norm_eps)
 
     def _mlp(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
-        return h + mlp_apply(self._norm(h, lp["norm_mlp"]), lp["mlp"], "gelu")
+        out = mlp_apply(self._norm(h, lp["norm_mlp"]), lp["mlp"], "gelu")
+        return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0)
 
     def _enc_layer(self, h: torch.Tensor, stack: Params, i: int) -> torch.Tensor:
-        lp = layer_slice(stack, i)
+        lp = tree_map(gather_fsdp, layer_slice(stack, i))
         x = self._norm(h, lp["norm_attn"])
         k, v = self._kv(x, lp["attn"])
-        h = h + self._out(attention_cross(self._q(x, lp["attn"]), k, v), lp["attn"])
+        h = constrain_batch_dim(h + self._out(attention_cross(self._q(x, lp["attn"]), k, v), lp["attn"]), 0)
         return self._mlp(h, lp)
 
     def _dec_layer(self, h: torch.Tensor, enc: torch.Tensor, stack: Params, i: int,
                    kv_out: Optional[List] = None) -> torch.Tensor:
         """Decoder layer ``i`` over the whole prompt; ``kv_out`` collects
         its self K/V and cross K/V (a prefill)."""
-        lp = layer_slice(stack, i)
+        lp = tree_map(gather_fsdp, layer_slice(stack, i))
         sa, ca = lp["self_attn"], lp["cross_attn"]
         x = self._norm(h, lp["norm_self"])
         k, v = self._kv(x, sa)
-        h = h + self._out(attention_any(self._q(x, sa), k, v, causal=True), sa)
+        h = constrain_batch_dim(h + self._out(attention_any(self._q(x, sa), k, v, causal=True), sa), 0)
         x = self._norm(h, lp["norm_cross"])
         ck, cv = self._kv(enc, ca)
-        h = h + self._out(attention_cross(self._q(x, ca), ck, cv), ca)
+        h = constrain_batch_dim(h + self._out(attention_cross(self._q(x, ca), ck, cv), ca), 0)
         if kv_out is not None:
             kv_out.append((k, v, ck, cv))
         return self._mlp(h, lp)
@@ -300,19 +304,17 @@ class Whisper:
         kv_lens = lengths + 1
         enc_lens = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32, device=h.device)
         for i in range(cfg.n_layers):
-            lp = layer_slice(params["decoder"], i)
+            lp = tree_map(gather_fsdp, layer_slice(params["decoder"], i))
             sa, ca = lp["self_attn"], lp["cross_attn"]
             x = self._norm(h, lp["norm_self"])
             k, v = self._kv(x, sa)
             kc, vc = sc["k"][i], sc["v"][i]
             write_token(kc, vc, k, v, plan)
-            # (B, S, KV, D) slices seen as (B, KV, S, D): no copy of the cache
-            attn = decode_attention(self._q(x, sa)[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
-                                    kv_lens)
+            attn = decode_any(self._q(x, sa)[:, 0], kc, vc, kv_lens)
             h = h + self._out(attn[:, None], sa)
             x = self._norm(h, lp["norm_cross"])
-            attn = decode_attention(self._q(x, ca)[:, 0], cache["cross_k"][i].transpose(1, 2),
-                                    cache["cross_v"][i].transpose(1, 2), enc_lens)
+            attn = decode_any(self._q(x, ca)[:, 0], cache["cross_k"][i], cache["cross_v"][i],
+                              enc_lens)
             h = self._mlp(h + self._out(attn[:, None], ca), lp)
         h = self._norm(h[:, 0], params["norm_dec_final"])
         lengths.add_(1)

@@ -30,8 +30,11 @@ width-4 convs of the paper's blocks are omitted as in the reference.
   returning it as the reference returns a new one. No kernel of the TPU
   package computes these cells: they are plain PyTorch, and the wave
   server replays each decode step as one CUDA graph.
-* ``constrain_batch_dim`` (the reference's sharding hint) has nothing to do
-  on one device and is left out.
+* On a mesh (the dry-run's DTensors) the training forward's zero state is
+  batch-sharded (``sharding.batch_zeros``, the reference's
+  ``constrain_batch_dim``), and the token loops (a training chunk, a
+  prefill, a decode step) run on each rank's batch shard with the pair
+  weights gathered (``spmd.on_batch_shards``).
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import spmd
+from ..distributed.sharding import batch_zeros, is_dtensor
 from .layers import (
     DTYPES,
     ParamDef,
@@ -248,7 +253,10 @@ class XLSTM:
         return out_states, h
 
     def _chunk(self, views, states, x):
-        """The token step over x (B, T, D): (final states, y (B, T, D))."""
+        """The token step over x (B, T, D): (final states, y (B, T, D)). On
+        DTensors each rank runs its batch shard (``spmd.on_batch_shards``)."""
+        if is_dtensor(x):
+            return spmd.on_batch_shards(self._chunk, views, states, x)
         ys = []
         for t in range(x.shape[1]):
             states, y = self._token_step(views, states, x[:, t])
@@ -271,7 +279,12 @@ class XLSTM:
         b, s = tokens.shape
         views = self._views(params)
         emb = embed_tokens(tokens, params["embed"]).to(self.dtype)
-        states = self._states(self.cache_init(b))
+        # every state from zero: on a mesh batch-sharded (the reference's
+        # constrain_batch_dim of its zero state), like the embeddings
+        states = self._states({
+            k: batch_zeros(emb, shape, torch.int32 if k == "length" else torch.float32,
+                           batch_dim=0 if k == "length" else 1)
+            for k, shape in self.cache_shape(b).items()})
         chunk = min(time_chunk, s)
         if s % chunk != 0:
             chunk = s
@@ -308,8 +321,21 @@ class XLSTM:
         emb = embed_tokens(tokens, params["embed"]).to(self.dtype)
         len_vec = (torch.full((b,), s, dtype=torch.int32, device=tokens.device)
                    if lengths is None else lengths.to(torch.int32))
-        states = self._states(cache)
-        h_last = torch.zeros((b, cfg.d_model), dtype=self.dtype, device=tokens.device)
+        states, h_last = self._prefill_loop(views, self._states(cache), emb, len_vec)
+        self._store(cache, states)
+        cache["length"].copy_(len_vec)
+        h_last = apply_norm(h_last, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
+        return unembed(h_last, params["embed"]).float(), cache
+
+    def _prefill_loop(self, views, states, emb, len_vec):
+        """The token step over the prompts ``emb`` (B, S, D), each slot's
+        state frozen once t >= its length: (final states, the hidden of
+        each slot's last real token). On DTensors each rank runs its batch
+        shard."""
+        if is_dtensor(emb):
+            return spmd.on_batch_shards(self._prefill_loop, views, states, emb, len_vec)
+        b, s = emb.shape[:2]
+        h_last = torch.zeros((b, self.cfg.d_model), dtype=self.dtype, device=emb.device)
         for t in range(s):
             new, y = self._token_step(views, states, emb[:, t])
             live = t < len_vec                                         # (B,)
@@ -317,10 +343,7 @@ class XLSTM:
                             for x, old in zip(st_new, st_old))
                       for st_new, st_old in zip(new, states)]
             h_last = torch.where((t == len_vec - 1)[:, None], y, h_last)
-        self._store(cache, states)
-        cache["length"].copy_(len_vec)
-        h_last = apply_norm(h_last, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
-        return unembed(h_last, params["embed"]).float(), cache
+        return states, h_last
 
     @torch.no_grad()
     def decode_step(
@@ -330,7 +353,11 @@ class XLSTM:
         place)."""
         cfg = self.cfg
         x = embed_tokens(tokens, params["embed"]).to(self.dtype)
-        states, h = self._token_step(self._views(params), self._states(cache), x)
+        views, states = self._views(params), self._states(cache)
+        if is_dtensor(x):
+            states, h = spmd.on_batch_shards(self._token_step, views, states, x)
+        else:
+            states, h = self._token_step(views, states, x)
         self._store(cache, states)
         cache["length"].add_(1)
         h = apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)

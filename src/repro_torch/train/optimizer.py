@@ -19,6 +19,8 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
+from ..distributed.sharding import is_dtensor
+
 from ..models.layers import _leaves, tree_map
 
 Tree = Any
@@ -68,9 +70,11 @@ def _schedule(cfg: AdamWConfig, count: torch.Tensor) -> torch.Tensor:
 
 def _slices(*tensors: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Matching slices along the leading dim of same-shape tensors, each at
-    most ``_SLICE`` elements where the leading dim allows."""
+    most ``_SLICE`` elements where the leading dim allows (DTensors whole)."""
     t = tensors[0]
-    if t.dim() == 0 or t.numel() <= _SLICE:
+    # a DTensor is taken whole: its shard is the device's, and slicing a
+    # sharded dim would gather it
+    if t.dim() == 0 or t.numel() <= _SLICE or is_dtensor(t):
         yield tensors
         return
     step = max(1, _SLICE // max(t[0].numel(), 1))

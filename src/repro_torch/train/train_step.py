@@ -84,7 +84,7 @@ def make_train_step(
             loss = _value_and_grad(model, params, batch, remat, mb_grads)
             grads = mb_grads
         else:
-            zero = lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+            zero = lambda p: torch.zeros_like(p, dtype=accum_dtype)   # a DTensor's: its shard
             grads = tree_map(zero, params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i, mb in enumerate(_split_batch(batch, microbatches)):

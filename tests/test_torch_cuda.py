@@ -1241,3 +1241,97 @@ def test_cuda_capture_survives_a_collection_of_a_dead_owners_graphs(card):
     gc.collect()
     out = new.replay("new")
     torch.testing.assert_close(out, torch.arange(64, dtype=torch.float32, device=dev) * 2 + 1)
+
+
+@pytest.mark.parametrize("splits", ["one", "plan", "most"])
+@pytest.mark.parametrize("dtype,body", [("float32", da.CUDA_CORES), ("bfloat16", da.TENSOR_CORES)])
+@pytest.mark.parametrize("h,kv,d", [(32, 8, 128), (16, 1, 256)])
+def test_cuda_decode_lse_matches_plain(card, h, kv, d, dtype, body, splits):
+    """Kernel 3's log-sum-exp (what a merge of partial outputs over split
+    caches weighs them by) on each body, unsplit, at the plan's split count
+    and at the most splits, against the plain version's; -inf for a slot
+    without keys; the output bit-equal to a call that writes none."""
+    b, s = 10, 640
+    g = h // kv
+    group, parts = (g, 1) if body == da.TENSOR_CORES else cta_group(g)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = {"one": 1, "most": s // 32,
+         "plan": da.plan(TDT[dtype], b, h, kv, s, d, n_sms).split.splits}[splits]
+    plan = da.Plan(body, plan_with_splits(n, s, group, parts))
+    gen = torch.Generator(device="cuda").manual_seed(h * d + n + 1)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(TDT[dtype])
+    k = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    v = torch.randn(b, s, kv, d, device="cuda", generator=gen).to(TDT[dtype]).transpose(1, 2)
+    lens = torch.tensor([0, 1, 31, 32, 33, 100, 320, 500, 639, 640], dtype=torch.int32, device="cuda")
+    lse = torch.empty((b, h), dtype=torch.float32, device="cuda")
+    out = da._launch(q, k, v, lens, d ** -0.5, plan, lse)
+    plain_out = da._launch(q, k, v, lens, d ** -0.5, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    ref = da.decode_attention_lse_plain(q, k, lens)
+    assert torch.all(torch.isneginf(lse[0])) and torch.all(torch.isneginf(ref[0]))
+    torch.testing.assert_close(lse[1:], ref[1:], rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_halves_merge_to_the_whole(card, dtype):
+    """Two halves of a cache (two devices' shards) decoded with their
+    log-sum-exps and merged give the whole cache's output."""
+    b, h, kv, s, d = 4, 32, 8, 1024, 128
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(TDT[dtype])
+    k = torch.randn(b, kv, s, d, device="cuda", generator=gen).to(TDT[dtype])
+    v = torch.randn(b, kv, s, d, device="cuda", generator=gen).to(TDT[dtype])
+    lens = torch.tensor([1, 300, 700, 1024], dtype=torch.int32, device="cuda")
+    whole = da.decode_attention(q, k, v, lens)
+    parts = [da.decode_attention(q, k[:, :, lo:lo + s // 2].contiguous(), v[:, :, lo:lo + s // 2].contiguous(),
+                                 torch.clamp(lens - lo, 0, s // 2).to(torch.int32), return_lse=True)
+             for lo in (0, s // 2)]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.where(torch.isfinite(p[1]), torch.exp(p[1] - m), 0.0) for p in parts]
+    merged = sum(p[0].float() * wi[..., None] for p, wi in zip(parts, w)) / (w[0] + w[1])[..., None]
+    torch.testing.assert_close(merged, whole.float(), rtol=_tol(dtype), atol=_tol(dtype))
+
+
+def test_cuda_ops_launch_once_with_the_fake_layouts(card):
+    """Each custom op on CUDA tensors runs its kernel once a call (its
+    module's counter) and gives outputs of the shapes and strides its fake
+    implementation gives (the dry-run's memory trusts them)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import rglru, rglru_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(torch.bfloat16)
+    q = bf(2, 64, 8, 128).transpose(1, 2)                   # a bshk view
+    k, v = bf(2, 64, 2, 128).transpose(1, 2), bf(2, 64, 2, 128).transpose(1, 2)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    a = torch.rand(2, 100, 256, device="cuda", generator=gen)
+    x, h0 = torch.rand(2, 100, 256, device="cuda", generator=gen), torch.rand(2, 256, device="cuda")
+    hs, _ = rglru.rglru_scan(a, x, h0)
+    pages, tables = bf(2, 8, 16, 128), torch.arange(8, dtype=torch.int32, device="cuda").view(2, 4)
+    i32 = lambda *xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    ops = torch.ops.repro_torch
+    cases = [
+        (fa, ops.flash_attention.default, (q, k, v, True, 0, 0.125, True)),
+        (fa, ops.paged_chunk_attention.default, (bf(2, 16, 8, 128), pages, pages, tables, i32(0, 16),
+                                                 i32(16, 32), 0.125)),
+        (fb, ops.flash_attention_backward.default, (q, k, v, out, lse, out, True, 0, 0.125)),
+        (da, ops.decode_attention.default, (bf(2, 8, 128), k, v, i32(10, 64), 0.125, True)),
+        (pda, ops.paged_decode_attention.default, (bf(2, 1, 8, 128), pages, pages, tables, i32(10, 64),
+                                                   0.125)),
+        (rglru, ops.rglru_scan.default, (a, x, h0)),
+        (rglru_bwd, ops.rglru_scan_backward.default, (a, hs, h0, a, h0)),
+    ]
+    for mod, op, args in cases:
+        mod.reset_launch_count()
+        real = op(*args)
+        torch.cuda.synchronize()
+        assert mod.launch_count == 1, op
+        mode = FakeTensorMode()
+        fake_args = tuple(mode.from_tensor(t) if isinstance(t, torch.Tensor) else t for t in args)
+        with mode:
+            fake = op(*fake_args)
+        for r, f in zip(real if isinstance(real, tuple) else (real,), fake if isinstance(fake, tuple) else (fake,)):
+            assert (r.shape, r.dtype, r.stride(), r.device) == (f.shape, f.dtype, f.stride(), f.device), op

@@ -47,6 +47,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.simulator, repro_torch.core.mip, repro_torch.core.rl_policy\n"
         "import repro_torch.launch.paper_tables\n"
         "import repro_torch.distributed.elastic, repro_torch.train.dp_compressed\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.trace_analysis, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.plan, repro_torch.launch.time_host_cost\n"
+        "import repro_torch.launch.time_train_steps\n"
+        "import repro_torch.distributed.spmd, repro_torch.distributed.op_rules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
