@@ -237,7 +237,9 @@ Phases, each printing its seconds on a line of its own:
              count over the real step, and its custom-op calls the
              kernels' launch counts; the step's ms is printed beside the
              roofline's bound (no gate). DRYRUN_CELLS, one cell per
-             family, are traced meanwhile on the fake 16 x 16 world in a
+             family (and xLSTM's decode and StarCoder2's prefill, whose
+             heads do not divide the model axis), are traced meanwhile on
+             the fake 16 x 16 world in a
              subprocess that sees no card: each must be ok, its trace
              seconds and per-device peak printed.
 
@@ -3775,7 +3777,8 @@ DRYRUN_PEAK_TOL = 0.10
 #: one cell per family, traced on the fake 16 x 16 world
 DRYRUN_CELLS = (("qwen3_8b", "train_4k"), ("mixtral_8x22b", "decode_32k"),
                 ("recurrentgemma_9b", "long_500k"), ("whisper_small", "prefill_32k"),
-                ("qwen2_vl_7b", "prefill_32k"))
+                ("qwen2_vl_7b", "prefill_32k"), ("xlstm_350m", "decode_32k"),
+                ("starcoder2_7b", "prefill_32k"))
 DRYRUN_SCRIPT = """
 import json, sys
 from repro_torch.launch import dryrun

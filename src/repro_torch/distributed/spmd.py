@@ -5,7 +5,10 @@ for the reference's einsums, scatters and cache updates).
 Each function takes DTensors, brings them to the layout the operation needs
 (batch over the DP axes, heads or the cache's sequence over the TP axis),
 runs the plain-tensor operation on this rank's shards, and wraps the result
-back; the collectives it adds are the ones GSPMD adds for the reference:
+back, declaring the layout of each input's gradient (a weight a batch shard
+uses whole: partial over the DP axes; an input of which a rank computes a
+part: partial over the TP axis); the collectives it adds are the ones GSPMD
+adds for the reference:
 
   * ``embed`` — the lookup in a vocab-sharded table (an all-reduce of the
     rows each rank holds);
@@ -13,8 +16,16 @@ back; the collectives it adds are the ones GSPMD adds for the reference:
     and the query heads sharded; where the KV heads do not divide the TP
     axis each rank takes the KV heads of its own query heads, which
     ``gqa_kv`` computes alone in a training forward (its weight gradient
-    by row slices over the TP axis) and ``seq_sharded_proj`` for its
-    sequence shard in a prefill into a sequence-sharded cache;
+    by row slices over the TP axis) or a prefill into a ring
+    (``gqa_kv_heads`` then gathers every KV head for the ring's slots), and
+    ``seq_sharded_proj`` for its sequence shard in a prefill into a
+    sequence-sharded cache;
+  * where the query heads do not divide the TP axis: a prefill's attention
+    block on sequence shards (``sequence_parallel``, ``seq_shard``,
+    ``seq_attention``: each rank's queries over the gathered keys), a
+    training forward's attention weight gradients in FSDP blocks over the
+    TP ranks (``grad_split_proj``), and a decode step's K/V from FSDP
+    weights over TP shards of the contraction (``contraction_split_proj``);
   * ``decode_attention`` — one token against a dense cache (kernel 3): a
     cache sharded by KV heads decodes locally; one sharded by sequence (the
     reference's context parallelism) decodes each shard's keys into a
@@ -28,8 +39,9 @@ back; the collectives it adds are the ones GSPMD adds for the reference:
   * ``moe`` — the MoE's router logits on each rank's experts, its routing,
     scatter and gather on the batch-sharded groups, the expert products on
     each rank's experts or FFN slice;
-  * ``on_batch_shards`` — a recurrent loop (xLSTM's token steps) on each
-    rank's batch shard.
+  * ``on_model_shards`` — a recurrent loop (xLSTM's token steps) on each
+    rank's batch shard, its heads split over the TP axis or, where they do
+    not divide it, its projections' contraction (``ModelAxis``).
 
 Only the dry-run (and the tests) run models on DTensors; every serving and
 training path runs plain tensors, which never reach this module.
@@ -41,7 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from .sharding import _axis_sizes
+from .sharding import _axis_sizes, is_dtensor
 
 
 def _mesh(x):
@@ -114,6 +126,29 @@ def contiguous_strides(shape) -> Tuple[int, ...]:
     return tuple(reversed(out))
 
 
+def _partial_over_batch(pl, batch_pl):
+    """``pl`` with ``Partial`` on each mesh axis ``batch_pl`` shards the batch
+    over: the gradient placements of a weight used whole by a batch shard."""
+    from torch.distributed.tensor import Partial, Shard
+
+    return tuple(Partial() if isinstance(b, Shard) else p for p, b in zip(pl, batch_pl))
+
+
+def _gathered(w, batch_pl, sliced: bool = False):
+    """This rank's block of weight ``w`` with its DP-axis (FSDP) shards
+    gathered and its TP sharding kept; its gradient partial over the DP
+    axes ``batch_pl`` shards the batch over, and over TP where ``sliced``
+    (a weight every TP rank holds whole but multiplies a slice of)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    names = list(_mesh(w)[1])
+    pl = tuple(Replicate() if n in ("pod", "data") else p for n, p in zip(names, w.placements))
+    grad = _partial_over_batch(pl, batch_pl)
+    if sliced:
+        grad = tuple(Partial() if n == "model" else p for n, p in zip(names, grad))
+    return _to(w, pl).to_local(grad_placements=grad)
+
+
 def _coordinate(mesh, names: List[str], axis: str) -> int:
     coord = mesh.get_coordinate()
     return 0 if coord is None else coord[names.index(axis)]
@@ -121,6 +156,11 @@ def _coordinate(mesh, names: List[str], axis: str) -> int:
 
 def _tp(sizes: Dict[str, int]) -> int:
     return sizes.get("model", 1)
+
+
+def tp_size(x) -> int:
+    """The size of DTensor ``x``'s TP axis (1 without one)."""
+    return _tp(_mesh(x)[2])
 
 
 # --------------------------------------------------------------------------- #
@@ -154,6 +194,61 @@ def attention(run: Callable, q, k, v):
     return _wrap(run(ql, kl, vl), mesh, qp, q.shape)
 
 
+def sequence_parallel(x, n_heads: int, cache_layer) -> bool:
+    """Whether a prefill's attention block runs on sequence shards over the
+    TP axis, as GSPMD partitions the reference's: ``x`` (B, S, D) is a
+    DTensor whose sequence divides the TP axis, the query heads do not
+    divide it, and ``cache_layer`` (B, S', KV, D), the cache the block's K/V
+    go to, shards its sequence over it (``build_cache_specs``' context
+    parallelism) — the layout GSPMD carries back from the cache write
+    through the K/V projections to the whole block."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x) or not is_dtensor(cache_layer):
+        return False
+    mesh, names, sizes = _mesh(cache_layer)
+    tp = _tp(sizes)
+    if tp <= 1 or n_heads % tp == 0 or x.shape[1] % tp:
+        return False
+    pl = cache_layer.placements[names.index("model")]
+    return isinstance(pl, Shard) and pl.dim == 1
+
+
+def seq_shard(x):
+    """``x`` (B, S, ...) with its sequence sharded over the TP axis (a local
+    slice of a tensor replicated over it), every other placement kept."""
+    from torch.distributed.tensor import Shard
+
+    names = list(_mesh(x)[1])
+    return _to(x, tuple(Shard(1) if n == "model" else p for n, p in zip(names, x.placements)))
+
+
+def is_seq_sharded(x) -> bool:
+    """Whether DTensor ``x`` (B, S, ...) shards its sequence over the TP axis."""
+    from torch.distributed.tensor import Shard
+
+    names = list(_mesh(x)[1])
+    pl = x.placements[names.index("model")] if "model" in names else None
+    return isinstance(pl, Shard) and pl.dim == 1
+
+
+def seq_attention(run: Callable, q, k, v):
+    """Attention of a sequence shard of queries over every key: ``q`` (B,
+    S, H, D) sharded by sequence over the TP axis, ``k`` / ``v`` (B, Sk, KV,
+    D) gathered over it (all-gathers of the sequence); ``run(q, k, v, lo)``
+    is the plain-tensor attention of queries at positions ``lo ..`` over
+    keys at ``0 ..``. Returns the output on ``q``'s layout."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, names, _ = _mesh(q)
+    qp = tuple(q.placements)
+    kp = tuple(Replicate() if n == "model" else p for n, p in zip(names, qp))
+    ql = q.to_local()
+    kl, vl = _to(k, kp).to_local(), _to(v, kp).to_local()
+    lo = _coordinate(mesh, names, "model") * ql.shape[1]
+    return _wrap(run(ql, kl, vl, lo), mesh, qp, q.shape)
+
+
 def gqa_split(h: int, kv: int, tp: int) -> Optional[Tuple[int, int]]:
     """Where the query heads shard over a TP axis of ``tp`` and the KV heads
     do not: ``(heads a rank, KV heads a rank)``, each rank's query heads
@@ -165,6 +260,14 @@ def gqa_split(h: int, kv: int, tp: int) -> Optional[Tuple[int, int]]:
     if g % hl and hl % g:
         return None
     return hl, max(1, hl // g)
+
+
+def _gqa_owners(n_heads: int, n_kv: int, tp: int) -> List[int]:
+    """The KV head of each of ``gqa_kv``'s virtual heads: rank c's ``n``
+    virtual heads are the KV heads its query heads read."""
+    hl, n = gqa_split(n_heads, n_kv, tp)
+    g = n_heads // n_kv
+    return [(v // n) * hl // g + v % n for v in range(tp * n)]
 
 
 def gqa_kv(x, w, bias, n_kv: int, n_heads: int, hd: int):
@@ -197,8 +300,7 @@ def gqa_kv(x, w, bias, n_kv: int, n_heads: int, hd: int):
                                                    for n_, p in zip(names, xp)))
     w_grad = tuple(Partial() if p != Replicate() else Replicate() for p in xp)
     wl = _to(w, rep).to_local(grad_placements=w_grad)
-    # virtual head v of the gathered gradient is KV head (v // n) * hl // g + v % n
-    owner = torch.tensor([(v // n) * hl // g + v % n for v in range(tp * n)], device=xl.device)
+    owner = torch.tensor(_gqa_owners(n_heads, n_kv, tp), device=xl.device)
 
     def rows_grad(dout, xl):
         full = _wrap(dout, mesh, vp, (b, s, tp * n, hd)).redistribute(mesh, xp).to_local()
@@ -213,6 +315,40 @@ def gqa_kv(x, w, bias, n_kv: int, n_heads: int, hd: int):
     if bias is not None:
         out = out + _to(bias, rep).to_local(grad_placements=w_grad)[first:first + n]
     return _wrap(out, mesh, vp, (b, s, tp * n, hd))
+
+
+def gqa_kv_heads(k, n_kv: int, n_heads: int):
+    """Every KV head ``(B, S, KV, hd)``, replicated over the TP axis, of a
+    ``gqa_kv`` output (each rank's own KV heads as virtual heads sharded
+    over it): the virtual heads all-gathered, each KV head taken from its
+    first owner — what a ring's prefill write reads (the ring shards its
+    slots over the TP axis, each slot holding every KV head)."""
+    mesh, names, sizes = _mesh(k)
+    b, s, _, hd = k.shape
+    owner = _gqa_owners(n_heads, n_kv, _tp(sizes))
+    first = [owner.index(j) for j in range(n_kv)]
+    pl = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
+    return _wrap(_to(k, pl).to_local()[:, :, first], mesh, pl, (b, s, n_kv, hd))
+
+
+def contraction_split_proj(x, w):
+    """``x @ w`` for K/V whose heads do not divide the TP axis, from an
+    FSDP-sharded weight, as GSPMD partitions the reference's decode step:
+    each TP rank multiplies its slice of the contraction (``x``'s last dim,
+    ``w``'s rows), and an all-reduce over the TP axis sums the partial
+    products — every KV head on every rank. ``x`` (..., K) batch-sharded,
+    ``w`` (K, N) replicated; the output is batch-sharded and replicated
+    over TP."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, names, sizes = _mesh(x)
+    b = x.shape[0]
+    xp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=x.ndim - 1)
+    wp = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+    out = _to(x, xp).to_local() @ _to(w, wp).to_local()
+    pl = tuple(Partial() if n == "model" else p for n, p in zip(names, xp))
+    bp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
+    return _wrap(out, mesh, pl, tuple(x.shape[:-1]) + (w.shape[1],)).redistribute(mesh, bp)
 
 
 class _GqaProj(torch.autograd.Function):
@@ -236,6 +372,85 @@ class _GqaProj(torch.autograd.Function):
         dout = dout.contiguous()
         dx = dout.reshape(dout.shape[:2] + (-1,)) @ wl[:, lo:hi].transpose(0, 1)
         return dx, ctx.rows_grad(dout, xl), None, None, None, None
+
+
+def fsdp_blocks(w, dim: int) -> int:
+    """How many blocks the FSDP sharding cuts dim ``dim`` of DTensor ``w``
+    into over the DP axes (1 where it does not shard it)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, names, sizes = _mesh(w)
+    return math.prod(sizes[n] for n, p in zip(names, w.placements)
+                     if n in ("pod", "data") and isinstance(p, Shard) and p.dim == dim)
+
+
+def grad_split(w, n_heads: int) -> int:
+    """The blocks ``grad_split_proj`` splits the gradient of an attention
+    weight ``w`` (rows its input dim) into: where the ``n_heads`` query
+    heads do not divide the TP axis, the FSDP blocks of its rows if the TP
+    axis is a multiple of them; else 1 (no split)."""
+    tp = tp_size(w)
+    if tp <= 1 or n_heads % tp == 0:
+        return 1
+    blocks = fsdp_blocks(w, 0)
+    return blocks if blocks > 1 and tp % blocks == 0 else 1
+
+
+def grad_split_proj(x, w, dim: int, blocks: int):
+    """``x @ w`` for a weight every TP rank uses whole (a projection whose
+    heads do not divide the TP axis), with its gradient partitioned as GSPMD
+    partitions the reference's: ``w`` (K, N) is FSDP-sharded over the DP
+    axes along ``dim`` (0 rows, 1 columns) in ``blocks`` blocks, and each TP
+    rank computes the weight gradient of block (its coordinate mod
+    ``blocks``) over its batch shard's tokens — the blocks' FLOPs a device,
+    not the whole weight's — which an all-gather over the TP axis
+    assembles (the first ``blocks`` ranks' copies; GSPMD moves each block
+    to its FSDP owner instead). ``x`` (..., K) batch-sharded and replicated
+    over TP, ``w`` replicated (FSDP-gathered); the output is ``x``'s layout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, names, sizes = _mesh(x)
+    b = x.shape[0]
+    k, n = w.shape
+    c = _coordinate(mesh, names, "model")
+    copies = _tp(sizes) // blocks
+    xp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
+    rep = tuple(Replicate() for _ in names)
+    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in xp)
+    xl = _to(x, xp).to_local(grad_placements=xp)
+    wl = _to(w, rep).to_local(grad_placements=w_grad)
+    j = c % blocks
+
+    def block_grad(dout, xl):
+        x2, d2 = xl.reshape(-1, k), dout.reshape(-1, n)
+        if dim == 0:
+            part, shape = x2[:, j * k // blocks:(j + 1) * k // blocks].transpose(0, 1) @ d2, \
+                (copies * k, n)
+        else:
+            part, shape = x2.transpose(0, 1) @ d2[:, j * n // blocks:(j + 1) * n // blocks], \
+                (k, copies * n)
+        pl = tuple(Shard(dim) if n_ == "model" else Replicate() for n_ in names)
+        whole = _wrap(part.contiguous(), mesh, pl, shape).redistribute(mesh, rep).to_local()
+        return whole.narrow(dim, 0, (k, n)[dim])
+
+    out = _SplitGradProj.apply(xl, wl, block_grad)
+    return _wrap(out, mesh, xp, tuple(x.shape[:-1]) + (n,))
+
+
+class _SplitGradProj(torch.autograd.Function):
+    """``x @ w`` whose weight gradient is ``block_grad(dout, x)``."""
+
+    @staticmethod
+    def forward(ctx, xl, wl, block_grad):
+        ctx.save_for_backward(xl, wl)
+        ctx.block_grad = block_grad
+        return xl @ wl
+
+    @staticmethod
+    def backward(ctx, dout):
+        xl, wl = ctx.saved_tensors
+        dout = dout.contiguous()
+        return dout @ wl.transpose(0, 1), ctx.block_grad(dout, xl), None
 
 
 def seq_sharded_proj(x, w):
@@ -310,7 +525,8 @@ def embed(table, tokens):
     tp_pl = _placements(names, sizes, batch_dim=None, batch=b, tp_dim=0 if by_vocab else None)
     bp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
     tl = _to(tokens, bp).to_local().long()
-    wl = _to(table, tp_pl).to_local()
+    # the table's gradient: this batch shard's rows, partial over the DP axes
+    wl = _to(table, tp_pl).to_local(grad_placements=_partial_over_batch(tp_pl, bp))
     lo = _coordinate(mesh, names, "model") * wl.shape[0] if by_vocab else 0
     mine = (tl >= lo) & (tl < lo + wl.shape[0])
     out = torch.where(mine[..., None], wl[torch.where(mine, tl - lo, 0)], 0)
@@ -466,23 +682,27 @@ def moe(x, p, *, route: Callable, experts: Callable, combine: Callable, group: i
     xp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
     x = _to(x, xp)
     rep = tuple(Replicate() for _ in names)
-    xl = x.to_local()
+    model_pl = p["w_up"].placements[names.index("model")] if "model" in names else Replicate()
+    router_pl = p["router"].placements[names.index("model")] if "model" in names else Replicate()
+    # the input's gradient: partial over the TP axis along each path that
+    # runs on the rank's experts, FFN slice or router columns alone
+    on_tp = lambda sharded: tuple(Partial() if n == "model" and sharded else q
+                                  for n, q in zip(names, xp))
+    xl = x.to_local(grad_placements=on_tp(isinstance(model_pl, Shard)))
+    xl_router = x.to_local(grad_placements=on_tp(isinstance(router_pl, Shard)))
     g_loc = xl.shape[0] * (s // group)
     g_all = b * (s // group)
     xg = xl.reshape(g_loc, group, d)
-    tp_only = lambda t: _to(t, tuple(Replicate() if n in ("pod", "data") else q
-                                     for n, q in zip(names, t.placements))).to_local()
     # the router's logits on this rank's experts, all-gathered over the TP
     # axis where the experts shard over it
-    router = tp_only(p["router"])
-    logits = xg.float() @ router
+    router = _gathered(p["router"], xp)
+    logits = xl_router.reshape(g_loc, group, d).float() @ router
     n_e = p["router"].shape[1]
     if router.shape[1] != n_e:
         pl = tuple(Shard(2) if n == "model" else q for n, q in zip(names, xp))
         logits = _wrap(logits, mesh, pl, (g_all, group, n_e)).redistribute(mesh, xp).to_local()
     r, expert_in = route(xg, None, logits)
-    w = {k: tp_only(p[k]) for k in ("w_gate", "w_up", "w_down") if k in p}
-    model_pl = p["w_up"].placements[names.index("model")] if "model" in names else Replicate()
+    w = {k: _gathered(p[k], xp) for k in ("w_gate", "w_up", "w_down") if k in p}
     slots = expert_in.shape[1]
     if isinstance(model_pl, Shard) and model_pl.dim == 0:
         # this rank's experts; their outputs all-gathered over the TP axis
@@ -499,10 +719,12 @@ def moe(x, p, *, route: Callable, experts: Callable, combine: Callable, group: i
     else:
         eout = experts(expert_in, w)
     out = combine(r, eout).reshape(xl.shape)
-    # the load-balancing statistics are means over every group: all-reduced
-    mean_pl = tuple(Partial("avg") if n in ("pod", "data") else q for n, q in zip(names, rep))
-    me = _wrap(r.probs_mean, mesh, mean_pl, r.probs_mean.shape).redistribute(mesh, rep).to_local()
-    fe = _wrap(r.first_choice_mean, mesh, mean_pl, r.probs_mean.shape).redistribute(mesh, rep).to_local()
+    # the load-balancing statistics are means over every group: this rank's
+    # groups' share, all-reduced over the DP axes
+    share = tuple(Partial() if n in ("pod", "data") and q.is_shard() else Replicate()
+                  for n, q in zip(names, xp))
+    mean = lambda t: _wrap(t * (g_loc / g_all), mesh, share, t.shape).redistribute(mesh, rep).to_local()
+    me, fe = mean(r.probs_mean), mean(r.first_choice_mean)
     aux = _wrap(me.shape[0] * torch.sum(me * fe), mesh, rep, ())
     return _wrap(out, mesh, xp, (b, s, d)), aux
 
@@ -510,30 +732,160 @@ def moe(x, p, *, route: Callable, experts: Callable, combine: Callable, group: i
 # --------------------------------------------------------------------------- #
 # Recurrent loops                                                             #
 # --------------------------------------------------------------------------- #
-def on_batch_shards(fn: Callable, weights, *batched):
-    """``fn(weights, *batched)`` on each rank's batch shard, on plain
-    tensors: every tensor of the ``batched`` trees (batch leading) brought to
-    batch over the DP axes and replicated over TP, every tensor of
-    ``weights`` replicated (gathered once; its gradient partial over the DP
-    axes the batch shards over), and each output (a tree of batch-leading
-    tensors) wrapped back on that layout. What a recurrent loop needs whose
-    steps are too small and too many to run as DTensor operations (xLSTM's
-    token step, a few hundred operations a token); where the weights are
-    replicated over TP anyway, as xLSTM-350M's four heads are over a model
-    axis of 16, the device's work is GSPMD's."""
-    from torch.distributed.tensor import Partial, Replicate
+class ModelAxis:
+    """The TP axis inside a local form's loop (``on_model_shards``): this
+    rank's coordinate on it, its size, the partition (``mode``) and the
+    projections a step runs on plain tensors, whose collectives are
+    functional collectives over the axis' group (a trace counts them):
+
+    * ``"heads"``: each rank holds its heads' columns of the input
+      projections and its heads' rows of the output projection — the input
+      projection is column-parallel (its input's gradient all-reduced), the
+      output row-parallel (its partial products all-reduced);
+    * ``"contraction"``: the heads do not divide the axis, every rank runs
+      every head, and each rank multiplies its slice of the contraction
+      (``rows``) of the input projections (all-reduced) and its slice of the
+      output projection's columns (``cols``, all-gathered).
+
+    A side projection sharded by its output columns (a gate whose width
+    divides the axis) runs column-parallel in both."""
+
+    def __init__(self, mesh, names, mode: str):
+        self.mode = mode
+        self.size = mesh.size(names.index("model"))
+        self.rank = _coordinate(mesh, names, "model")
+        self.group = (mesh, names.index("model"))
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` (a contraction's rows or an output's
+        columns)."""
+        m = n // self.size
+        return slice(self.rank * m, (self.rank + 1) * m)
+
+    def project_in(self, x, w, w_side=None):
+        """``x`` (B, K), every rank's, times the input projection ``w``
+        (this rank's columns, or under ``"contraction"`` its rows of the
+        contraction), and ``x`` times ``w_side`` (this rank's columns) where
+        given: ``(x @ w, x @ w_side)``, the first whole over this rank's
+        heads, the second this rank's columns."""
+        xc = _CopyToAxis.apply(x, self.group)
+        if self.mode == "contraction":
+            out = _ReduceOverAxis.apply(xc[:, self.block(x.shape[1])] @ w, self.group)
+        else:
+            out = xc @ w
+        return out, (None if w_side is None else xc @ w_side)
+
+    def project_out(self, h, w):
+        """The output projection of ``h`` (B, heads x hd): this rank's heads'
+        rows of ``w`` with the partial products all-reduced, or under
+        ``"contraction"`` every head times this rank's columns, all-gathered."""
+        if self.mode == "contraction":
+            return self.gather(_CopyToAxis.apply(h, self.group) @ w)
+        return _ReduceOverAxis.apply(h @ w, self.group)
+
+    def gather(self, x):
+        """Each rank's columns (the last dim) of ``x`` joined."""
+        return _GatherOverAxis.apply(x, self.group, self.rank, self.size)
+
+
+def _wait(t):
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(t) if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+class _ReduceOverAxis(torch.autograd.Function):
+    """The sum of every rank's partial ``x`` (an all-reduce); the gradient,
+    which every rank holds whole, passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return _wait(funcol.all_reduce(x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """``x``, which every rank holds, handed to a computation each rank does
+    a part of: the identity; the partial gradients all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        return _wait(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+class _GatherOverAxis(torch.autograd.Function):
+    """Every rank's columns of ``x`` joined along the last dim (an
+    all-gather); the gradient's own columns back."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.rank, ctx.n = rank, x.shape[-1]
+        # torch 2.13 renamed all_gather_tensor (deprecated there, the only
+        # one before it): the same all_gather_into_tensor either way
+        gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+        return _wait(gather(x.contiguous(), x.dim() - 1, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+def on_model_shards(fn: Callable, weights, states, *batched, mode: Optional[str],
+                    sliced: Callable[[Tuple[str, ...]], bool] = lambda path: False):
+    """``fn(local_weights, local_states, *local_batched, axis)`` on each
+    rank's shards of plain tensors, for a recurrent loop whose steps are too
+    small and too many to run as DTensor operations (xLSTM's token step, a
+    few hundred operations a token): every tensor of the ``batched`` trees
+    (batch leading) brought to batch over the DP axes and replicated over
+    TP; ``states``, a list of tuples of (B, heads, ...) tensors, batch over
+    the DP axes and, under ``mode="heads"``, heads over TP; every weight
+    gathered over the DP axes with its TP sharding kept (its gradient
+    partial over the DP axes the batch shards over, and over TP where
+    ``sliced(path)``: a weight every rank holds whole but multiplies a slice
+    of). ``axis`` is the ``ModelAxis`` of ``mode`` (None: every rank runs
+    the whole step). ``fn`` returns ``(states, *outputs)``, the outputs
+    batch-leading tensors replicated over TP, wrapped back on those
+    layouts."""
     from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
     leaves = [t for t in tree_flatten(batched)[0] if hasattr(t, "placements")]
     mesh, names, sizes = _mesh(leaves[0])
     b = leaves[0].shape[0]
     bp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=None)
-    rep = tuple(Replicate() for _ in names)
-    w_grad = tuple(Partial() if p != Replicate() else Replicate() for p in bp)
-    local_w = tree_map(lambda t: _to(t, rep).to_local(grad_placements=w_grad)
-                       if hasattr(t, "placements") else t, weights)
+    sp = _placements(names, sizes, batch_dim=0, batch=b, tp_dim=1 if mode == "heads" else None)
+
+    local_w = _map_with_path(lambda path, t: _gathered(t, bp, sliced(path)), weights)
+    local_s = tree_map(lambda t: _to(t, sp, mesh).to_local(), states)
     local_b = tree_map(lambda t: _to(t, bp, mesh).to_local() if isinstance(t, torch.Tensor) else t,
                        batched)
-    out = fn(local_w, *local_b)
-    flat, spec = tree_flatten(out)
-    return tree_unflatten([_wrap(t, mesh, bp, (b,) + tuple(t.shape[1:])) for t in flat], spec)
+    axis = ModelAxis(mesh, names, mode) if mode else None
+    new_states, *outs = fn(local_w, local_s, *local_b, axis)
+    wrap = lambda pl: lambda t: _wrap(t, mesh, pl, (b,) + tuple(t.shape[1:]))
+    flat, spec = tree_flatten(new_states)
+    head_shape = lambda t: (b, t.shape[1] * (_tp(sizes) if mode == "heads" else 1)) + tuple(t.shape[2:])
+    new_states = tree_unflatten([_wrap(t, mesh, sp, head_shape(t)) for t in flat], spec)
+    return (new_states, *tree_map(wrap(bp), outs))
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists (a list index is a
+    path entry too)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)

@@ -19,7 +19,12 @@ import torch
 from ..distributed import spmd
 from ..distributed.sharding import constrain_batch_dim, is_dtensor
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import DENSE_MAX_SEQ, attention_pairs, flash_attention
+from ..kernels.flash_attention import (
+    DENSE_MAX_SEQ,
+    attention_pairs,
+    flash_attention,
+    paged_chunk_attention,
+)
 from ..kernels.flash_attention_bwd import FlashAttentionFn
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -83,8 +88,16 @@ def attention_any(
     differentiates with the backward kernel; serving calls never do. On
     DTensors it runs on each rank's batch and heads (``distributed.spmd``),
     K/V first batch-sharded alone where the reference's chunked attention
-    constrains them so (keys past ``DENSE_MAX_SEQ`` outside a band)."""
+    constrains them so (keys past ``DENSE_MAX_SEQ`` outside a band); queries
+    sharded by sequence over the TP axis (a prefill whose heads do not
+    divide it, ``spmd.sequence_parallel``) attend over the gathered keys
+    from their positions (``_attention_from``)."""
     if is_dtensor(q):
+        if spmd.is_seq_sharded(q):
+            return spmd.seq_attention(
+                lambda q, k, v, lo: _attention_from(q, k, v, lo, causal=causal, window=window,
+                                                    scale=scale),
+                q, k, v)
         if k.shape[1] > DENSE_MAX_SEQ and attention_pairs(q.shape[1], k.shape[1], window) == q.shape[1] * k.shape[1]:
             k, v = constrain_batch_dim(k, 0), constrain_batch_dim(v, 0)
         return spmd.attention(
@@ -96,6 +109,25 @@ def attention_any(
     else:
         out = flash_attention(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
+
+
+def _attention_from(q, k, v, lo: int, *, causal: bool, window: int, scale: Optional[float]):
+    """Plain ``bshk`` queries at positions ``lo ..`` over keys at ``0 ..``
+    (a sequence shard's queries over every key, ``spmd.seq_attention``):
+    without a mask kernel 2's dense entry; causal, its paged-chunk entry,
+    whose rows start at a position, over a pool of one page a row (each
+    row's keys), as a chunk of a prompt attends over its slot."""
+    if not causal:
+        return attention_any(q, k, v, causal=False, scale=scale)
+    if window > 0 or torch.is_grad_enabled():
+        raise NotImplementedError("a sequence shard's queries attend causally without a window, "
+                                  "in a prefill")
+    b, sk = k.shape[:2]
+    pool = lambda t: t.permute(2, 0, 1, 3).contiguous()          # (KV, B pages, Sk, D)
+    row = lambda x: torch.full((b,), x, dtype=torch.int32, device=q.device)
+    tables = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+    return paged_chunk_attention(q.contiguous(), pool(k), pool(v), tables, row(lo), row(sk),
+                                 scale=scale)
 
 
 def decode_any(

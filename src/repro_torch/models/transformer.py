@@ -109,6 +109,10 @@ from .moe import moe_apply, moe_defs
 Params = Dict[str, Any]
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
 def scatter_lengths(
     length: torch.Tensor, slot_ids: torch.Tensor, values: torch.Tensor
 ) -> None:
@@ -281,30 +285,34 @@ class TransformerLM:
             return m_rope_tables(pos3, self.hd, cfg.rope_theta, cfg.m_rope_sections)
         return rope_tables(positions, self.hd, cfg.rope_theta)
 
-    def _qkv_block(self, x: torch.Tensor, lp: Params, kv_layout: str = "replicated"):
+    def _qkv_block(self, x: torch.Tensor, lp: Params, kv_layout: str = "replicated",
+                   grad_split: int = 1):
         """q/k/v projection (+ biases) + qk-norm: (B, S, D) → three ``bshk``
         tensors. On a mesh whose TP axis the KV heads do not divide, K/V
         are partitioned as GSPMD partitions the reference's: replicated over
-        it (a decode step's, a ring's), each rank's own KV heads
-        (``kv_layout="own"``, the training forward: ``spmd.gqa_kv``), or
-        every KV head of the rank's sequence shard (``"cache"``, a prefill
-        into a full cache: ``constrain_kv_for_cache`` of the input)."""
+        it (a decode step's), every KV head from TP shards of the
+        contraction (``"contract"``, a decode step's from FSDP weights:
+        ``spmd.contraction_split_proj``), each rank's own KV heads
+        (``kv_layout="own"``, the training forward, or ``"ring"``, a prefill
+        into a ring: ``spmd.gqa_kv``), or every KV head of the rank's
+        sequence shard (``"cache"``, a prefill into a full cache:
+        ``constrain_kv_for_cache`` of the input). Where the
+        query heads do not divide it, a prefill's block runs on sequence
+        shards (``x`` sharded so), and a training forward's weight gradients
+        split into ``grad_split`` FSDP blocks (``spmd.grad_split_proj``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = (x @ lp["wq"]).view(b, s, cfg.n_heads, self.hd)
-        if kv_layout == "own" and is_dtensor(x) and self._gqa_over_tp(x):
+        proj, kv_proj = self._projections(x, kv_layout, grad_split)
+        q = proj(x, lp["wq"]).view(b, s, cfg.n_heads, self.hd)
+        if kv_proj is None:
             # the rank's KV heads, their biases added
             k, v = (spmd.gqa_kv(x, lp[w], lp.get(bias), cfg.n_kv_heads, cfg.n_heads, self.hd)
                     for w, bias in (("wk", "bk"), ("wv", "bv")))
             if cfg.use_bias:
                 q = q + lp["bq"]
         else:
-            if kv_layout == "cache" and is_dtensor(x) and constrain_kv_for_cache(x, cfg.n_kv_heads) is not x:
-                proj = spmd.seq_sharded_proj
-            else:
-                proj = lambda x, w: x @ w
-            k = proj(x, lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
-            v = proj(x, lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
+            k = kv_proj(x, lp["wk"]).view(b, s, cfg.n_kv_heads, self.hd)
+            v = kv_proj(x, lp["wv"]).view(b, s, cfg.n_kv_heads, self.hd)
             if cfg.use_bias:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         if cfg.qk_norm:
@@ -312,13 +320,35 @@ class TransformerLM:
             k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
         return q, k, v
 
-    def _gqa_over_tp(self, x) -> bool:
-        sizes = dict(zip(x.device_mesh.mesh_dim_names, tuple(x.device_mesh.shape)))
-        return spmd.gqa_split(self.cfg.n_heads, self.cfg.n_kv_heads, sizes.get("model", 1)) is not None
+    def _projections(self, x: torch.Tensor, kv_layout: str, grad_split: int):
+        """``_qkv_block``'s q and K/V projections on ``x``'s layout (K/V
+        None: each rank's own KV heads, ``spmd.gqa_kv``)."""
+        if not is_dtensor(x):
+            return _matmul, _matmul
+        if spmd.is_seq_sharded(x):
+            # a sequence shard (``spmd.sequence_parallel``): K/V on the cache's layout
+            return spmd.seq_sharded_proj, spmd.seq_sharded_proj
+        if grad_split > 1:
+            split = lambda x, w: spmd.grad_split_proj(x, w, 0, grad_split)
+            return split, split
+        cfg, tp = self.cfg, spmd.tp_size(x)
+        if kv_layout in ("own", "ring") and spmd.gqa_split(cfg.n_heads, cfg.n_kv_heads, tp):
+            return _matmul, None
+        if kv_layout == "contract" and tp > 1 and cfg.n_kv_heads % tp:
+            return _matmul, spmd.contraction_split_proj
+        if kv_layout == "cache" and constrain_kv_for_cache(x, cfg.n_kv_heads) is not x:
+            return _matmul, spmd.seq_sharded_proj
+        return _matmul, _matmul
 
-    def _attn_out(self, attn: torch.Tensor, lp: Params) -> torch.Tensor:
+    def _attn_out(self, attn: torch.Tensor, lp: Params, grad_split: int = 1) -> torch.Tensor:
         b, s = attn.shape[:2]
-        out = attn.reshape(b, s, -1) @ lp["wo"]
+        attn = attn.reshape(b, s, -1)
+        if is_dtensor(attn) and spmd.is_seq_sharded(attn):
+            out = spmd.seq_sharded_proj(attn, lp["wo"])
+        elif grad_split > 1:
+            out = spmd.grad_split_proj(attn, lp["wo"], 1, grad_split)
+        else:
+            out = attn @ lp["wo"]
         if self.cfg.use_bias:
             out = out + lp["bo"]
         # on a mesh the residual stream stays batch-sharded and replicated
@@ -375,11 +405,12 @@ class TransformerLM:
         them from the leaves."""
         cfg = self.cfg
         lp = self._layer_view(blocks, l)
+        split = spmd.grad_split(layer_slice(blocks, l)["wq"], cfg.n_heads) if is_dtensor(h) else 1
         x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-        q, k, v = self._qkv_block(x, lp, "own")
+        q, k, v = self._qkv_block(x, lp, "own", split)
         q, k = apply_rope_tables(q, cos, sin), apply_rope_tables(k, cos, sin)
         attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
-        h, aux = self._ffn(constrain_batch_dim(h + self._attn_out(attn, lp), 0), lp)
+        h, aux = self._ffn(constrain_batch_dim(h + self._attn_out(attn, lp, split), 0), lp)
         return h, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=h.device)
 
     def forward(
@@ -450,12 +481,21 @@ class TransformerLM:
         if ring:
             pos_map = ring_positions_prefill(b, cache["k"].shape[2], len_vec)
         h = self._merge_patches(self._embed(tokens, params), patch_embeds)
+        # on a mesh whose TP axis the heads do not divide, the attention
+        # block runs on sequence shards (the cache's layout)
+        seq_par = not ring and is_dtensor(h) and spmd.sequence_parallel(h, cfg.n_heads, cache["k"][0])
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv_block(x, lp, "replicated" if ring else "cache")
+            if seq_par:
+                x = spmd.seq_shard(x)
+            q, k, v = self._qkv_block(x, lp, "ring" if ring else "cache")
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
-            if ring:
+            if ring and is_dtensor(k) and k.shape[2] != cfg.n_kv_heads:
+                # each rank's own KV heads: the ring's slots take every one
+                ring_cache_write_prefill(kc, vc, spmd.gqa_kv_heads(k, cfg.n_kv_heads, cfg.n_heads),
+                                         spmd.gqa_kv_heads(v, cfg.n_kv_heads, cfg.n_heads), pos_map)
+            elif ring:
                 ring_cache_write_prefill(kc, vc, k, v, pos_map)
             else:
                 # on a mesh the write's source takes the cache's layout
@@ -637,10 +677,13 @@ class TransformerLM:
             plan = full_token_plan(lengths, cache["k"].shape[2], active)
             kv_lens = new_lens
         h = self._embed(tokens[:, None], params)
+        # on a mesh, FSDP-sharded K/V weights whose heads do not divide the
+        # TP axis project over TP shards of the contraction
+        fsdp = is_dtensor(h) and spmd.fsdp_blocks(layer_slice(params["blocks"], 0)["wk"], 0) > 1
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv_block(x, lp)
+            q, k, v = self._qkv_block(x, lp, "contract" if fsdp else "replicated")
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
             write_token(kc, vc, k, v, plan)
             attn = decode_any(q[:, 0], kc, vc, kv_lens)

@@ -41,7 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..distributed.sharding import constrain_batch_dim, gather_fsdp
+from ..distributed import spmd
+from ..distributed.sharding import constrain_batch_dim, gather_fsdp, is_dtensor
 from .attention import attention_any, attention_cross, decode_any
 from .cache import full_cache_init, full_cache_shape, full_cache_write, full_token_plan, write_token
 from .layers import (
@@ -63,6 +64,17 @@ from .layers import (
 )
 
 Params = Dict[str, Any]
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, dim: int, split: int) -> torch.Tensor:
+    """``x @ w``; on a mesh a sequence shard's on each rank's rows, or with
+    the weight gradient split into ``split`` FSDP blocks of ``w``'s dim
+    ``dim`` (``spmd``)."""
+    if is_dtensor(x) and spmd.is_seq_sharded(x):
+        return spmd.seq_sharded_proj(x, w)
+    if split > 1:
+        return spmd.grad_split_proj(x, w, dim, split)
+    return x @ w
 
 
 class Whisper:
@@ -134,23 +146,30 @@ class Whisper:
     # ------------------------------------------------------------------ #
     # Blocks                                                              #
     # ------------------------------------------------------------------ #
-    def _q(self, x: torch.Tensor, lp: Params) -> torch.Tensor:
+    def _q(self, x: torch.Tensor, lp: Params, split: int = 1) -> torch.Tensor:
         b, s, _ = x.shape
         w = lp["wq"].reshape(self.cfg.d_model, -1)
-        return (x @ w).view(b, s, self.cfg.n_heads, self.hd) + lp["bq"]
+        return _proj(x, w, 0, split).view(b, s, self.cfg.n_heads, self.hd) + lp["bq"]
 
-    def _kv(self, x: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _kv(self, x: torch.Tensor, lp: Params, split: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         b, s, _ = x.shape
         kv, d = self.cfg.n_kv_heads, self.cfg.d_model
-        k = (x @ lp["wk"].reshape(d, -1)).view(b, s, kv, self.hd)
-        v = (x @ lp["wv"].reshape(d, -1)).view(b, s, kv, self.hd) + lp["bv"]
+        k = _proj(x, lp["wk"].reshape(d, -1), 0, split).view(b, s, kv, self.hd)
+        v = _proj(x, lp["wv"].reshape(d, -1), 0, split).view(b, s, kv, self.hd) + lp["bv"]
         return k, v
 
-    def _out(self, attn: torch.Tensor, lp: Params) -> torch.Tensor:
+    def _out(self, attn: torch.Tensor, lp: Params, split: int = 1) -> torch.Tensor:
         b, s = attn.shape[:2]
+        wo = lp["wo"].reshape(-1, self.cfg.d_model)
         # on a mesh the residual stream stays batch-sharded, replicated over TP
-        return constrain_batch_dim(
-            attn.reshape(b, s, -1) @ lp["wo"].reshape(-1, self.cfg.d_model) + lp["bo"], 0)
+        return constrain_batch_dim(_proj(attn.reshape(b, s, -1), wo, 1, split) + lp["bo"], 0)
+
+    def _grad_split(self, h: torch.Tensor, attn: Params) -> int:
+        """In a training forward on a mesh, the FSDP blocks the attention
+        weights' gradients split into (``spmd.grad_split``); else 1."""
+        if is_dtensor(h) and torch.is_grad_enabled():
+            return spmd.grad_split(attn["wq"], self.cfg.n_heads)
+        return 1
 
     def _norm(self, h: torch.Tensor, p: Params) -> torch.Tensor:
         return apply_norm(h, p, "layernorm", self.cfg.norm_eps)
@@ -159,25 +178,39 @@ class Whisper:
         out = mlp_apply(self._norm(h, lp["norm_mlp"]), lp["mlp"], "gelu")
         return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0)
 
-    def _enc_layer(self, h: torch.Tensor, stack: Params, i: int) -> torch.Tensor:
-        lp = tree_map(gather_fsdp, layer_slice(stack, i))
+    def _enc_layer(self, h: torch.Tensor, stack: Params, i: int, seq: bool = False) -> torch.Tensor:
+        """Encoder layer ``i``; with ``seq`` its attention block runs on
+        sequence shards over the TP axis (``spmd.sequence_parallel``)."""
+        raw = layer_slice(stack, i)
+        split = self._grad_split(h, raw["attn"])
+        lp = tree_map(gather_fsdp, raw)
         x = self._norm(h, lp["norm_attn"])
-        k, v = self._kv(x, lp["attn"])
-        h = constrain_batch_dim(h + self._out(attention_cross(self._q(x, lp["attn"]), k, v), lp["attn"]), 0)
+        if seq:
+            x = spmd.seq_shard(x)
+        k, v = self._kv(x, lp["attn"], split)
+        attn = attention_cross(self._q(x, lp["attn"], split), k, v)
+        h = constrain_batch_dim(h + self._out(attn, lp["attn"], split), 0)
         return self._mlp(h, lp)
 
     def _dec_layer(self, h: torch.Tensor, enc: torch.Tensor, stack: Params, i: int,
-                   kv_out: Optional[List] = None) -> torch.Tensor:
+                   kv_out: Optional[List] = None, seq: bool = False) -> torch.Tensor:
         """Decoder layer ``i`` over the whole prompt; ``kv_out`` collects
-        its self K/V and cross K/V (a prefill)."""
-        lp = tree_map(gather_fsdp, layer_slice(stack, i))
+        its self K/V and cross K/V (a prefill); with ``seq`` both attention
+        blocks run on sequence shards over the TP axis, the cross K/V on
+        the encoder's (the caches' layout)."""
+        raw = layer_slice(stack, i)
+        split = self._grad_split(h, raw["self_attn"])
+        lp = tree_map(gather_fsdp, raw)
         sa, ca = lp["self_attn"], lp["cross_attn"]
-        x = self._norm(h, lp["norm_self"])
-        k, v = self._kv(x, sa)
-        h = constrain_batch_dim(h + self._out(attention_any(self._q(x, sa), k, v, causal=True), sa), 0)
-        x = self._norm(h, lp["norm_cross"])
-        ck, cv = self._kv(enc, ca)
-        h = constrain_batch_dim(h + self._out(attention_cross(self._q(x, ca), ck, cv), ca), 0)
+        shard = spmd.seq_shard if seq else (lambda t: t)
+        x = shard(self._norm(h, lp["norm_self"]))
+        k, v = self._kv(x, sa, split)
+        attn = attention_any(self._q(x, sa, split), k, v, causal=True)
+        h = constrain_batch_dim(h + self._out(attn, sa, split), 0)
+        x = shard(self._norm(h, lp["norm_cross"]))
+        ck, cv = self._kv(shard(enc), ca, split)
+        attn = attention_cross(self._q(x, ca, split), ck, cv)
+        h = constrain_batch_dim(h + self._out(attn, ca, split), 0)
         if kv_out is not None:
             kv_out.append((k, v, ck, cv))
         return self._mlp(h, lp)
@@ -191,14 +224,16 @@ class Whisper:
     # ------------------------------------------------------------------ #
     # Encoder and decoder over whole sequences                            #
     # ------------------------------------------------------------------ #
-    def encode(self, params: Params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
-        """frames (B, S_enc, D) → encoder states (B, S_enc, D)."""
+    def encode(self, params: Params, frames: torch.Tensor, remat: bool = False,
+               seq: bool = False) -> torch.Tensor:
+        """frames (B, S_enc, D) → encoder states (B, S_enc, D); ``seq`` as
+        in ``_enc_layer``."""
         b, s, d = frames.shape
         pos = sinusoidal_positions(s, d, frames.device).to(self.dtype)
         h = frames.to(self.dtype) + pos[None]
         run = self._run(remat)
         for i in range(self.cfg.encoder_layers):
-            h = run(self._enc_layer, h, params["encoder"], i)
+            h = run(self._enc_layer, h, params["encoder"], i, seq)
         return self._norm(h, params["norm_enc_final"])
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -275,12 +310,17 @@ class Whisper:
         if patch_embeds is None:
             raise ValueError("whisper prefill needs frame embeddings")
         b, s = tokens.shape
-        enc = self.encode(params, patch_embeds)
+        # on a mesh whose TP axis the heads do not divide, the attention
+        # blocks run on sequence shards (the caches' layout)
+        n_heads, sc = self.cfg.n_heads, cache["self"]
+        enc_seq = is_dtensor(patch_embeds) and spmd.sequence_parallel(
+            patch_embeds, n_heads, cache["cross_k"][0])
+        enc = self.encode(params, patch_embeds, seq=enc_seq)
         h = self._embed(params, tokens)
+        dec_seq = enc_seq and spmd.sequence_parallel(h, n_heads, sc["k"][0])
         kvs: List = []
         for i in range(self.cfg.n_layers):
-            h = self._dec_layer(h, enc, params["decoder"], i, kvs)
-        sc = cache["self"]
+            h = self._dec_layer(h, enc, params["decoder"], i, kvs, dec_seq)
         for i, (k, v, ck, cv) in enumerate(kvs):
             full_cache_write(sc["k"][i], sc["v"][i], k, v, 0)
             cache["cross_k"][i].copy_(ck)

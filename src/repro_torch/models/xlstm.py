@@ -33,8 +33,10 @@ width-4 convs of the paper's blocks are omitted as in the reference.
 * On a mesh (the dry-run's DTensors) the training forward's zero state is
   batch-sharded (``sharding.batch_zeros``, the reference's
   ``constrain_batch_dim``), and the token loops (a training chunk, a
-  prefill, a decode step) run on each rank's batch shard with the pair
-  weights gathered (``spmd.on_batch_shards``).
+  prefill, a decode step) run as local forms on each rank's batch shard,
+  partitioned over the TP axis as GSPMD partitions the reference's steps:
+  by heads where they divide it, else by the projections' contraction and
+  columns (``_on_shards``, ``spmd.on_model_shards``).
 """
 from __future__ import annotations
 
@@ -152,26 +154,44 @@ class XLSTM:
 
     def _pair_view(self, pairs: Params, i: int) -> Params:
         """Pair ``i``'s float32 weights with the joined projections."""
-        p = layer_slice(pairs, i)
+        return self._join(layer_slice(pairs, i))
+
+    def _join(self, p: Params, axis=None) -> Params:
+        """A pair's float32 weights ``p`` with the joined projections; with a
+        ``spmd.ModelAxis``, this rank's shards (its heads, or under
+        ``"contraction"`` its rows of the input projections and columns of
+        the output projections) and the output gate apart (``m_gate``, its
+        columns)."""
         mp, sp = p["mlstm"], p["slstm"]
-        d, hd = self.cfg.d_model, self.hd
+        d = self.cfg.d_model
         flat = lambda w: w.float().reshape(d, -1)
-        return {
+        m_in = ("wq", "wk", "wv", "wif") + (() if axis else ("wgate",))
+        view = {
             "m_norm": mp["norm"],
-            "m_in": torch.cat([flat(mp[w]) for w in ("wq", "wk", "wv", "wif", "wgate")], dim=1),
+            "m_in": torch.cat([flat(mp[w]) for w in m_in], dim=1),
             "m_out": mp["wout"].float().reshape(-1, d),
             "s_norm": sp["norm"],
             "s_in": torch.cat([flat(sp[w]) for w in ("wz", "wi", "wf", "wo")], dim=1),
             "s_rec": torch.cat([sp[r].float() for r in ("rz", "ri", "rf", "ro")], dim=-1),
             "s_out": sp["wout"].float().reshape(-1, d),
         }
+        if axis is not None:
+            view["m_gate"] = flat(mp["wgate"])
+            if axis.mode == "contraction":
+                rows, cols = axis.block(d), axis.block(d)
+                view.update(m_in=view["m_in"][rows], s_in=view["s_in"][rows],
+                            m_out=view["m_out"][:, cols], s_out=view["s_out"][:, cols])
+        return view
 
     def _build_views(self, pairs: Params) -> List[Params]:
         return [self._pair_view(pairs, i) for i in range(self.n_pairs)]
 
     def _views(self, params: Params) -> List[Params]:
         """The pairs' views: built on every call where autograd records,
-        else the serving cache."""
+        else the serving cache; on DTensors each pair's own weights, which
+        ``_on_shards`` joins on each rank."""
+        if is_dtensor(params["norm_final"]["scale"]):
+            return [layer_slice(params["pairs"], i) for i in range(self.n_pairs)]
         if records_grad(params):
             return self._build_views(params["pairs"])
         return self._cached(params["pairs"])
@@ -222,44 +242,82 @@ class XLSTM:
     # One full-depth step for one token                                   #
     # ------------------------------------------------------------------ #
     def _token_step(self, views: List[Params], states: List[State],
-                    x: torch.Tensor) -> Tuple[List[State], torch.Tensor]:
-        """x: (B, D) one token's hidden; returns (new states, y (B, D))."""
+                    x: torch.Tensor, axis=None) -> Tuple[List[State], torch.Tensor]:
+        """x: (B, D) one token's hidden; returns (new states, y (B, D)).
+        With a ``spmd.ModelAxis`` (``_on_shards``) the views and states are
+        a rank's, and the projections run through the axis."""
         cfg, hd = self.cfg, self.hd
-        b, H = x.shape[0], cfg.n_heads
+        b, H = x.shape[0], states[0][2].shape[1]     # the heads the states hold
         nq = H * hd
         h, out_states = x, []
         for v, (mC, mn, mm, sc, sn, sh, sm) in zip(views, states):
             # --- mLSTM block ------------------------------------------ #
             xn = apply_norm(h, v["m_norm"], cfg.norm_kind, cfg.norm_eps).float()
-            proj = xn @ v["m_in"]
+            if axis is None:
+                proj = xn @ v["m_in"]
+            else:
+                proj, gate = axis.project_in(xn, v["m_in"], v["m_gate"])
             q = proj[:, :nq].reshape(b, H, hd)
             k = proj[:, nq:2 * nq].reshape(b, H, hd) / (hd ** 0.5)
             val = proj[:, 2 * nq:3 * nq].reshape(b, H, hd)
             gates = proj[:, 3 * nq:3 * nq + 2 * H].reshape(b, H, 2)
             (mC, mn, mm), hm = mlstm_cell((mC, mn, mm), q, k, val, gates[..., 0], gates[..., 1])
-            gate = F.silu(proj[:, 3 * nq + 2 * H:])
-            out = (hm.reshape(b, nq) @ v["m_out"]) * gate
+            if axis is None:
+                gate = F.silu(proj[:, 3 * nq + 2 * H:])
+                out = (hm.reshape(b, nq) @ v["m_out"]) * gate
+            else:
+                out = axis.project_out(hm.reshape(b, nq), v["m_out"]) * axis.gather(F.silu(gate))
             h = h + out.to(h.dtype)
             # --- sLSTM block ------------------------------------------ #
             xn = apply_norm(h, v["s_norm"], cfg.norm_kind, cfg.norm_eps).float()
             rec = torch.einsum("bhk,hkj->bhj", sh, v["s_rec"])            # (B, H, 4 hd)
-            pre = xn @ v["s_in"]
+            pre = xn @ v["s_in"] if axis is None else axis.project_in(xn, v["s_in"])[0]
             gate_pre = [pre[:, j * nq:(j + 1) * nq].reshape(b, H, hd) + rec[..., j * hd:(j + 1) * hd]
                         for j in range(4)]
             (sc, sn, sh, sm), hs = slstm_cell((sc, sn, sh, sm), *gate_pre)
-            out = hs.reshape(b, nq) @ v["s_out"]
+            if axis is None:
+                out = hs.reshape(b, nq) @ v["s_out"]
+            else:
+                out = axis.project_out(hs.reshape(b, nq), v["s_out"])
             h = h + out.to(h.dtype)
             out_states.append((mC, mn, mm, sc, sn, sh, sm))
         return out_states, h
 
-    def _chunk(self, views, states, x):
+    #: the weights every rank holds whole but multiplies a slice of when the
+    #: heads do not divide the TP axis (their gradients partial over it)
+    SLICED = frozenset(("wq", "wk", "wv", "wif", "wz", "wi", "wf", "wo", "wout"))
+
+    def _on_shards(self, fn, views, states, *batched):
+        """``fn(views, states, *batched, axis)`` on each rank's shards of
+        DTensors (``spmd.on_model_shards``), as GSPMD partitions the
+        reference's steps: each rank its batch shard's heads where the heads
+        divide the TP axis (its shards of every head-wise weight, the
+        output gate by its columns, the output projections row-parallel);
+        else every head on every rank, the input projections split over the
+        contraction and the output projections and gate over their
+        columns."""
+        cfg = self.cfg
+        tp = spmd.tp_size(batched[0])
+        mode = None
+        if tp > 1:
+            mode = "heads" if cfg.n_heads % tp == 0 else "contraction" if cfg.d_model % tp == 0 else None
+
+        def local(views, states, *rest):
+            *batched, axis = rest
+            return fn([self._join(p, axis) for p in views], states, *batched, axis)
+
+        return spmd.on_model_shards(
+            local, views, states, *batched, mode=mode,
+            sliced=lambda path: mode == "contraction" and path[-1] in self.SLICED)
+
+    def _chunk(self, views, states, x, axis=None):
         """The token step over x (B, T, D): (final states, y (B, T, D)). On
-        DTensors each rank runs its batch shard (``spmd.on_batch_shards``)."""
+        DTensors each rank runs its shards (``_on_shards``)."""
         if is_dtensor(x):
-            return spmd.on_batch_shards(self._chunk, views, states, x)
+            return self._on_shards(self._chunk, views, states, x)
         ys = []
         for t in range(x.shape[1]):
-            states, y = self._token_step(views, states, x[:, t])
+            states, y = self._token_step(views, states, x[:, t], axis)
             ys.append(y)
         return states, torch.stack(ys, dim=1)
 
@@ -327,17 +385,17 @@ class XLSTM:
         h_last = apply_norm(h_last, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
         return unembed(h_last, params["embed"]).float(), cache
 
-    def _prefill_loop(self, views, states, emb, len_vec):
+    def _prefill_loop(self, views, states, emb, len_vec, axis=None):
         """The token step over the prompts ``emb`` (B, S, D), each slot's
         state frozen once t >= its length: (final states, the hidden of
         each slot's last real token). On DTensors each rank runs its batch
         shard."""
         if is_dtensor(emb):
-            return spmd.on_batch_shards(self._prefill_loop, views, states, emb, len_vec)
+            return self._on_shards(self._prefill_loop, views, states, emb, len_vec)
         b, s = emb.shape[:2]
         h_last = torch.zeros((b, self.cfg.d_model), dtype=self.dtype, device=emb.device)
         for t in range(s):
-            new, y = self._token_step(views, states, emb[:, t])
+            new, y = self._token_step(views, states, emb[:, t], axis)
             live = t < len_vec                                         # (B,)
             states = [tuple(torch.where(live.view((b,) + (1,) * (x.dim() - 1)), x, old)
                             for x, old in zip(st_new, st_old))
@@ -355,7 +413,7 @@ class XLSTM:
         x = embed_tokens(tokens, params["embed"]).to(self.dtype)
         views, states = self._views(params), self._states(cache)
         if is_dtensor(x):
-            states, h = spmd.on_batch_shards(self._token_step, views, states, x)
+            states, h = self._on_shards(self._token_step, views, states, x)
         else:
             states, h = self._token_step(views, states, x)
         self._store(cache, states)

@@ -10,10 +10,8 @@ kind (a train step, a prefill, a decode step) over a fake world of 8
 * argument bytes a device equal the reference's
   ``memory_analysis().argument_size_in_bytes`` for the same cell and mesh,
   but for the arguments XLA's buffer assignment leaves out because the
-  reference's step never reads them: the cache leaves a prefill replaces
-  whole (every ``length``, a ring's K/V and positions, Whisper's cross K/V)
-  and, in Whisper's decode step, the encoder's parameters and the cross
-  attention's K/V projections (the cross K/V come from the cache);
+  reference's step never reads them (``torch_port_dryrun.
+  unread_by_the_reference``);
 * the registered FLOPs a device (dots and the kernels' ops) are within 2%
   of the reference's HLO dot FLOPs, summed through
   ``repro.launch.hlo_analysis``'s parser and loop trip counts, but for
@@ -24,100 +22,35 @@ kind (a train step, a prefill, a decode step) over a fake world of 8
 * a train step's collective bytes are above 0.
 
 The reference's side runs in one subprocess on 8 fake XLA devices, started
-before the port's traces so that the two overlap. The command line writes
-``experiments/dryrun_torch/`` (here a temporary directory).
+before the port's traces so that the two overlap (``torch_port_dryrun``).
+The command line writes ``experiments/dryrun_torch/`` (here a temporary
+directory). The other archs, and the mesh whose model axis is wider than
+the heads, are in ``test_torch_dryrun_archs.py``.
 """
 import json
-import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import pytest
 import torch.distributed as dist
-from torch.utils._pytree import tree_flatten_with_path
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.shapes import ShapeCell
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world, make_mesh
 from repro_torch.launch.plan import plan_for
+from torch_port_dryrun import BATCH, cells_for, reference_results, start_reference, stop, trace_cells
 
-ROOT = Path(__file__).resolve().parents[1]
 FAMILIES = ("qwen3_8b", "olmoe_1b_7b", "qwen2_vl_7b", "recurrentgemma_9b", "whisper_small")
-KINDS = {"train_4k": ("train", 32), "prefill_32k": ("prefill", 32), "decode_32k": ("decode", 64)}
-BATCH = 8
-CELLS = [(a, n, k, s, BATCH) for a in FAMILIES for n, (k, s) in KINDS.items()]
+CELLS = cells_for(FAMILIES)
 #: the port's FLOP count over the reference's, where a cell's differs by design
 FLOP_TOLERANCE = {("recurrentgemma_9b", "train_4k"): 0.03}
-
-REF_SCRIPT = textwrap.dedent("""
-    import json, re, sys
-    import jax, numpy as np
-    from jax.sharding import Mesh
-    from repro.configs import get_smoke_config
-    from repro.configs.shapes import ShapeCell
-    from repro.launch import dryrun, hlo_analysis as ha
-    from repro.launch.plan import plan_for
-
-    def dot_flops(text):
-        comps, entry = ha.parse_hlo(text)
-        total = [0.0]
-        def walk(name, mult, stack=()):
-            comp = comps.get(name)
-            if comp is None or name in stack:
-                return
-            stack = stack + (name,)
-            for op_name in comp.order:
-                op = comp.ops[op_name]
-                oc = op.opcode
-                if oc == "while":
-                    m = re.search(r"condition=%?([\\w.\\-]+)", op.line)
-                    b = re.search(r"body=%?([\\w.\\-]+)", op.line)
-                    trips = ha._trip_count(comps, m.group(1)) if m else 1.0
-                    if b:
-                        walk(b.group(1), mult * trips, stack)
-                    continue
-                if oc in ("fusion", "call", "custom-call", "conditional", "async-start", "map",
-                          "reduce", "reduce-window", "sort", "scatter", "select-and-scatter"):
-                    for cm in ha._ATTR_CALLS.finditer(op.line):
-                        walk(cm.group(1), mult, stack)
-                if oc == "dot":
-                    total[0] += mult * ha._dot_flops(comp, op)
-        walk(entry, 1.0)
-        return total[0]
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
-    out = {}
-    for arch, name, kind, seq, batch in json.loads(sys.argv[1]):
-        cfg = get_smoke_config(arch)
-        dryrun.get_config = lambda a, cfg=cfg: cfg
-        plan = plan_for(arch, name, False, {"microbatches": 1})
-        fn, args, shards, outs, donate = dryrun.build_cell(
-            arch, ShapeCell(name, seq, batch, kind), mesh, plan)
-        with mesh:
-            comp = jax.jit(fn, in_shardings=shards, out_shardings=outs,
-                           donate_argnums=donate).lower(*args).compile()
-        out[f"{arch}/{name}"] = {
-            "argument_bytes": int(comp.memory_analysis().argument_size_in_bytes),
-            "dot_flops": dot_flops(comp.as_text()),
-        }
-    print(json.dumps(out))
-    print("OK")
-""")
 
 
 @pytest.fixture(scope="module")
 def reference_proc():
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT, json.dumps(CELLS)], cwd=ROOT,
-                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = start_reference(CELLS, (2, 4))
     yield proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    stop(proc)
 
 
 @pytest.fixture(scope="module")
@@ -127,46 +60,14 @@ def mesh():
     dist.destroy_process_group()
 
 
-def _unread_by_the_reference(arch: str, kind: str, args) -> int:
-    """Bytes a device of the arguments the reference's step never reads."""
-    total = 0
-    for path, t in tree_flatten_with_path(args)[0]:
-        keys = [getattr(p, "key", getattr(p, "idx", None)) for p in path]
-        names = [k for k in keys if isinstance(k, str)]
-        local = t._local_tensor
-        n = local.numel() * local.element_size()
-        if kind == "prefill" and keys[0] == 2 and (
-                names[-1] in ("length", "pos", "cross_k", "cross_v") or names[0] == "attn"):
-            total += n
-        if kind == "decode" and arch == "whisper_small" and keys[0] == 0 and (
-                names[0] in ("encoder", "norm_enc_final")
-                or names[1:] in (["cross_attn", "wk"], ["cross_attn", "wv"], ["cross_attn", "bv"])):
-            total += n
-    return total
-
-
 @pytest.fixture(scope="module")
 def port(mesh, reference_proc):
-    out = {}
-    for arch, name, kind, seq, batch in CELLS:
-        cell = ShapeCell(name, seq, batch, kind)
-        plan = plan_for(arch, name, False, {"microbatches": 1})
-        step, args, fake = dryrun.build_cell(arch, cell, mesh, plan, cfg=get_smoke_config(arch))
-        r = dryrun.trace_step(step, args, fake)
-        r["unread"] = _unread_by_the_reference(arch, kind, args)
-        out[f"{arch}/{name}"] = r
-    return out
+    return trace_cells(CELLS, mesh)
 
 
 @pytest.fixture(scope="module")
 def reference(reference_proc):
-    try:
-        stdout, stderr = reference_proc.communicate(timeout=300)
-    except subprocess.TimeoutExpired:
-        reference_proc.kill()
-        pytest.fail("the reference's subprocess ran past 300 s")
-    assert reference_proc.returncode == 0 and "OK" in stdout, stderr[-3000:]
-    return json.loads(stdout.splitlines()[-2])
+    return reference_results(reference_proc)
 
 
 @pytest.mark.parametrize("cell", [f"{a}/{n}" for a, n, *_ in CELLS])

@@ -241,3 +241,129 @@ def wide_vocab_dp(rank, world, params_file, out):
             run.append(float(m["loss"]))
         losses["compressed" if compress else "plain"] = run
     torch.save(losses, Path(out) / "wide_vocab.pt")
+
+
+# --------------------------------------------------------------------------- #
+# The models on DTensors against plain tensors (test_torch_spmd_values.py)    #
+# --------------------------------------------------------------------------- #
+VALUES_B, VALUES_S, VALUES_CACHE = 8, 16, 24
+
+
+def _values_inputs(cfg, rng):
+    """The global batch (train) and prompts (serve) of the values test."""
+    b, s, d = VALUES_B, VALUES_S, cfg.d_model
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
+    batch.update(extra)
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b,)).astype(np.int32))
+    return batch, extra, step
+
+
+def _serve(model, params, tokens, extra, step):
+    """Prefill ``tokens`` into a fresh cache, then one decode step of
+    ``step``: the two logits."""
+    if model.cfg.family == "audio":
+        cache = model.cache_init(VALUES_B, VALUES_CACHE, enc_len=VALUES_S)
+        prefill, _ = model.prefill(params, tokens, cache, patch_embeds=extra["frames"])
+    else:
+        cache = model.cache_init(VALUES_B, VALUES_CACHE)
+        prefill, _ = model.prefill(params, tokens, cache)
+    decode, _ = model.decode_step(params, step, cache)
+    return prefill, decode
+
+
+def _on_mesh(tree, specs, mesh):
+    return {k: _on_mesh(v, specs[k], mesh) for k, v in tree.items()} if isinstance(tree, dict) \
+        else distribute(tree, mesh, specs)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def spmd_values(rank, world, mesh_shape, archs, fsdp_at_serve, out):
+    """Each arch's float32 smoke model on DTensors over a ``mesh_shape``
+    (data x model) mesh of the world — the training loss and every
+    gradient (the dry-run's plan: FSDP weights, remat), a prefill's logits
+    and the next decode step's (TP-only weights, FSDP for the archs in
+    ``fsdp_at_serve``) — against the same model run on plain tensors in this
+    process (plain tensors a step makes itself taken as replicated, as the
+    dry-run takes them). Rank 0 writes ``values_<mesh>.json``: the loss's absolute
+    error, each gradient leaf's largest error over its largest magnitude
+    (the worst leaf), and the logits' largest absolute errors."""
+    import json
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed.sharding import input_specs_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.plan import plan_for
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"), "cpu")
+    results = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        plain, sharded = get_model(cfg, device="cpu"), get_model(cfg, device="cpu")
+        params = plain.init_params(0)
+        defs = plain.param_defs()
+        batch, extra, step = _values_inputs(cfg, np.random.default_rng(0))
+        r = {}
+
+        # training: loss and gradients
+        scfg = plan_for(arch, "train_4k")["sharding"]
+        specs = build_param_specs(abstract_params(defs), logical_specs(defs), mesh, scfg)
+        _, in_specs = input_specs_for(cfg, ShapeCell("train", VALUES_S, VALUES_B, "train"), mesh, scfg)
+        grads = tree_map(torch.zeros_like, params)
+        loss = _value_and_grad(plain, _copy(params), batch, True, grads)
+        dparams = _on_mesh(params, specs, mesh)
+        dgrads = tree_map(torch.zeros_like, dparams)
+        dbatch = {k: distribute(v, mesh, in_specs.get(k, ())) for k, v in batch.items()}
+        with implicit_replication():
+            dloss = _value_and_grad(sharded, dparams, dbatch, True, dgrads)
+        r["loss"] = abs(float(_full(dloss)) - float(loss))
+        worst = (0.0, "")
+        full_grads = dict(_leaves(tree_map(_full, dgrads)))
+        for path, g in _leaves(grads):
+            err = float((full_grads[path] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            worst = max(worst, (err, "/".join(path)))
+        r["grad"], r["grad_leaf"] = worst
+
+        # serving: a prefill and the next decode step
+        scfg = plan_for(arch, "prefill_32k")["sharding"]
+        if arch in fsdp_at_serve:
+            scfg = dataclasses.replace(scfg, fsdp_weights=True)
+        specs = build_param_specs(abstract_params(defs), logical_specs(defs), mesh, scfg)
+        with torch.no_grad():
+            want = _serve(plain, params, batch["tokens"], extra, step)
+        sharded.cache_init = _sharded_cache(sharded, mesh, scfg)
+        _, in_specs = input_specs_for(cfg, ShapeCell("prefill", VALUES_S, VALUES_B, "prefill"),
+                                      mesh, scfg)
+        dextra = {k: distribute(v, mesh, in_specs["frames"]) for k, v in extra.items()}
+        dtokens = distribute(batch["tokens"], mesh, in_specs["tokens"])
+        dstep = distribute(step, mesh, ("data",) if VALUES_B % mesh_shape[0] == 0 else ())
+        with implicit_replication():
+            got = _serve(sharded, _on_mesh(params, specs, mesh), dtokens, dextra, dstep)
+        r["prefill"], r["decode"] = (float((_full(g) - w).abs().max()) for g, w in zip(got, want))
+        results[arch] = r
+    if rank == 0:
+        (Path(out) / f"values_{mesh_shape[0]}x{mesh_shape[1]}.json").write_text(json.dumps(results))
+
+
+def _sharded_cache(model, mesh, scfg):
+    """``model.cache_init`` on ``mesh``: each leaf zeros (the plain init's),
+    distributed under ``build_cache_specs``."""
+    from repro_torch.distributed.sharding import build_cache_specs
+
+    init = model.cache_init
+
+    def cache_init(*a, **k):
+        cache = init(*a, **k)
+        specs = build_cache_specs(tree_map(lambda t: tuple(t.shape), cache), mesh, scfg,
+                                  model.cfg.n_kv_heads)
+        return _on_mesh(cache, specs, mesh)
+
+    return cache_init
