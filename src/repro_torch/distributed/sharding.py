@@ -372,15 +372,38 @@ class _GradLayout(torch.autograd.Function):
 def constrain_batch_dim(x, batch_dim: int = 1):
     """Batch dim → the DP axes, every other dim replicated, where the batch
     divides the DP grid (the reference's constraint on state a model
-    creates inside itself and on its embeddings)."""
+    creates inside itself and on its embeddings). Where it does not (a
+    batch of one), the reference sets no constraint; the port reduces a
+    pending partial sum once (left partial, DTensor would reduce it again at
+    each of its uses), and a row split over the DP axes by its last dim
+    (the output of a product over FSDP-sharded columns) stays split, as the
+    reference's residual stream does (``spmd.split_rms_norm``)."""
     if not is_dtensor(x):
         return x
     sizes, dp, _ = _mesh_axes(x)
     if not dp or x.ndim <= batch_dim or x.shape[batch_dim] % math.prod(sizes[a] for a in dp):
-        return x
+        from torch.distributed.tensor import Replicate
+
+        names = list(sizes)
+        last = lambda p: p.is_shard() and p.dim in (-1, x.ndim - 1)
+        want = tuple(Replicate() if p.is_partial() or (names[i] in dp and not last(p)) else p
+                     for i, p in enumerate(x.placements))
+        return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
     spec = [None] * x.ndim
     spec[batch_dim] = _dp_entry(dp)
     return constrain(x, tuple(spec))
+
+
+def constrain_rows(x):
+    """``constrain_batch_dim(x, 0)``, but a DTensor whose sequence (dim 1)
+    shards over the TP axis (a prefill's sequence shards,
+    ``spmd.sequence_parallel``) keeps it: the block's rows stay on their
+    rank through the residual stream."""
+    if is_dtensor(x) and x.ndim > 1 and "model" in x.device_mesh.mesh_dim_names:
+        p = x.placements[x.device_mesh.mesh_dim_names.index("model")]
+        if p.is_shard() and p.dim == 1:
+            return x
+    return constrain_batch_dim(x, 0)
 
 
 def set_sequence_parallel(on: bool) -> None:
@@ -453,8 +476,11 @@ def constrain_rnn(x):
 def gather_fsdp(w):
     """A weight's FSDP all-gather: its DP-axis shards replicated, its TP
     sharding kept (what GSPMD inserts before a weight's first use, and a
-    reduce-scatter of its gradient after the backward). The identity on a
-    plain tensor."""
+    reduce-scatter of its gradient after the backward). Shards of one dim
+    over several DP axes (``("pod", "data")``) are gathered in one
+    collective over their joint group, as GSPMD gathers them (DTensor would
+    gather axis by axis, moving 1.5x the elements). The identity on a plain
+    tensor."""
     if not is_dtensor(w):
         return w
     from torch.distributed.tensor import Replicate
@@ -464,7 +490,37 @@ def gather_fsdp(w):
                  for i, p in enumerate(w.placements))
     if tuple(w.placements) == want:
         return w
+    dp = [n for n, p in zip(names, w.placements) if n in ("pod", "data") and p.is_shard()]
+    dims = {p.dim for n, p in zip(names, w.placements) if n in dp}
+    if len(dp) > 1 and len(dims) == 1 and dp == [n for n in names if n in ("pod", "data")]:
+        return _JointGather.apply(w, want, dims.pop(), dp)
     return w.redistribute(w.device_mesh, want)
+
+
+class _JointGather(torch.autograd.Function):
+    """``w``'s shards of ``dim`` over the DP axes ``dp`` all-gathered over
+    their joint (flattened) group, on placements ``want``; the gradient
+    reduce-scattered back to ``w``'s placements."""
+
+    @staticmethod
+    def forward(ctx, w, want, dim, dp):
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor
+
+        ctx.placements = tuple(w.placements)
+        mesh = w.device_mesh
+        with unset_fake_temporarily():        # the mesh's rank table is a real tensor
+            group = mesh[tuple(dp)]._flatten()
+        gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+        full = gather(w.to_local().contiguous(), dim, group)
+        if isinstance(full, funcol.AsyncCollectiveTensor):
+            full = funcol.wait_tensor(full)
+        return DTensor.from_local(full, mesh, want, run_check=False, shape=w.shape, stride=w.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None, None, None
 
 
 def batch_zeros(like, shape: Tuple[int, ...], dtype: torch.dtype, batch_dim: int = 0):

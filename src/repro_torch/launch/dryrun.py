@@ -19,7 +19,7 @@ For each cell it records, in the reference's schema:
                 (temp = peak - arguments; outputs that are arguments
                 updated in place alias them)
     cost        FLOPs and transcendentals a device
-    collectives bytes and count by kind; collective_bytes_total
+    collectives bytes, count and elements by kind; collective_bytes_total
 
 plus ``peak_bytes``, ``trace_s`` and ``op_calls`` (the kernels' custom-op
 calls), to ``experiments/dryrun_torch/<arch>__<cell>__<mesh>.json``, which
@@ -247,6 +247,7 @@ def trace_step(step: Callable[[], Any], args, fake: FakeArgs) -> dict:
             "flops": totals.flops,
             "transcendentals": totals.transcendentals,
             "registered_flops": totals.registered_flops,
+            "registered_by_op": dict(totals.registered_by_op),
         },
         "collectives": totals.as_dict()["collectives"],
         "collective_bytes_total": totals.total_collective_bytes,

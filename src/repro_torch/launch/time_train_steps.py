@@ -9,11 +9,12 @@ checkouts in turns (parent, this, this, parent) on one card to compare
 them. Each arch trains at ``chip_smoke.py``'s phase-train shape (random
 bf16 weights from seed 0, remat, AdamW): Whisper-small 8 x 256 and
 xLSTM-350M 4 x 128 (both host-paced: the host's launch rate sets their
-step), Qwen3-8B at 12 of 36 layers 2 x 2048 in two microbatches. It
-prints one JSON object with the checkout, the card (``nvidia-smi`` name
-and power limit) and each arch's step ms (every step, the first one
-warming the allocator and cuBLAS). Needs a CUDA device and the CUDA
-toolkit.
+step), Qwen3-8B at 12 of 36 layers 2 x 2048 in two microbatches,
+RecurrentGemma-9B at 8 of 38 layers 1 x 4096. It prints one JSON object
+with the checkout, the card (``nvidia-smi`` name and power limit) and each
+arch's step ms (every step, the first one warming the allocator and
+cuBLAS) and peak GiB (``max_memory_allocated`` over its steps). Needs a
+CUDA device and the CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from pathlib import Path
 
 #: arch: (layers kept or None for all, batch, seq, microbatches)
 SHAPES = {"whisper_small": (None, 8, 256, 1), "xlstm_350m": (None, 4, 128, 1),
-          "qwen3_8b": (12, 2, 2048, 2)}
+          "qwen3_8b": (12, 2, 2048, 2), "recurrentgemma_9b": (8, 1, 4096, 1)}
 
 
 def main(argv=None) -> int:
@@ -51,7 +52,7 @@ def main(argv=None) -> int:
     build.build_all()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    out = {}
+    out, peak = {}, {}
     for arch in args.arch:
         layers, batch, seq, mb = SHAPES[arch]
         cfg = get_config(arch)
@@ -62,6 +63,7 @@ def main(argv=None) -> int:
         opt = adamw_init(params)
         step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2), microbatches=mb, remat=True)
         data = synthetic_batches(cfg, TrainConfig(steps=args.steps, batch=batch, seq=seq), "cuda")
+        torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(args.steps):
             b = next(data)
@@ -71,9 +73,11 @@ def main(argv=None) -> int:
             float(metrics["loss"])
             times.append(1e3 * (time.perf_counter() - t0))
         out[arch] = [round(t, 1) for t in times]
+        peak[arch] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
         del model, params, opt, step
         torch.cuda.empty_cache()
-    print(json.dumps({"src": str(Path(args.src).resolve()), "card": card, "step_ms": out}))
+    print(json.dumps({"src": str(Path(args.src).resolve()), "card": card, "step_ms": out,
+                      "peak_gib": peak}))
     return 0
 
 

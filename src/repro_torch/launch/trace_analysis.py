@@ -11,11 +11,15 @@ is in the reference) and counts
     (mm, bmm, addmm, baddbmm and what einsum lowers to) and the kernels'
     custom ops through the formulas their modules register
     (``registered_flops``, equal to ``FlopCounterMode``'s total over the
-    same step); elementwise, transcendental and reduction ops with the
+    same step but for products over a contraction of size 1 — an outer
+    product, such as the gradient of a matrix-vector product — which XLA
+    rewrites to a multiply and the trace counts so); elementwise, transcendental and reduction ops with the
     classes and weights of ``hlo_analysis`` (one FLOP an output element, a
     transcendental also counted as such, a reduction one FLOP an input
     element), composites by what XLA lowers them to;
-  * collectives by kind, with their result buffers' bytes: the functional
+  * collectives by kind, with their result buffers' bytes and elements
+    (the elements compare across dtypes: the reference's CPU compile
+    carries many bf16 values as float32): the functional
     collectives DTensor issues (``all_gather_into_tensor``, ``all_reduce``,
     ``reduce_scatter_tensor``, ``all_to_all_single``) are the reference's
     all-gather, all-reduce, reduce-scatter and all-to-all
@@ -93,6 +97,11 @@ class CostTotals:
     collective_counts: Dict[str, float] = field(
         default_factory=lambda: {k: 0.0 for k in COLLECTIVE_KINDS}
     )
+    collective_elements: Dict[str, float] = field(
+        default_factory=lambda: {k: 0.0 for k in COLLECTIVE_KINDS}
+    )
+    #: ``registered_flops`` by operation (``aten.mm``, ``repro_torch.flash_attention``)
+    registered_by_op: Dict[str, float] = field(default_factory=dict)
     #: calls of each ``repro_torch`` custom op (the kernels' launches)
     op_calls: Dict[str, float] = field(default_factory=dict)
 
@@ -105,7 +114,8 @@ class CostTotals:
             "flops": self.flops,
             "transcendentals": self.transcendentals,
             "collectives": {
-                k: {"bytes": self.collective_bytes[k], "count": self.collective_counts[k]}
+                k: {"bytes": self.collective_bytes[k], "count": self.collective_counts[k],
+                    "elements": self.collective_elements[k]}
                 for k in COLLECTIVE_KINDS
             },
             "total_collective_bytes": self.total_collective_bytes,
@@ -114,6 +124,17 @@ class CostTotals:
 
 def _numel(x) -> int:
     return x.numel() if isinstance(x, torch.Tensor) else 0
+
+
+#: the products whose first matrix operand is at this argument index
+_PRODUCTS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
+
+
+def _outer_product(name: str, args) -> bool:
+    """Whether ``name`` is a matrix product whose contraction has size 1."""
+    i = _PRODUCTS.get(name)
+    return i is not None and len(args) > i and isinstance(args[i], torch.Tensor) \
+        and args[i].shape[-1] == 1
 
 
 
@@ -178,10 +199,17 @@ class TraceAnalysis(TorchDispatchMode):
         name = packet.__name__
         if ns == "repro_torch":
             t.op_calls[name] = t.op_calls.get(name, 0.0) + 1
+        if packet in flop_registry and _outer_product(name, args):
+            # a product over a contraction of size 1 is the multiply XLA
+            # rewrites such a dot to (the reference counts no dot for it)
+            t.flops += _numel(out)
+            return
         if packet in flop_registry:
             f = float(flop_registry[packet](*args, **kwargs, out_val=out))
             t.flops += f
             t.registered_flops += f
+            key = f"{ns}.{name}"
+            t.registered_by_op[key] = t.registered_by_op.get(key, 0.0) + f
             return
         if ns == "_dtensor" and name == "shard_dim_alltoall":
             name, ns = "all_to_all_single", "_c10d_functional"
@@ -189,6 +217,7 @@ class TraceAnalysis(TorchDispatchMode):
             kind = _COLLECTIVES[name]
             outs = [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
             t.collective_bytes[kind] += sum(x.numel() * x.element_size() for x in outs)
+            t.collective_elements[kind] += sum(x.numel() for x in outs)
             t.collective_counts[kind] += 1
             return
         if ns != "aten":

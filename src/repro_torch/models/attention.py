@@ -17,14 +17,9 @@ from typing import Optional
 import torch
 
 from ..distributed import spmd
-from ..distributed.sharding import constrain_batch_dim, is_dtensor
+from ..distributed.sharding import is_dtensor
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import (
-    DENSE_MAX_SEQ,
-    attention_pairs,
-    flash_attention,
-    paged_chunk_attention,
-)
+from ..kernels.flash_attention import flash_attention, paged_chunk_attention
 from ..kernels.flash_attention_bwd import FlashAttentionFn
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -86,9 +81,11 @@ def attention_any(
     an input requires grad: the training forward), the same launch goes
     through ``FlashAttentionFn``, which also saves the row log-sum-exp and
     differentiates with the backward kernel; serving calls never do. On
-    DTensors it runs on each rank's batch and heads (``distributed.spmd``),
-    K/V first batch-sharded alone where the reference's chunked attention
-    constrains them so (keys past ``DENSE_MAX_SEQ`` outside a band); queries
+    DTensors it runs on each rank's batch and heads (``distributed.spmd``;
+    K/V stay on the heads their projection left them on: the reference's
+    batch-only constraint on a long prompt's K/V gathers heads a rank already
+    holds, the port's gather would double it with the virtual heads of
+    ``spmd.gqa_kv``); queries
     sharded by sequence over the TP axis (a prefill whose heads do not
     divide it, ``spmd.sequence_parallel``) attend over the gathered keys
     from their positions (``_attention_from``)."""
@@ -98,8 +95,6 @@ def attention_any(
                 lambda q, k, v, lo: _attention_from(q, k, v, lo, causal=causal, window=window,
                                                     scale=scale),
                 q, k, v)
-        if k.shape[1] > DENSE_MAX_SEQ and attention_pairs(q.shape[1], k.shape[1], window) == q.shape[1] * k.shape[1]:
-            k, v = constrain_batch_dim(k, 0), constrain_batch_dim(v, 0)
         return spmd.attention(
             lambda q, k, v: attention_any(q, k, v, causal=causal, window=window, scale=scale),
             q, k, v)

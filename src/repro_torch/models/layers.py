@@ -195,7 +195,11 @@ def logical_specs(defs: Tree) -> Tree:
 # Norms                                                                       #
 # --------------------------------------------------------------------------- #
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x * rsqrt(mean(x²) + eps) * weight in float32, cast back to x's dtype."""
+    """x * rsqrt(mean(x²) + eps) * weight in float32, cast back to x's dtype;
+    on a DTensor whose rows split over the DP axes by their last dim (a
+    batch of one), each rank's columns (``spmd.split_rms_norm``)."""
+    if is_dtensor(x) and not spmd.rowwise_ok(x):
+        return spmd.split_rms_norm(x, weight, eps)
     return F.rms_norm(x.float(), (x.shape[-1],), weight.float(), eps).to(x.dtype)
 
 
@@ -203,7 +207,10 @@ def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float = 1e-5
 ) -> torch.Tensor:
     """(x - mean) * rsqrt(var + eps) * weight (+ bias) in float32, cast back
-    to x's dtype."""
+    to x's dtype. On DTensors each rank normalises its own rows
+    (``spmd.rowwise``)."""
+    if is_dtensor(x) and spmd.rowwise_ok(x):
+        return spmd.rowwise(lambda x, w, b: layer_norm(x, w, b, eps), x, weight, bias)
     b = None if bias is None else bias.float()
     return F.layer_norm(x.float(), (x.shape[-1],), weight.float(), b, eps).to(x.dtype)
 
@@ -340,6 +347,13 @@ def mlp_activation(h: torch.Tensor, kind: str, dtype: torch.dtype) -> torch.Tens
 
 
 def mlp_apply(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str) -> torch.Tensor:
+    """The MLP block; on a DTensor sharded by sequence over the TP axis (a
+    prefill's sequence shards) each rank's rows with the weights gathered
+    (``spmd.rowwise``)."""
+    if is_dtensor(x) and spmd.is_seq_sharded(x):
+        keys = sorted(p)
+        return spmd.rowwise(lambda x, *ws: mlp_apply(x, dict(zip(keys, ws)), kind), x,
+                            *(p[k] for k in keys))
     if kind == "swiglu":
         gate = x @ p["w_gate"]
         up = x @ p["w_up"]

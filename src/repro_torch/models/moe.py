@@ -118,7 +118,8 @@ def moe_apply(
         # scatter the kept choices into per-expert capacity buffers; a dropped
         # choice adds zeros at slot C - 1 (kept slots are distinct, so every
         # sum is one value plus zeros: exact in any order)
-        n_groups = xg.shape[0]
+        # (on a mesh ``d`` is the rank's slice of the model width)
+        n_groups, d = xg.shape[0], xg.shape[-1]
         r = moe_route(xg, router, e, k, capacity_factor, logits)
         xk = xg[:, :, None].expand(n_groups, g, k, d).reshape(n_groups, g * k, d)  # (G, T, D)
         contrib = torch.where(r.within[..., None], xk, 0).to(x.dtype)
@@ -126,24 +127,30 @@ def moe_apply(
         expert_in.scatter_add_(1, r.slot[..., None].expand(-1, -1, d), contrib)
         return r, expert_in
 
-    def experts(expert_in, w):
+    def experts(expert_in, w, bmm=None):
         # (G, E, C, D) → one batched product over the experts of ``w``
-        n_groups, ne = expert_in.shape[0], w["w_up"].shape[0]
+        # (``bmm(x, name)``: on a mesh, a product with the weights left
+        # where they lie)
+        bmm = bmm or (lambda t, k: torch.bmm(t, w[k]))
+        n_groups, ne, d = expert_in.shape[0], w["w_up"].shape[0], expert_in.shape[-1]
         cap = expert_in.shape[1] // ne
         ein = expert_in.view(n_groups, ne, cap, d).transpose(0, 1).reshape(ne, n_groups * cap, d)
         if mlp_kind == "swiglu":
-            gate_h = torch.bmm(ein, w["w_gate"])
-            up_h = torch.bmm(ein, w["w_up"])
+            gate_h = bmm(ein, "w_gate")
+            up_h = bmm(ein, "w_up")
             h = torch.nn.functional.silu(gate_h.float()).to(x.dtype) * up_h
         else:
-            h = mlp_activation(torch.bmm(ein, w["w_up"]), mlp_kind, x.dtype)
-        out = torch.bmm(h, w["w_down"])                           # (E, G*C, D)
+            h = mlp_activation(bmm(ein, "w_up"), mlp_kind, x.dtype)
+        out = bmm(h, "w_down")                                    # (E, G*C, D)
+        d = out.shape[-1]
         return out.view(ne, n_groups, cap, d).transpose(0, 1).reshape(n_groups, ne * cap, d)
 
-    def combine(r, expert_out):
-        # gather each choice's expert output, weight it by its gate, sum over k
-        n_groups = expert_out.shape[0]
-        out_k = torch.gather(expert_out, 1, r.slot[..., None].expand(-1, -1, d)).float()
+    def combine(r, expert_out, reduce=lambda t: t):
+        # gather each choice's expert output (``reduce``d: on a mesh, summed
+        # over the ranks that hold a part of it), weight it by its gate, sum
+        # over k
+        n_groups, d = expert_out.shape[0], expert_out.shape[-1]
+        out_k = reduce(torch.gather(expert_out, 1, r.slot[..., None].expand(-1, -1, d))).float()
         out_k = out_k * (r.gate_vals.reshape(n_groups, g * k) * r.within)[..., None]
         return out_k.view(n_groups, g, k, d).sum(dim=2).to(x.dtype)
 

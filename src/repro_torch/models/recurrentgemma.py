@@ -310,8 +310,12 @@ class RecurrentGemma:
         # on a mesh: batch over the DP axes, the RG-LRU width over TP, and so
         # its gradient (the conv's shifted slices would leave it sequence-sharded)
         conv = constrain_rnn(conv)
-        r_g = torch.sigmoid(constrain_rnn(conv @ lp["w_rgate"]))
-        i_g = torch.sigmoid(constrain_rnn(conv @ lp["w_igate"]))
+        # a batch the DP axes do not shard (a batch of one): they split the
+        # gates' columns (``spmd.idle_dp_columns``)
+        gate_proj = (spmd.idle_dp_columns if is_dtensor(conv) and spmd.swappable(conv)
+                     else torch.matmul)
+        r_g = torch.sigmoid(constrain_rnn(gate_proj(conv, lp["w_rgate"])))
+        i_g = torch.sigmoid(constrain_rnn(gate_proj(conv, lp["w_igate"])))
         a = torch.exp(lp["neg_c_lam"] * r_g)
         gated_x = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-9)) * (i_g * conv)
         if len_vec is not None:
@@ -425,24 +429,31 @@ class RecurrentGemma:
 
     def _run_layers(self, h: torch.Tensor, rec, attn, run) -> torch.Tensor:
         """Every layer in order, each period's recurrent A and B blocks and
-        its attention block, then the recurrent tail: ``h = run(rec, h,
-        stack, i, state)`` for layer ``i`` of the recurrent stack ``stack``
-        whose state is ``state`` (A's, B's, tail), ``h = run(attn, h, p)``
-        for period ``p``'s attention block."""
+        its attention block (``h = run(period, h, p)``), then the recurrent
+        tail: ``h = rec(h, stack, i, state)`` for layer ``i`` of the
+        recurrent stack ``stack`` whose state is ``state`` (A's, B's,
+        tail), ``h = attn(h, p)`` for period ``p``'s attention block."""
         pa = self.n_periods
+
+        def period(h, p):
+            h = rec(h, "rec_a", p, p)
+            h = rec(h, "rec_b", p, pa + p)
+            return attn(h, p)
+
         for p in range(pa):
-            h = run(rec, h, "rec_a", p, p)
-            h = run(rec, h, "rec_b", p, pa + p)
-            h = run(attn, h, p)
+            h = run(period, h, p)
         for t in range(self.n_tail_rec):
-            h = run(rec, h, "rec_tail", t, 2 * pa + t)
+            h = rec(h, "rec_tail", t, 2 * pa + t)
         return h
 
     def _train_seq(self, params: Params, tokens: torch.Tensor, remat: bool) -> torch.Tensor:
         """Final-normed hidden states of the training forward: the serving
         path's layers in order, every state from zero, each layer's views
         built inside it (a rematerialised layer rebuilds them from the
-        leaves) and each layer checkpointed under ``remat``."""
+        leaves); under ``remat`` each (rec, rec, attn) period is
+        checkpointed and the recurrent tail is not, as the reference
+        checkpoints its period body (``jax.checkpoint`` of the scan's
+        ``period_body``)."""
         cfg = self.cfg
         b, s = tokens.shape
         h = embed_tokens(tokens, params["embed"]).to(self.dtype)
@@ -457,9 +468,10 @@ class RecurrentGemma:
             h, _ = self._attn_block_seq(h, at, rope, own_kv=True)
             return self._mlp_block(h, at)
 
-        run = ((lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) if remat
-               else (lambda fn, *a: fn(*a)))
-        h = self._run_layers(h, rec, attn, run)
+        if remat:
+            h = self._run_layers(h, rec, attn, lambda fn, *a: checkpoint(fn, *a, use_reentrant=False))
+        else:
+            h = self._run_layers(h, rec, attn, lambda fn, *a: fn(*a))
         return apply_norm(h, params["norm_final"], cfg.norm_kind, cfg.norm_eps)
 
     def forward(

@@ -58,6 +58,7 @@ from ..distributed import spmd
 from ..distributed.sharding import (
     constrain_batch_dim,
     constrain_kv_for_cache,
+    constrain_rows,
     constrain_residual,
     gather_fsdp,
     is_dtensor,
@@ -192,17 +193,20 @@ class TransformerLM:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.param_defs(), gen, self.device)
 
-    def _layer_view(self, blocks, l: int) -> Params:
+    def _layer_view(self, blocks, l: int, keep=()) -> Params:
         """Layer ``l``'s views of the block weights — the stacked tree (each
         leaf ``(L, ...)``) or a list of per-layer trees — with the
         projection matrices flattened to 2-D and the norm parameters in
-        float32."""
+        float32. On a mesh the layer's FSDP shards are gathered (GSPMD's
+        all-gather) but those of the weights in ``keep``, which
+        ``spmd.grad_split_proj`` gathers itself, and the MoE's, which
+        ``spmd.moe`` gathers or leaves where they lie."""
         cfg, hd = self.cfg, self.hd
         d = cfg.d_model
         f32 = lambda x: x.float()
         ffn = "moe" if cfg.is_moe else "mlp"
-        # on a mesh, the layer's FSDP shards gathered (GSPMD's all-gather)
-        layer = tree_map(gather_fsdp, layer_slice(blocks, l))
+        layer = {k: v if k in keep or k == "moe" else tree_map(gather_fsdp, v)
+                 for k, v in layer_slice(blocks, l).items()}
         lp: Params = {
             "norm_attn": {k: f32(w) for k, w in layer["norm_attn"].items()},
             "norm_mlp": {k: f32(w) for k, w in layer["norm_mlp"].items()},
@@ -352,10 +356,11 @@ class TransformerLM:
         if self.cfg.use_bias:
             out = out + lp["bo"]
         # on a mesh the residual stream stays batch-sharded and replicated
-        # over the TP axis: the row-parallel product's partial sums are
-        # all-reduced here, and (the constraint on each sum with the residual)
-        # the column-parallel products' input gradients where they join it
-        return constrain_batch_dim(out, 0)
+        # over the TP axis (a prefill's sequence shards stay so): the
+        # row-parallel product's partial sums are all-reduced here, and (the
+        # constraint on each sum with the residual) the column-parallel
+        # products' input gradients where they join it
+        return constrain_rows(out)
 
     def _ffn(self, h: torch.Tensor, lp: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Norm and MLP (or MoE, whose groups and capacity follow ``h``'s
@@ -369,9 +374,9 @@ class TransformerLM:
                 mlp_kind=cfg.mlp_kind, capacity_factor=cfg.moe_capacity_factor,
                 group_size=cfg.moe_group_size,
             )
-            return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0), aux
+            return constrain_rows(h + constrain_rows(out)), aux
         out = mlp_apply(x, lp["mlp"], cfg.mlp_kind)
-        return constrain_batch_dim(h + constrain_batch_dim(out, 0), 0), None
+        return constrain_rows(h + constrain_rows(out)), None
 
     def _mlp_block(self, h: torch.Tensor, lp: Params) -> torch.Tensor:
         return self._ffn(h, lp)[0]
@@ -404,8 +409,8 @@ class TransformerLM:
         layer's views are built here, so a rematerialised block rebuilds
         them from the leaves."""
         cfg = self.cfg
-        lp = self._layer_view(blocks, l)
         split = spmd.grad_split(layer_slice(blocks, l)["wq"], cfg.n_heads) if is_dtensor(h) else 1
+        lp = self._layer_view(blocks, l, spmd.ATTN_WEIGHTS if split > 1 else ())
         x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
         q, k, v = self._qkv_block(x, lp, "own", split)
         q, k = apply_rope_tables(q, cos, sin), apply_rope_tables(k, cos, sin)
@@ -481,14 +486,14 @@ class TransformerLM:
         if ring:
             pos_map = ring_positions_prefill(b, cache["k"].shape[2], len_vec)
         h = self._merge_patches(self._embed(tokens, params), patch_embeds)
-        # on a mesh whose TP axis the heads do not divide, the attention
-        # block runs on sequence shards (the cache's layout)
+        # on a mesh whose TP axis the heads do not divide, every layer runs
+        # on sequence shards (the cache's layout), gathered at the end
         seq_par = not ring and is_dtensor(h) and spmd.sequence_parallel(h, cfg.n_heads, cache["k"][0])
+        if seq_par:
+            h = spmd.seq_shard(h)
         for l, lp in enumerate(self._layer_params(params)):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-            if seq_par:
-                x = spmd.seq_shard(x)
             q, k, v = self._qkv_block(x, lp, "ring" if ring else "cache")
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
             if ring and is_dtensor(k) and k.shape[2] != cfg.n_kv_heads:
@@ -503,6 +508,8 @@ class TransformerLM:
                                  constrain_kv_for_cache(v, cfg.n_kv_heads), 0)
             attn = attention_any(q, k, v, causal=True, window=cfg.sliding_window)
             h = constrain_residual(self._mlp_block(h + self._attn_out(attn, lp), lp))
+        if seq_par:
+            h = constrain_batch_dim(h, 0)
         if lengths is None:
             h_last = h[:, -1]
         else:
@@ -678,12 +685,20 @@ class TransformerLM:
             kv_lens = new_lens
         h = self._embed(tokens[:, None], params)
         # on a mesh, FSDP-sharded K/V weights whose heads do not divide the
-        # TP axis project over TP shards of the contraction
-        fsdp = is_dtensor(h) and spmd.fsdp_blocks(layer_slice(params["blocks"], 0)["wk"], 0) > 1
-        for l, lp in enumerate(self._layer_params(params)):
+        # TP axis project over TP shards of the contraction; where the DP
+        # axes do not divide the batch (a batch of one), every weight stays
+        # where it lies and each product runs over the rank's slice of its
+        # contraction (``spmd.idle_dp``)
+        blocks = params["blocks"]
+        fsdp = is_dtensor(h) and spmd.fsdp_blocks(layer_slice(blocks, 0)["wk"], 0) > 1
+        idle = fsdp and spmd.idle_dp(h)
+        keep = spmd.ATTN_WEIGHTS + ("mlp",)
+        layers = ([self._layer_view(blocks, l, keep) for l in range(cfg.n_layers)] if idle
+                  else self._layer_params(params))
+        for l, lp in enumerate(layers):
             kc, vc = cache["k"][l], cache["v"][l]
             x = apply_norm(h, lp["norm_attn"], cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv_block(x, lp, "contract" if fsdp else "replicated")
+            q, k, v = self._qkv_block(x, lp, "contract" if fsdp and not idle else "replicated")
             q, k = apply_rope_tables(q, *rope), apply_rope_tables(k, *rope)
             write_token(kc, vc, k, v, plan)
             attn = decode_any(q[:, 0], kc, vc, kv_lens)

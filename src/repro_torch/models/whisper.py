@@ -77,6 +77,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor, dim: int, split: int) -> torch.Tenso
     return x @ w
 
 
+def _gather_layer(raw: Params, split: int) -> Params:
+    """A layer's FSDP shards gathered (``gather_fsdp``), but, where the
+    attention weights' gradients split into FSDP blocks (``split`` > 1),
+    the attention projections, which ``spmd.grad_split_proj`` gathers
+    itself."""
+    keep = spmd.ATTN_WEIGHTS if split > 1 else ()
+    return {k: {n: w if n in keep else tree_map(gather_fsdp, w) for n, w in v.items()}
+            if k.endswith("attn") else tree_map(gather_fsdp, v) for k, v in raw.items()}
+
+
 class Whisper:
     """Whisper on ``device`` (default the CUDA device; raises if there is
     none — pass ``device="cpu"`` for the plain path)."""
@@ -183,7 +193,7 @@ class Whisper:
         sequence shards over the TP axis (``spmd.sequence_parallel``)."""
         raw = layer_slice(stack, i)
         split = self._grad_split(h, raw["attn"])
-        lp = tree_map(gather_fsdp, raw)
+        lp = _gather_layer(raw, split)
         x = self._norm(h, lp["norm_attn"])
         if seq:
             x = spmd.seq_shard(x)
@@ -200,7 +210,7 @@ class Whisper:
         the encoder's (the caches' layout)."""
         raw = layer_slice(stack, i)
         split = self._grad_split(h, raw["self_attn"])
-        lp = tree_map(gather_fsdp, raw)
+        lp = _gather_layer(raw, split)
         sa, ca = lp["self_attn"], lp["cross_attn"]
         shard = spmd.seq_shard if seq else (lambda t: t)
         x = shard(self._norm(h, lp["norm_self"]))
@@ -314,7 +324,7 @@ class Whisper:
         # blocks run on sequence shards (the caches' layout)
         n_heads, sc = self.cfg.n_heads, cache["self"]
         enc_seq = is_dtensor(patch_embeds) and spmd.sequence_parallel(
-            patch_embeds, n_heads, cache["cross_k"][0])
+            patch_embeds, n_heads, cache["cross_k"][0], in_loop=False)
         enc = self.encode(params, patch_embeds, seq=enc_seq)
         h = self._embed(params, tokens)
         dec_seq = enc_seq and spmd.sequence_parallel(h, n_heads, sc["k"][0])

@@ -180,7 +180,9 @@ class XLSTM:
             if axis.mode == "contraction":
                 rows, cols = axis.block(d), axis.block(d)
                 view.update(m_in=view["m_in"][rows], s_in=view["s_in"][rows],
-                            m_out=view["m_out"][:, cols], s_out=view["s_out"][:, cols])
+                            m_out=view["m_out"][:, cols], s_out=view["s_out"][:, cols],
+                            m_norm={k: w[cols] for k, w in mp["norm"].items()},
+                            s_norm={k: w[cols] for k, w in sp["norm"].items()})
         return view
 
     def _build_views(self, pairs: Params) -> List[Params]:
@@ -249,10 +251,18 @@ class XLSTM:
         cfg, hd = self.cfg, self.hd
         b, H = x.shape[0], states[0][2].shape[1]     # the heads the states hold
         nq = H * hd
-        h, out_states = x, []
+        # under a "contraction" axis the stream is this rank's columns
+        cols = axis is not None and axis.mode == "contraction"
+        h, out_states = (axis.columns(x) if cols else x), []
+
+        def norm(h, p):
+            if cols:
+                return axis.rms_norm(h, p["scale"], cfg.norm_eps).float()
+            return apply_norm(h, p, cfg.norm_kind, cfg.norm_eps).float()
+
         for v, (mC, mn, mm, sc, sn, sh, sm) in zip(views, states):
             # --- mLSTM block ------------------------------------------ #
-            xn = apply_norm(h, v["m_norm"], cfg.norm_kind, cfg.norm_eps).float()
+            xn = norm(h, v["m_norm"])
             if axis is None:
                 proj = xn @ v["m_in"]
             else:
@@ -266,10 +276,11 @@ class XLSTM:
                 gate = F.silu(proj[:, 3 * nq + 2 * H:])
                 out = (hm.reshape(b, nq) @ v["m_out"]) * gate
             else:
-                out = axis.project_out(hm.reshape(b, nq), v["m_out"]) * axis.gather(F.silu(gate))
+                gate = F.silu(gate) if cols else axis.gather(F.silu(gate))
+                out = axis.project_out(hm.reshape(b, nq), v["m_out"]) * gate
             h = h + out.to(h.dtype)
             # --- sLSTM block ------------------------------------------ #
-            xn = apply_norm(h, v["s_norm"], cfg.norm_kind, cfg.norm_eps).float()
+            xn = norm(h, v["s_norm"])
             rec = torch.einsum("bhk,hkj->bhj", sh, v["s_rec"])            # (B, H, 4 hd)
             pre = xn @ v["s_in"] if axis is None else axis.project_in(xn, v["s_in"])[0]
             gate_pre = [pre[:, j * nq:(j + 1) * nq].reshape(b, H, hd) + rec[..., j * hd:(j + 1) * hd]
@@ -281,11 +292,11 @@ class XLSTM:
                 out = axis.project_out(hs.reshape(b, nq), v["s_out"])
             h = h + out.to(h.dtype)
             out_states.append((mC, mn, mm, sc, sn, sh, sm))
-        return out_states, h
+        return out_states, (axis.gather(h) if cols else h)
 
     #: the weights every rank holds whole but multiplies a slice of when the
     #: heads do not divide the TP axis (their gradients partial over it)
-    SLICED = frozenset(("wq", "wk", "wv", "wif", "wz", "wi", "wf", "wo", "wout"))
+    SLICED = frozenset(("wq", "wk", "wv", "wif", "wz", "wi", "wf", "wo", "wout", "scale"))
 
     def _on_shards(self, fn, views, states, *batched):
         """``fn(views, states, *batched, axis)`` on each rank's shards of

@@ -6,7 +6,9 @@ of ``repro.launch.hlo_analysis``).
   unroll in the trace, so no trip counts are read).
 * Collectives by kind with their result buffers' bytes, for redistributes
   whose traffic is known, on a fake world of 8 (2 x 4 data x model); the
-  global-shape runs of DTensor's sharding propagation are not counted.
+  global-shape runs of DTensor's sharding propagation are not counted. Their
+  elements, the same in any dtype (what the full-size parity compares), and
+  the registered FLOPs by operation.
 * Live and peak bytes: arguments, an allocation and its release.
 * ``registered_flops`` equals ``FlopCounterMode``'s total over the same
   step: the smoke Qwen3 train step, real tensors under the counter and fake
@@ -103,6 +105,20 @@ def test_collectives_by_kind_with_bytes(mesh):
     got = _kinds(m)
     assert got["all-reduce"] == (1, 8 * 64 * 4)
     assert got["reduce-scatter"] == (1, 8 * 16 * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collective_elements_do_not_depend_on_the_dtype(mesh, dtype):
+    from torch.distributed.tensor import Replicate, Shard
+
+    fa = FakeArgs(mesh)
+    x = fa.tensor((16, 64), dtype, ("data", "model"))
+    w = fa.tensor((64, 32), dtype, ())
+    with fa.mode, analysing() as m:
+        x.redistribute(mesh, (Shard(0), Replicate())) @ w          # all-gather over model
+    c = m.totals.as_dict()["collectives"]["all-gather"]
+    assert (c["count"], c["elements"], c["bytes"]) == (1, 8 * 64, 8 * 64 * x.element_size())
+    assert m.totals.registered_by_op == {"aten.mm": 2 * 8 * 64 * 32}
 
 
 def test_sharded_product_counts_local_shapes_only(mesh):

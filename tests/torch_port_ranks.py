@@ -262,14 +262,14 @@ def _values_inputs(cfg, rng):
     return batch, extra, step
 
 
-def _serve(model, params, tokens, extra, step):
-    """Prefill ``tokens`` into a fresh cache, then one decode step of
-    ``step``: the two logits."""
+def _serve(model, params, tokens, extra, step, batch=VALUES_B):
+    """Prefill ``tokens`` into a fresh cache of ``batch`` slots, then one
+    decode step of ``step``: the two logits."""
     if model.cfg.family == "audio":
-        cache = model.cache_init(VALUES_B, VALUES_CACHE, enc_len=VALUES_S)
+        cache = model.cache_init(batch, VALUES_CACHE, enc_len=VALUES_S)
         prefill, _ = model.prefill(params, tokens, cache, patch_embeds=extra["frames"])
     else:
-        cache = model.cache_init(VALUES_B, VALUES_CACHE)
+        cache = model.cache_init(batch, VALUES_CACHE)
         prefill, _ = model.prefill(params, tokens, cache)
     decode, _ = model.decode_step(params, step, cache)
     return prefill, decode
@@ -293,20 +293,35 @@ def spmd_values(rank, world, mesh_shape, archs, fsdp_at_serve, out):
     process (plain tensors a step makes itself taken as replicated, as the
     dry-run takes them). Rank 0 writes ``values_<mesh>.json``: the loss's absolute
     error, each gradient leaf's largest error over its largest magnitude
-    (the worst leaf), and the logits' largest absolute errors."""
+    (the worst leaf), and the logits' largest absolute errors. An arch
+    ``"<arch>@<n>e"`` is its smoke config with ``n`` experts; ``stationary``
+    counts the MoE blocks that left their expert weights in place
+    (``spmd._stationary_experts``)."""
     import json
 
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import input_specs_for
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.plan import plan_for
 
+    stationary = [0]
+    chooser = spmd._stationary_experts
+
+    def counting(*a, **k):
+        bmm = chooser(*a, **k)
+        stationary[0] += bmm is not None
+        return bmm
+
+    spmd._stationary_experts = counting
     mesh = make_mesh(tuple(mesh_shape), ("data", "model"), "cpu")
     results = {}
-    for arch in archs:
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    for name in archs:
+        arch, _, variant = name.partition("@")
+        cfg = _variant(dataclasses.replace(get_smoke_config(arch), dtype="float32"), variant)
+        stationary[0] = 0
         plain, sharded = get_model(cfg, device="cpu"), get_model(cfg, device="cpu")
         params = plain.init_params(0)
         defs = plain.param_defs()
@@ -348,9 +363,97 @@ def spmd_values(rank, world, mesh_shape, archs, fsdp_at_serve, out):
         with implicit_replication():
             got = _serve(sharded, _on_mesh(params, specs, mesh), dtokens, dextra, dstep)
         r["prefill"], r["decode"] = (float((_full(g) - w).abs().max()) for g, w in zip(got, want))
-        results[arch] = r
+        r["stationary"] = stationary[0]
+        results[name] = r
     if rank == 0:
         (Path(out) / f"values_{mesh_shape[0]}x{mesh_shape[1]}.json").write_text(json.dumps(results))
+
+
+def _variant(cfg, variant: str):
+    """``cfg`` with ``n`` experts (``"<n>e"``) or ``n`` heads and KV heads
+    (``"<n>h"``)."""
+    if not variant:
+        return cfg
+    n = int(variant[:-1])
+    if variant[-1] == "e":
+        return dataclasses.replace(cfg, n_experts=n)
+    return dataclasses.replace(cfg, n_heads=n, n_kv_heads=n)
+
+
+def spmd_values_one(rank, world, archs, out):
+    """A batch of one served on DTensors over a (2, 2, 2) mesh of the world
+    (pod x data x model: the data and model axes of one size, the batch too
+    small for the DP axes, as in the production meshes' long_500k cells):
+    each arch's float32 smoke model prefills a prompt of 16 tokens into a
+    fresh cache and takes the next decode step, against the same model on
+    plain tensors (the serve plan on both DP axes; FSDP weights for Mixtral,
+    the reference's plan). Rank 0 writes ``values_one.json``: the logits'
+    largest absolute errors by arch (``"<arch>@<n>e"``: ``n`` experts,
+    ``"<arch>@<n>h"``: ``n`` heads) and the batch-of-one local forms it
+    took, by the calls that took them."""
+    import json
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.distributed import op_rules
+    from repro_torch.distributed.sharding import input_specs_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.plan import plan_for
+
+    op_rules.register()       # RecurrentGemma's RG-LRU scan runs on DTensors
+    # the local forms of a batch of one, counted by the calls that took them
+    from repro_torch.distributed import spmd
+
+    calls = {}
+
+    def counted(name, fn, took=lambda r: True):
+        def run(*a, **k):
+            r = fn(*a, **k)
+            calls[name] = calls.get(name, 0) + bool(took(r))
+            return r
+        return run
+
+    for name in ("idle_dp_columns", "_decode_heads_over_dp", "split_rms_norm"):
+        setattr(spmd, name, counted(name, getattr(spmd, name)))
+    spmd._stationary_experts = counted("_stationary_experts", spmd._stationary_experts,
+                                       lambda r: r is not None)
+    swap_in = spmd.ModelAxis.project_in
+
+    def project_in(self, x, w, w_side=None):
+        calls["ModelAxis.swap"] = calls.get("ModelAxis.swap", 0) + bool(self.swap and w_side is not None)
+        return swap_in(self, x, w, w_side)
+
+    spmd.ModelAxis.project_in = project_in
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    results = {}
+    for name in archs:
+        arch, _, variant = name.partition("@")
+        cfg = _variant(dataclasses.replace(get_smoke_config(arch), dtype="float32"), variant)
+        plain, sharded = get_model(cfg, device="cpu"), get_model(cfg, device="cpu")
+        params = plain.init_params(0)
+        defs = plain.param_defs()
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, VALUES_S)).astype(np.int32))
+        step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1,)).astype(np.int32))
+        scfg = plan_for(arch, "long_500k", True)["sharding"]
+        if arch == "mixtral_8x22b":
+            scfg = dataclasses.replace(scfg, fsdp_weights=True)
+        specs = build_param_specs(abstract_params(defs), logical_specs(defs), mesh, scfg)
+        with torch.no_grad():
+            want = _serve(plain, params, tokens, {}, step, batch=1)
+        sharded.cache_init = _sharded_cache(sharded, mesh, scfg)
+        _, in_specs = input_specs_for(cfg, ShapeCell("prefill", VALUES_S, 1, "prefill"), mesh, scfg)
+        with implicit_replication():
+            got = _serve(sharded, _on_mesh(params, specs, mesh),
+                         distribute(tokens, mesh, in_specs["tokens"]), {}, distribute(step, mesh, ()),
+                         batch=1)
+        results[name] = {"prefill": float((_full(got[0]) - want[0]).abs().max()),
+                         "decode": float((_full(got[1]) - want[1]).abs().max()),
+                         "calls": dict(calls)}
+        calls.clear()
+    if rank == 0:
+        (Path(out) / "values_one.json").write_text(json.dumps(results))
 
 
 def _sharded_cache(model, mesh, scfg):
