@@ -22,6 +22,13 @@ public recording method).
 An Observation records exactly one serve: create a fresh instance per
 serve (checkpoint restore of the *same* serve round-trips through
 ``state_dict``/``load_state_dict``).
+
+Apart from the Observation, each engine owns a :class:`HostSpans`
+(``Engine.host``, module ``host``): wall-clock spans of its own host work,
+one ``engine.step`` a ``serve_step`` with its phases (scheduling, policy,
+planning, input load, sync, launch, wait, commit). They are always on, fire
+no Observation callback, are not in ``state_dict()``, and reach the profiler
+(ranges of the same names) only while a ``torch.profiler`` session records.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Callable, Dict, List, Optional
 
 from .audit import AuditLog, AuditRecord
 from .export import perfetto_trace, write_trace
+from .host import HostSpans
 from .lifecycle import (
     CAPACITY_CLASSES,
     capacity_attribution,
@@ -42,7 +50,7 @@ from .metrics import MetricDeclarationError, MetricSpec, MetricsRegistry
 from .spans import SpanEvent, SpanLog
 
 __all__ = [
-    "Observation",
+    "Observation", "HostSpans",
     "MetricsRegistry", "MetricSpec", "MetricDeclarationError",
     "SpanLog", "SpanEvent",
     "AuditLog", "AuditRecord",

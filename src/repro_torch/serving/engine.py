@@ -47,6 +47,13 @@ Stochastic samplers (``serving.sampler.TopPSampler``) draw from threefry
 keys folded from ``(sample_seed, rid, token index)``, JAX's streams. With
 ``EngineConfig.observe`` set to a ``repro_torch.obs.Observation`` the serve
 records the reference's spans, capacity samples, audit records and metrics.
+
+Apart from that, every engine records the wall-clock spans of its own host
+work (``Engine.host``, a ``repro_torch.obs.host.HostSpans``): one
+``engine.step`` a ``serve_step``, its phases from scheduling through the
+replay to the commit. They are always on, cost no ``Observation`` callback,
+stay out of ``state_dict()`` (wall times do not repeat, and the reference has
+none), and open profiler ranges only while a profiler records.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from ..core.types import (
     StageKind,
     StageRecord,
 )
+from ..obs.host import HostSpans
 from .graphs import Dispatches, Key, decode_scratch, sm_count
 from .kv_slots import PagedSlotManager, SlotManager
 from .overload import OverloadPolicy
@@ -336,6 +344,8 @@ class Engine:
         # emission site dead. A Fleet sets obs_replica after construction.
         self.obs = config.observe
         self.obs_replica = 0
+        # wall-clock spans of every serve_step's phases (repro_torch.obs.host)
+        self.host = HostSpans()
         if config.kv_layout == "paged":
             self.slots.obs = self.obs
         # migrated-in slots awaiting their first post-import dispatch —
@@ -371,6 +381,26 @@ class Engine:
         )
         return self.sampler(logits, keys)
 
+    def _replay_timed(
+        self, key: Key, read: Callable[[Any], np.ndarray]
+    ) -> Tuple[np.ndarray, float]:
+        """Synchronise, replay ``key`` and bring its outputs to the host
+        with ``read``. Returns (what ``read`` returned, the stage's duration:
+        replay to host copy, over ``speed_factor``), marking the host spans'
+        sync, launch, wait and commit on the same two clock readings and
+        tagging the step with ``key``."""
+        self.host.tag(key.kind, key.shape)
+        self.host.enter("engine.sync")
+        self._sync()
+        t0 = time.perf_counter()
+        self.host.enter("engine.launch", t0)
+        out = self.graphs.replay(key)
+        self.host.enter("engine.wait")
+        host = read(out)
+        t1 = time.perf_counter()
+        self.host.enter("engine.commit", t1)
+        return host, (t1 - t0) / self.speed_factor
+
     def _observe_prefill(self, total_tokens: int, dt: float) -> None:
         """Feed the profiler and run straggler mitigation."""
         self.profiler.record_prefill(total_tokens, dt)
@@ -384,6 +414,7 @@ class Engine:
     def _run_prefill_stage(self, pairs: List[Tuple[ClientState, Request]]):
         """Execute one packed whole-prompt prefill (dense layout); returns
         (duration_s, total_tokens)."""
+        self.host.enter("engine.load")
         reqs = [r for _, r in pairs]
         slots = [c.cid for c, _ in pairs]
         max_len = max(r.n_prefill for r in reqs)
@@ -397,13 +428,10 @@ class Engine:
         key = self._key("prefill", n_pad, s_pad)
         pref_cache = self.graphs.prepare(key).inputs["cache"]
         self.graphs.load(key, tokens=tokens, lengths=lengths)
-        self._sync()
-        t0 = time.perf_counter()
-        logits = self.graphs.replay(key)
         # the stage's host sync; the first token is sampled outside the
         # graph, as outside the reference's ``_prefill_jit``
-        first = self._sample_first(logits, [r.rid for r in reqs]).cpu().numpy()
-        dt = (time.perf_counter() - t0) / self.speed_factor
+        first, dt = self._replay_timed(key, lambda logits: self._sample_first(
+            logits, [r.rid for r in reqs]).cpu().numpy())
         self._pending_dev_valid = False  # prefill rewrites pending tokens
         # scatter only the real rows (the batch was padded to a bucket)
         n = len(slots)
@@ -725,6 +753,7 @@ class Engine:
     def _run_chunk_round(self):
         """One chunk round over every mid-prefill slot; returns
         (duration, chunk_tokens, finished_slots, busy, busy_partial)."""
+        self.host.enter("engine.load")
         states = [self._chunking[s] for s in sorted(self._chunking)]
         c = self.cfg.prefill_chunk
         n_pad = _bucket(len(states), self.cfg.prefill_req_buckets)
@@ -742,12 +771,9 @@ class Engine:
         key = self._key("chunk", n_pad)
         self.graphs.prepare(key)
         self.graphs.load(key, tokens=tokens, slot_ids=slot_ids, starts=starts, lens=lens)
-        self._sync()
-        t0 = time.perf_counter()
-        logits = self.graphs.replay(key)
         # the stage's host sync (first tokens sampled outside the graph)
-        first = self._sample_first(logits, [st.req.rid for st in states]).cpu().numpy()
-        dt = (time.perf_counter() - t0) / self.speed_factor
+        first, dt = self._replay_timed(key, lambda logits: self._sample_first(
+            logits, [st.req.rid for st in states]).cpu().numpy())
         self._pending_dev_valid = False  # prefill rewrites pending tokens
         busy: Dict[int, int] = {}
         busy_partial: Dict[int, int] = {}
@@ -804,6 +830,7 @@ class Engine:
         planned prefill-chunk rows. Returns (duration, finished_decode_slots,
         decode_tokens, chunk_tokens, finished_chunk_slots, busy,
         busy_partial)."""
+        self.host.enter("engine.load")
         cfg = self.cfg
         j = cfg.n_slots
         decode_slots = self.slots.active_slots
@@ -845,11 +872,8 @@ class Engine:
             lens=lens, dec_active=dec_active, rids=rids, token_idx=token_idx,
             sample_rows=sample_rows,
         )
-        self._sync()
-        t0 = time.perf_counter()
         # the ONE host sync for this round
-        sampled = self.graphs.replay(key).cpu().numpy()
-        dt = (time.perf_counter() - t0) / self.speed_factor
+        sampled, dt = self._replay_timed(key, lambda out: out.cpu().numpy())
         self._pending_dev_valid = False  # pending rebuilt from host below
 
         finished_decode: List[int] = []
@@ -1058,6 +1082,7 @@ class Engine:
         """One fused decode stage of ``k`` iterations over all active slots:
         one queue of device work, ONE host sync at the horizon boundary.
         Returns (duration, finished slots, tokens emitted)."""
+        self.host.enter("engine.load")
         cfg = self.cfg
         slots = self.slots.active_slots
         active = np.zeros(cfg.n_slots, dtype=bool)
@@ -1073,11 +1098,8 @@ class Engine:
         self.graphs.prepare(key)
         self._load_pending()
         self.graphs.load(key, active=active, budgets=budgets, rids=rids, token_idx0=emit0)
-        self._sync()
-        t0 = time.perf_counter()
         # the ONE host sync for this horizon: everything the scheduler needs
-        host = self.graphs.replay(key).cpu().numpy()
-        dt = (time.perf_counter() - t0) / self.speed_factor
+        host, dt = self._replay_timed(key, lambda out: out.cpu().numpy())
         n = cfg.n_slots
         block = host[: k * n].reshape(k, n)
         emitted_k = host[k * n : k * n + n]
@@ -1381,7 +1403,15 @@ class Engine:
     def serve_step(self) -> str:
         """Run at most one stage of the open session. Returns ``"ran"``,
         ``"done"`` (nothing left) or ``"idle"`` (pending work but nothing
-        runnable and no arrival to wait for)."""
+        runnable and no arrival to wait for). Each call is one step of
+        ``self.host``."""
+        self.host.begin(self._sv.t)
+        try:
+            return self._serve_step()
+        finally:
+            self.host.end()
+
+    def _serve_step(self) -> str:
         sv = self._sv
         cfg = self.cfg
         paged = cfg.kv_layout == "paged"
@@ -1390,7 +1420,9 @@ class Engine:
         request_scheduler = sv.scheduler
         iteration_policy = sv.policy
         trace = sv.trace
-        for _attempt in range(4):
+        for attempt in range(4):
+            if attempt:
+                self.host.enter("engine.schedule")
             if sv.stages_run >= cfg.max_stages:
                 raise RuntimeError("max_stages exceeded")
             t = sv.t
@@ -1470,6 +1502,7 @@ class Engine:
                 else None
             )
             t0 = time.perf_counter()
+            self.host.enter("engine.policy", t0)
             decision = iteration_policy.decide(
                 snap, self.profiler.cost_model,
                 k_max=cfg.decode_horizon or cfg.max_decode_horizon,
@@ -1477,7 +1510,9 @@ class Engine:
                 explain=explain,
             )
             do_prefill = decision.prefill
-            trace.decision_times_ms.append((time.perf_counter() - t0) * 1e3)
+            t1 = time.perf_counter()
+            self.host.enter("engine.plan", t1)
+            trace.decision_times_ms.append((t1 - t0) * 1e3)
             if explain:
                 self.obs.audit_record(
                     "prefill_share", t, self.obs_replica, explain,
